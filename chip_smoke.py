@@ -1,0 +1,615 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA card (H100, sm_90a).
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. It builds the hand-written CUDA kernels from
+`src/repro_torch/csrc/` with nvcc (into `build/`), then:
+
+  1. environment: the card, its power limit, torch/CUDA versions, build time;
+     TF32 is switched off for float32 matmuls and convolutions;
+  2. every kernel wrapper against its plain PyTorch version on the card, on
+     the case families of the JAX package's paged-kernel tests (ragged
+     lengths with 0, unmapped -1 tail pages, COW-shared pages, padding
+     ingest rows; head_dim 24/32/128, q_per_kv 1/2/4/6, page 8/16/32,
+     chunk 16/48/64/128), float32 at rtol=atol=2e-5 and bfloat16 at
+     rtol=atol=2e-2;
+  3. each kernel's time at the serving shapes of qwen3-8b and qwen2-1.5b
+     (CUDA events, median of 21 runs, L2 flushed before each), beside its
+     bound, its plain version's time and scaled_dot_product_attention over
+     the gathered KV as a yardstick;
+  4. the TINY test config through the port's engine on the card and on the
+     CPU: greedy tokens equal, logprobs within rtol 1e-4, atol 1e-5;
+  5. the PICE pipeline at full width — qwen3-8b in the cloud, qwen2-1.5b at
+     the edge, random bf16 weights from a seed — on three corpus requests,
+     with every kernel's launch counter read around the pipeline run;
+  6. where each full-width engine's time goes: host wall time against
+     device busy time by kernel (torch.profiler) on a short batch;
+  7. one JSON line of the kernels, the card's name and power limit, and the
+     final {"ok": true, ...} line.
+
+It raises on the first failure and prints the final line only when every
+phase passed. It needs one CUDA card and the repository's `src/`.
+"""
+from __future__ import annotations
+
+import functools
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+def chained_table(torch, lens, page, P, start=0):
+    """Disjoint page chains covering each row's length; tail stays -1."""
+    tbl = torch.full((len(lens), P), -1, dtype=torch.int32)
+    nxt = start
+    for b, ln in enumerate(lens):
+        live = -(-int(ln) // page)
+        tbl[b, :live] = torch.arange(nxt, nxt + live, dtype=torch.int32)
+        nxt += live
+    return tbl.cuda()
+
+
+def pools(torch, gen, n_pages, page, Hkv, hd, dtype):
+    shape = (n_pages, page, Hkv, hd)
+    return (torch.randn(shape, generator=gen, device="cuda").to(dtype),
+            torch.randn(shape, generator=gen, device="cuda").to(dtype))
+
+
+def decode_case(torch, gen, B, Hq, Hkv, hd, page, P, dtype, lens=None,
+                n_pages=None):
+    q = torch.randn(B, 1, Hq, hd, generator=gen, device="cuda").to(dtype)
+    if lens is None:
+        lens = torch.randint(1, P * page + 1, (B,), generator=gen,
+                             device="cuda").cpu()
+        lens[0] = 0                                  # a length-0 slot
+        lens[-1] = page + page // 2 if P > 1 else page // 2
+    table = chained_table(torch, lens, page, P)
+    kp, vp = pools(torch, gen, n_pages or B * P + 2, page, Hkv, hd, dtype)
+    lens = torch.as_tensor(lens, dtype=torch.int32).cuda()
+    return q, kp, vp, table, lens
+
+
+def prefill_case(torch, gen, Hq, Hkv, hd, page, C, dtype, offs=None,
+                 lens=None, share=True, n_pages=None):
+    if offs is None:
+        # a mid-prompt chunk, a first chunk, a short tail chunk, padding
+        offs, lens = [C, 0, page + 3, 0], [C, C // 2, 5, 0]
+    offs = torch.tensor(offs, dtype=torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32)
+    P = -(-int((offs + lens).max()) // page) + 1
+    table = chained_table(torch, (offs + lens).tolist(), page, P)
+    if share and len(offs) > 1 and table[0, 1] >= 0:
+        table[1, :2] = table[0, :2]                  # COW-shared prefix pages
+    kp, vp = pools(torch, gen, n_pages or int(table.max()) + 3, page, Hkv,
+                   hd, dtype)
+    q = torch.randn(len(offs), C, Hq, hd, generator=gen,
+                    device="cuda").to(dtype)
+    return q, kp, vp, table, offs.cuda(), lens.cuda()
+
+
+def valid_rows(torch, out, lens):
+    """Rows c < lens[r] of (R, C, ...) outputs: the rest are unspecified."""
+    C = out.shape[1]
+    m = torch.arange(C, device=out.device)[None, :] < lens[:, None]
+    return out.float()[m]
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_environment(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import runtime
+    t0 = time.perf_counter()
+    runtime.build_all()
+    build_s = time.perf_counter() - t0
+    log("== phase 1: environment")
+    log(f"card: {smi}")
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    log(f"kernel build: {build_s:.1f} s for {', '.join(runtime.KERNELS)}")
+    for name, out in runtime.build_log.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    log(f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    return smi
+
+
+def phase_kernels_vs_plain(torch):
+    from repro_torch.kernels.paged_decode_attention import ops as dops
+    from repro_torch.kernels.paged_decode_attention import ref as dref
+    from repro_torch.kernels.paged_prefill_attention import ops as pops
+    from repro_torch.kernels.paged_prefill_attention import ref as pref
+    log("== phase 2: kernels against their plain versions")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    n = 0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        # (B, Hq, Hkv, hd, page, P): q_per_kv 4, 1, 6, 2, 4, 4, 1, 16;
+        # hd 32/24/128/64/256; one split per slot (66 x 8 rows fill the
+        # card) up to one page per split
+        for shape in [(3, 8, 2, 32, 8, 6), (2, 4, 4, 24, 16, 4),
+                      (4, 12, 2, 128, 32, 8), (3, 8, 4, 32, 16, 5),
+                      (8, 32, 8, 128, 32, 16), (2, 16, 4, 64, 32, 3),
+                      (66, 8, 8, 32, 8, 3), (2, 32, 2, 256, 16, 4)]:
+            q, kp, vp, tbl, lens = decode_case(torch, gen, *shape, dtype)
+            got = dops.paged_decode_attention(q, kp, vp, tbl, lens)
+            torch.cuda.synchronize()
+            want = dref.paged_decode_attention_ref(q, kp, vp, tbl, lens)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            assert torch.all(got[0] == 0), "a zero-length slot must give 0"
+            n += 1
+        # COW fan-out: rows share prefix pages
+        q, kp, vp, _, _ = decode_case(torch, gen, 2, 8, 2, 32, 8, 4, dtype,
+                                      lens=[20, 28], n_pages=12)
+        tbl = torch.tensor([[0, 1, 2, -1], [0, 1, 3, 4]], dtype=torch.int32,
+                           device="cuda")
+        lens = torch.tensor([20, 28], dtype=torch.int32, device="cuda")
+        got = dops.paged_decode_attention(q, kp, vp, tbl, lens)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got.float(),
+            dref.paged_decode_attention_ref(q, kp, vp, tbl, lens).float(),
+            **tol)
+        n += 1
+        # (Hq, Hkv, hd, page, C): q_per_kv 4, 1, 6, 2, 4; C 16/48/64/128
+        for shape in [(8, 2, 32, 8, 16), (4, 4, 24, 16, 48),
+                      (12, 2, 128, 32, 64), (8, 4, 32, 16, 128),
+                      (32, 8, 128, 32, 128)]:
+            q, kp, vp, rows, offs, lens = prefill_case(torch, gen, *shape,
+                                                       dtype)
+            got = pops.paged_prefill_attention_ragged(q, kp, vp, rows, offs,
+                                                      lens)
+            torch.cuda.synchronize()
+            want = pref.paged_prefill_attention_ragged_ref(q, kp, vp, rows,
+                                                           offs, lens)
+            torch.testing.assert_close(valid_rows(torch, got, lens),
+                                       valid_rows(torch, want, lens), **tol)
+            n += 1
+        for (Hq, Hkv, hd, page, C), (off, ln) in [
+                ((8, 2, 32, 8, 16), (0, 16)), ((8, 2, 32, 8, 16), (21, 9)),
+                ((12, 2, 128, 32, 128), (256, 128)),
+                ((4, 4, 24, 16, 48), (40, 1))]:
+            q, kp, vp, rows, offs, lens = prefill_case(
+                torch, gen, Hq, Hkv, hd, page, C, dtype, [off], [ln])
+            got = pops.paged_prefill_attention(q, kp, vp, rows[0], off, ln)
+            torch.cuda.synchronize()
+            want = pref.paged_prefill_attention_ref(q, kp, vp, rows[0],
+                                                    offs, lens)
+            torch.testing.assert_close(valid_rows(torch, got, lens),
+                                       valid_rows(torch, want, lens), **tol)
+            n += 1
+    log(f"{n} cases passed (float32 at rtol=atol=2e-5, bfloat16 at "
+        f"rtol=atol=2e-2)")
+
+
+def device_ms(torch, fn, flush, runs=21):
+    """Median device time of fn() over `runs` runs: each run starts on a
+    flushed L2 (the serving path reads another layer's pages in between)
+    behind a device sleep long enough for the host to enqueue the whole
+    call, so the host's launch overhead is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        torch.cuda._sleep(20_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_timing(torch):
+    """Kernel, plain and library times at the serving shapes (bf16)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_decode_attention import ops as dops
+    from repro_torch.kernels.paged_decode_attention import ref as dref
+    from repro_torch.kernels.paged_prefill_attention import ops as pops
+    from repro_torch.kernels.paged_prefill_attention import ref as pref
+    from repro_torch.models.paged_cache import gather_sequence
+    log("== phase 3: timing at the serving shapes (bf16)")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    dt = torch.bfloat16
+    esz = 2
+    rows = {}
+    models = {"qwen3-8b": (32, 8), "qwen2-1.5b": (12, 2)}
+    page, n_pages, hd = 32, 256, 128   # the engines' page size and pool
+    for model, (Hq, Hkv) in models.items():
+        rep = Hq // Hkv
+        # decode: 8 slots at context 512
+        B, ctx = 8, 512
+        q, kp, vp, tbl, lens = decode_case(torch, gen, B, Hq, Hkv, hd, page,
+                                           ctx // page, dt, lens=[ctx] * B,
+                                           n_pages=n_pages)
+        got = dops.paged_decode_attention(q, kp, vp, tbl, lens)
+        want = dref.paged_decode_attention_ref(q, kp, vp, tbl, lens)
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+        gk = gather_sequence(kp, tbl).repeat_interleave(rep, 2)
+        gv = gather_sequence(vp, tbl).repeat_interleave(rep, 2)
+        qs, ks, vs = (q.transpose(1, 2), gk.transpose(1, 2).contiguous(),
+                      gv.transpose(1, 2).contiguous())
+        mask = (torch.arange(gk.shape[1], device="cuda")[None, :]
+                < lens[:, None])[:, None, None]
+        kv_elems = int(lens.sum()) * Hkv * hd * 2
+        nbytes = (q.numel() * 2 + kv_elems) * esz + (tbl.numel()
+                                                     + B) * 4
+        flops = 4 * hd * Hq * int(lens.sum())
+        rows[("paged_decode_attention", model)] = dict(
+            shape=f"B={B} ctx={ctx} Hq={Hq} Hkv={Hkv} hd={hd} page={page}",
+            max_abs_err=err,
+            ms=device_ms(torch, functools.partial(
+                dops.paged_decode_attention, q, kp, vp, tbl, lens), flush),
+            plain_ms=device_ms(torch, functools.partial(
+                dref.paged_decode_attention_ref, q, kp, vp, tbl, lens), flush),
+            library_ms=device_ms(torch, functools.partial(
+                F.scaled_dot_product_attention, qs, ks, vs, attn_mask=mask),
+                flush),
+            bound=bound(nbytes, flops))
+        # ragged ingest: R = 4 rows of C = 128 at offsets 0..384
+        C = 128
+        offs, lns = [0, 128, 256, 384], [C] * 4
+        for name, o, ln in (("paged_prefill_attention_ragged", offs, lns),
+                            ("paged_prefill_attention", [256], [C])):
+            q, kp, vp, rws, ot, lt = prefill_case(
+                torch, gen, Hq, Hkv, hd, page, C, dt, o, ln, share=False,
+                n_pages=n_pages)
+            if name == "paged_prefill_attention":
+                run = functools.partial(pops.paged_prefill_attention, q, kp,
+                                        vp, rws[0], ot, lt)
+                plain = functools.partial(pref.paged_prefill_attention_ref,
+                                          q, kp, vp, rws[0], ot, lt)
+            else:
+                run = functools.partial(pops.paged_prefill_attention_ragged,
+                                        q, kp, vp, rws, ot, lt)
+                plain = functools.partial(
+                    pref.paged_prefill_attention_ragged_ref, q, kp, vp, rws,
+                    ot, lt)
+            got, want = run(), plain()
+            err = (valid_rows(torch, got, lt)
+                   - valid_rows(torch, want, lt)).abs().max().item()
+            torch.testing.assert_close(valid_rows(torch, got, lt),
+                                       valid_rows(torch, want, lt),
+                                       **BF16_TOL)
+            gk = gather_sequence(kp, rws).repeat_interleave(rep, 2)
+            gv = gather_sequence(vp, rws).repeat_interleave(rep, 2)
+            S = gk.shape[1]
+            qpos = ot[:, None] + torch.arange(C, device="cuda")[None, :]
+            kpos = torch.arange(S, device="cuda")
+            mask = ((kpos[None, None, :] <= qpos[:, :, None])
+                    & (kpos[None, None, :] < (ot + lt)[:, None, None])
+                    )[:, None]
+            qs, ks, vs = (q.transpose(1, 2), gk.transpose(1, 2).contiguous(),
+                          gv.transpose(1, 2).contiguous())
+            tot = [a + b for a, b in zip(o, ln)]
+            pairs = sum(sum(a + c + 1 for c in range(b)) for a, b in zip(o, ln))
+            nbytes = (2 * sum(ln) * Hq * hd + sum(tot) * Hkv * hd * 2) * esz \
+                + (rws.numel() + 2 * len(o)) * 4
+            rows[(name, model)] = dict(
+                shape=f"R={len(o)} C={C} offsets={o} Hq={Hq} Hkv={Hkv} "
+                      f"hd={hd} page={page}",
+                max_abs_err=err,
+                ms=device_ms(torch, run, flush),
+                plain_ms=device_ms(torch, plain, flush),
+                library_ms=device_ms(torch, functools.partial(
+                    F.scaled_dot_product_attention, qs, ks, vs,
+                    attn_mask=mask), flush),
+                bound=bound(nbytes, 4 * hd * Hq * pairs))
+    for (name, model), r in rows.items():
+        b_ms, b_by = r["bound"]
+        log(f"{name} [{model}: {r['shape']}] kernel {r['ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, sdpa "
+            f"{r['library_ms']:.4f} ms, max_abs_err {r['max_abs_err']:.3g}")
+    return rows
+
+
+def phase_tiny_parity(torch):
+    """The TINY test config through the port's engine on cuda and on cpu."""
+    from repro_torch.models import transformer
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serving.engine import InferenceEngine
+    log("== phase 4: TINY engine, card against CPU")
+    tiny = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                       n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=128,
+                       max_seq_len=512, dtype="float32", remat=False,
+                       prefill_chunk=16)
+    prompts = [[65 + i for i in range(43)], [70, 71], [80] * 40, [90] * 17,
+               [5] * 64]
+    cpu_params = transformer.init_params(tiny, seed=0, device="cpu")
+    cuda_params = _to(cpu_params, "cuda")
+
+    def engine(device, page):
+        return InferenceEngine(tiny, cuda_params if device == "cuda"
+                               else cpu_params, max_batch=3, max_len=128,
+                               page_size=page, device=device)
+
+    for page in (8, 16):
+        on_card = engine("cuda", page).generate(prompts, max_new=12)
+        on_cpu = engine("cpu", page).generate(prompts, max_new=12)
+        for i, ((tg, lg), (tc, lc)) in enumerate(zip(on_card, on_cpu)):
+            n = len(tc)
+            for t in range(min(len(tg), len(tc))):
+                if tg[t] != tc[t]:
+                    margin = _cpu_margin(torch, engine("cpu", page),
+                                         prompts[i], tc[:t])
+                    log(f"page {page} request {i}: tokens part at step {t}, "
+                        f"cpu top-2 logit margin {margin:.3g}")
+                    assert margin < 1e-4, "tokens diverge at a clear margin"
+                    n = t
+                    break
+            assert tg[:n] == tc[:n], f"request {i}: tokens diverge"
+            torch.testing.assert_close(torch.tensor(lg[:n]),
+                                       torch.tensor(lc[:n]), rtol=1e-4,
+                                       atol=1e-5)
+        log(f"page {page}: {len(prompts)} requests, greedy tokens equal, "
+            f"logprobs within rtol 1e-4 atol 1e-5")
+
+
+def _cpu_margin(torch, eng, prompt, prefix):
+    """Top-2 logit margin of the cpu engine's next-token logits after
+    prompt + prefix (teacher-forced)."""
+    seen = []
+    draw = eng._first_draws
+    eng._first_draws = lambda rows: (seen.append(rows[0][1]), draw(rows))[1]
+    eng.generate([list(prompt) + list(prefix)], max_new=1)
+    top = torch.topk(seen[0][0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def phase_pipeline(torch):
+    """The PICE pipeline at full width on the card."""
+    from repro_torch.configs.pice_cloud_edge import cloud_config, edge_configs
+    from repro_torch.data import corpus
+    from repro_torch.kernels.paged_decode_attention import ops as dops
+    from repro_torch.kernels.paged_prefill_attention import ops as pops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.requests import Request, Response
+    log("== phase 5: PICE pipeline at full width (random bf16 weights)")
+    cfgs = {"qwen3-8b": cloud_config().with_(prefill_chunk=128),
+            "qwen2-1.5b": edge_configs()["qwen2-1.5b"].with_(
+                prefill_chunk=128)}
+    engines = {}
+    for seed, (name, cfg) in enumerate(cfgs.items()):
+        t0 = time.perf_counter()
+        params = transformer.init_params(cfg, seed=seed, device="cuda")
+        engines[name] = engine_mod.InferenceEngine(
+            cfg, params, max_batch=8, max_len=1024, page_size=32, name=name,
+            device="cuda")
+        log(f"{name}: {cfg.param_count() / 1e9:.2f} B params ({cfg.dtype}), "
+            f"pool {engines[name].n_pages} pages, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+    # every sampled logits row passes token_logprob: count non-finite
+    # entries on the device, read once at the end
+    nonfinite = torch.zeros((), dtype=torch.int64, device="cuda")
+    logprob = engine_mod.token_logprob
+
+    def checked(logits, toks):
+        nonfinite.add_((~torch.isfinite(logits)).sum())
+        return logprob(logits, toks)
+    engine_mod.token_logprob = checked
+    pipe = serve.build_pipeline(engines, serve.CAPABILITIES,
+                                log_fn=log, cloud_name="qwen3-8b")
+    counters = (dops.paged_decode_attention,
+                pops.paged_prefill_attention_ragged,
+                pops.paged_prefill_attention)
+    for fn in counters:
+        fn.launches = 0
+    before = {n: (e.tokens_generated, e.busy_s) for n, e in engines.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    modes = []
+    for ex in corpus.corpus(3, seed=7):
+        resp = pipe.handle(Request(query=ex.query, category=ex.category,
+                                   max_new_tokens=96))
+        assert isinstance(resp, Response)
+        modes.append(resp.mode)
+        log(serve.response_line(resp, 0.0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    engine_mod.token_logprob = logprob
+    assert int(nonfinite) == 0, f"{int(nonfinite)} non-finite logits"
+    log(f"3 requests in {wall:.2f} s, modes {modes}; logits finite")
+    for name, e in engines.items():
+        toks = e.tokens_generated - before[name][0]
+        busy = e.busy_s - before[name][1]
+        log(f"{name}: {toks} tokens in {busy:.2f} s busy "
+            f"({toks / max(busy, 1e-9):.1f} tok/s)")
+    log(f"max memory allocated: "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log(f"kernel launches on the pipeline run: {launches}")
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the main path"
+    return launches, engines
+
+
+MATMUL_KERNELS = ("nvjet", "gemm", "gemv", "cutlass", "xmma")
+
+
+def matmul_weight_bytes(cfg, params):
+    """Bytes a model call's matmuls must read at least once: every matrix
+    of the layers and the unembedding matrix. The token-embedding table is
+    left out where it is untied: a call gathers only a few of its rows."""
+    layers = [t for seg in params["segments"] for layer in seg
+              for t in _leaves(layer) if t.dim() >= 2]
+    emb = params["embed"]
+    out = emb["tok"] if cfg.tie_embeddings else emb["unembed"]
+    return sum(t.numel() * t.element_size() for t in layers + [out])
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_profile(torch, engines):
+    """Where an engine's time goes: 4 requests of a 256-token prompt and
+    32 new tokens, timed on the host clock without the profiler, then the
+    same run under torch.profiler for device time by kernel. Busy share =
+    device time / unprofiled wall time (one stream, so kernels do not
+    overlap). The matmuls' bound is their weight bytes, read once per model
+    call, over the HBM rate; model calls = paged-attention launches of the
+    profiled run / attention layers."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.paged_decode_attention import ops as dops
+    from repro_torch.kernels.paged_prefill_attention import ops as pops
+    counters = (dops.paged_decode_attention,
+                pops.paged_prefill_attention_ragged,
+                pops.paged_prefill_attention)
+    log("== phase 6: where the time goes (4 x 256-token prompts, 32 new "
+        "tokens each)")
+    prompts = [[(7 * i + j) % 251 + 1 for j in range(256)] for i in range(4)]
+    for name, eng in engines.items():
+        eng.generate(prompts, max_new=4)                 # warm up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new=32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for fn in counters:
+            fn.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.generate(prompts, max_new=32)
+            torch.cuda.synchronize()
+        calls = sum(fn.launches for fn in counters) / eng.cfg.n_layers
+        # device-side events only (kernels, copies, memsets): the host ops
+        # that launched them repeat the same device time
+        kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_ms = sum(ms for _, ms, _ in kernels)
+        log(f"{name}: wall {wall * 1e3:.1f} ms, device busy "
+            f"{device_ms:.1f} ms ({100 * device_ms / (wall * 1e3):.1f} %), "
+            f"{len(kernels)} kernel kinds")
+        paged_ms = sum(ms for key, ms, _ in kernels if "paged_" in key)
+        log(f"  the port's paged-attention kernels: {paged_ms:.1f} ms "
+            f"({100 * paged_ms / device_ms:.1f} % of device time)")
+        mm_ms = sum(ms for key, ms, _ in kernels
+                    if any(m in key for m in MATMUL_KERNELS))
+        wbytes = matmul_weight_bytes(eng.cfg, eng.params)
+        mm_bound = calls * wbytes / HBM_BYTES_PER_S * 1e3
+        log(f"  matmul kernels: {mm_ms:.1f} ms ({100 * mm_ms / device_ms:.1f}"
+            f" % of device time) over {calls:.0f} model calls; bound "
+            f"{mm_bound:.1f} ms ({wbytes / 1e9:.3f} GB of weights per call), "
+            f"{100 * mm_bound / mm_ms:.1f} % of it")
+        for key, ms, n in sorted(kernels, key=lambda k: -k[1])[:8]:
+            log(f"  {ms:9.3f} ms {100 * ms / device_ms:5.1f} % x{n:<6d} "
+                f"{key[:90]}")
+        # the host side of the same run (the profiler slows it; the split
+        # between ops is what it shows)
+        host = [(e.key, e.self_cpu_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CPU]
+        host_ms = sum(ms for _, ms, _ in host)
+        log(f"  host ops: {host_ms:.1f} ms self CPU time in "
+            f"{sum(n for *_, n in host)} calls under the profiler")
+        for key, ms, n in sorted(host, key=lambda k: -k[1])[:6]:
+            log(f"  {ms:9.3f} ms {100 * ms / host_ms:5.1f} % x{n:<6d} "
+                f"{key[:90]}")
+
+
+SOURCES = {
+    "paged_decode_attention": (
+        "src/repro_torch/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/paged_decode_attention/kernel.py:93"),
+    "paged_prefill_attention_ragged": (
+        "src/repro_torch/csrc/paged_prefill_attention.cu",
+        "src/repro/kernels/paged_prefill_attention/kernel.py:215"),
+    "paged_prefill_attention": (
+        "src/repro_torch/csrc/paged_prefill_attention.cu",
+        "src/repro/kernels/paged_prefill_attention/kernel.py:100"),
+}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device")
+    smi = phase_environment(torch)
+    phase_kernels_vs_plain(torch)
+    timing = phase_timing(torch)
+    phase_tiny_parity(torch)
+    launches, engines = phase_pipeline(torch)
+    phase_profile(torch, engines)
+    kernels = []
+    for name, (source, replaces) in SOURCES.items():
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name]}
+        # the top-level numbers are the cloud model's (qwen3-8b); the edge
+        # model's follow under its name
+        for model in ("qwen3-8b", "qwen2-1.5b"):
+            r = timing[(name, model)]
+            nums = {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
+                    "tolerance": BF16_TOL, "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                    "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+            if model == "qwen3-8b":
+                entry.update(nums)
+            else:
+                entry[model] = nums
+        kernels.append(entry)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,30 @@
+"""Registry of the configurations the PyTorch port serves.
+
+Each config module `repro_torch.configs.<id>` exposes CONFIG, the full-size
+configuration with its source. Only the architectures whose families the port
+runs are listed: the dense GQA decoders of the PICE cloud/edge pairing.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.models.config import ModelConfig
+
+# public --arch names (hyphenated) -> module name
+ALIASES = {
+    "qwen3-8b": "qwen3_8b",
+    "qwen2-1.5b": "qwen2_1p5b",
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in ALIASES:
+        raise KeyError(f"{arch!r} is not ported yet; ported: "
+                       f"{sorted(ALIASES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{ALIASES[arch]}")
+    return mod.CONFIG
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ALIASES}

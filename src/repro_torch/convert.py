@@ -1,0 +1,68 @@
+"""The JAX package's params pytree -> the port's params.
+
+The JAX package stacks each segment's layer params on a leading layer axis
+(`repro/models/transformer.py` init_params / _run_segment) and keeps every
+leaf in float32. The port keeps one dict per layer, 2-D projection weights
+and flat biases (see `models/attention.py`), and each leaf in its working
+dtype: matmul weights, embeddings and biases in `cfg.dtype`, norm scales and
+the length head in float32. Give this module the pytree as numpy arrays
+(`jax.tree.map(np.asarray, params)`), so the port itself never imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import compute_dtype
+from repro_torch.models.transformer import check_supported, segments_of
+
+_FLOAT32_LEAVES = ("scale", "q_norm", "k_norm")
+
+
+def _leaf(name: str, a: np.ndarray, dtype, device) -> torch.Tensor:
+    a = np.array(a, np.float32)          # a writable copy
+    if name in ("wq", "wk", "wv"):            # (d, H, hd) -> (d, H*hd)
+        a = a.reshape(a.shape[0], -1)
+    elif name == "wo":                        # (H, hd, d) -> (H*hd, d)
+        a = a.reshape(-1, a.shape[-1])
+    elif name in ("bq", "bk", "bv"):          # (H, hd) -> (H*hd,)
+        a = a.reshape(-1)
+    keep_f32 = name in _FLOAT32_LEAVES
+    return torch.from_numpy(a).to(device=device,
+                                  dtype=torch.float32 if keep_f32 else dtype)
+
+
+def _convert(tree, dtype, device, name: str = ""):
+    if isinstance(tree, dict):
+        return {k: _convert(v, dtype, device, k) for k, v in tree.items()}
+    return _leaf(name, tree, dtype, device)
+
+
+def params_from_reference(cfg: ModelConfig, ref: Dict[str, Any],
+                          device=None) -> dict:
+    """ref: the JAX params pytree with numpy leaves -> the port's params on
+    `device` (default CPU)."""
+    check_supported(cfg)
+    device = torch.device(device or "cpu")
+    dtype = compute_dtype(cfg)
+    segments = []
+    for (_, count), stacked in zip(segments_of(cfg), ref["segments"]):
+        segments.append([
+            _convert(_take(stacked, i), dtype, device) for i in range(count)])
+    out = {"embed": _convert(ref["embed"], dtype, device),
+           "segments": segments,
+           "final_norm": _convert(ref["final_norm"], dtype, device)}
+    if "length_head" in ref:
+        out["length_head"] = torch.from_numpy(
+            np.array(ref["length_head"], np.float32)).to(device)
+    return out
+
+
+def _take(tree, i: int):
+    """Layer i of a stacked (leading layer axis) subtree."""
+    if isinstance(tree, dict):
+        return {k: _take(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]

@@ -1,0 +1,81 @@
+"""ctypes launch of the paged decode CUDA kernel
+(`csrc/paged_decode_attention.cu`): argument checks, the split of each
+slot's pages over thread blocks, output and scratch allocation, launch on
+the current stream, and the launch's error check."""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import runtime
+
+NAME = "paged_decode_attention"
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# thread blocks to aim for on each SM: split-KV cuts every (slot, kv head)
+# into runs of pages until the grid holds about this many per SM
+BLOCKS_PER_SM = 4
+
+
+def _lib():
+    lib = runtime.load(NAME)
+    fn = lib.paged_decode_attention
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_pages(B: int, Hkv: int, P: int, n_sm: int):
+    """(splits, pages_per_split): the fewest equal runs of the P block-table
+    columns that give the grid about BLOCKS_PER_SM blocks per SM."""
+    if P == 0:
+        return 1, 1
+    want = min(P, -(-BLOCKS_PER_SM * n_sm // max(B * Hkv, 1)))
+    per = -(-P // want)
+    return -(-P // per), per
+
+
+def paged_decode_attention_cuda(q, k_pages, v_pages, block_table, lengths):
+    """q: (B,1,Hq,hd); k/v_pages: (n_pages, page, Hkv, hd), same dtype as q
+    (float32 or bfloat16); block_table: (B, P) int32; lengths: (B,) int32.
+    All contiguous on one CUDA device; page size and head_dim within
+    the kernels' limits (`runtime.check_limits`).
+    -> (B,1,Hq,hd)."""
+    floats = (torch.float32, torch.bfloat16)
+    runtime.check_tensor("q", q, 4, floats)
+    runtime.check_tensor("k_pages", k_pages, 4, (q.dtype,))
+    runtime.check_tensor("v_pages", v_pages, 4, (q.dtype,))
+    runtime.check_tensor("block_table", block_table, 2, (torch.int32,))
+    runtime.check_tensor("lengths", lengths, 1, (torch.int32,))
+    B, T, Hq, hd = q.shape
+    n_pages, ps, Hkv, hd_kv = k_pages.shape
+    P = block_table.shape[1]
+    if T != 1:
+        raise ValueError(f"decode takes one query token per slot, got {T}")
+    if v_pages.shape != k_pages.shape or hd_kv != hd or Hq % Hkv:
+        raise ValueError(f"pool shape {tuple(k_pages.shape)} does not fit "
+                         f"q {tuple(q.shape)}")
+    if block_table.shape[0] != B or lengths.shape[0] != B:
+        raise ValueError("block_table and lengths need one row per slot")
+    runtime.check_limits(ps, hd)
+    splits, per = split_pages(B, Hkv, P, _sm_count(q.device))
+    rep = Hq // Hkv
+    part_o = torch.empty((B, Hkv, splits, rep, hd), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((B, Hkv, splits, rep, 2), dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty_like(q)
+    lib = _lib()
+    code = lib.paged_decode_attention(
+        runtime.ptr(q), runtime.ptr(k_pages), runtime.ptr(v_pages),
+        runtime.ptr(block_table), runtime.ptr(lengths), runtime.ptr(part_o),
+        runtime.ptr(part_ml), runtime.ptr(out), B, Hq, Hkv, hd, ps, P,
+        n_pages, splits, per, runtime.dtype_code(q.dtype),
+        runtime.stream_ptr())
+    runtime.check(lib, NAME, code)
+    return out

@@ -1,0 +1,875 @@
+"""Real-compute inference engine (PyTorch): continuous batching over a paged
+KV cache with chunked, batched ragged prompt ingest.
+
+The port of the JAX package's `serving/engine.py` for its paged backend
+with `cfg.prefill_chunk > 0`. Pages are allocated on demand at admission,
+appended per decode step, and freed on completion; when the pool runs dry
+the lowest-priority, youngest request is evicted and transparently
+resubmitted (evict-and-replay). `generate_fanout` prefills a shared prefix
+once and forks copy-on-write block-table rows off it.
+
+The step loop is plan/run: every host decision — page growth, eviction,
+ragged ingest rows, decode inputs — is planned with numpy, the block table
+is pushed to the device at most once per step, and the step launches at
+most one batched ragged ingest call plus one decode-and-sample call. The
+decode's tokens and logprobs are read back at the NEXT step's harvest as
+one device->host copy; a step in which a prompt's last chunk lands adds one
+batched read of those first tokens, as the JAX package's does. Host->device
+inputs go through pinned memory, so no step waits on the device otherwise.
+
+On a CUDA device the attention reads run through the hand-written paged
+kernels; on the CPU through their plain versions (tests).
+
+What this engine does not do yet raises NotImplementedError naming the
+slice it waits for: `kv_backend="dense"`, `prefill_chunk == 0` (monolithic
+prefill), `ragged_ingest=False` (the serial one-chunk scheduler),
+`host_swap=True` (host-tier demote/promote; the JAX package's default is
+True, the port's False), quantized or mixed-width `kv_dtype`, and families
+other than dense attention stacks. `warmup()` and `score()` are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import runtime
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.paged_cache import PageAllocator
+from repro_torch.serving.requests import BoundedRecord
+from repro_torch.serving.sampler import SamplerConfig, sample, token_logprob
+
+
+def resolve_device(device=None) -> torch.device:
+    """The engine's device: CUDA unless the caller asks for another. Without
+    a card a CUDA request raises; nothing silently runs on the CPU."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain PyTorch versions on the CPU")
+    return dev
+
+
+@dataclasses.dataclass
+class Slot:
+    req_id: int = -1
+    active: bool = False
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    logprobs: List[float] = dataclasses.field(default_factory=list)
+    max_new: int = 0
+    generated: int = 0
+    prompt: List[int] = dataclasses.field(default_factory=list)
+    ctx_len: int = 0        # tokens currently in the KV cache for this slot
+    arrival: int = 0        # admission order (eviction picks the youngest)
+    evicted: bool = False   # preempted: requeue instead of completing
+    parked: bool = False    # holds a shared prefix for forking, not decoding
+    fork_src: int = -1      # parked slot this one was forked from (-1: none)
+    suffix: List[int] = dataclasses.field(default_factory=list)
+    # prompt (or fork suffix + carried) tokens not yet ingested: while
+    # non-empty the slot is excluded from the decode batch and step() feeds
+    # it one chunk at a time; the first sample comes from the final chunk
+    prefill_toks: List[int] = dataclasses.field(default_factory=list)
+    # eviction priority (higher = more latency-critical, evicted last)
+    priority: int = 0
+    # the admitted prompt was longer than max_len and kept only its tail
+    truncated: bool = False
+
+
+@dataclasses.dataclass
+class StepPlan:
+    """Host-side decode plan, computed with numpy only. Token-independent
+    state (ctx_len advance) is applied AT PLAN TIME; only the sampled
+    token's commit waits for the deferred harvest."""
+    active_ids: List[int]           # slots in this decode batch
+    last: np.ndarray                # (B, 1) int64 decode inputs
+    mask: np.ndarray                # (B,) bool active-row mask
+    live: int                       # live block-table width bucket
+    commits: List[int]              # slots whose sampled token commits later
+
+
+@dataclasses.dataclass
+class _Resume:
+    """A queued request: fresh, or preempted with its generated prefix
+    carried. share_from >= 0 routes admission through the COW fork path
+    (prompt then holds the full prefix+suffix fallback for eviction resume).
+    """
+    req_id: int
+    prompt: List[int]
+    max_new: int
+    carry_tokens: List[int]
+    carry_lps: List[float]
+    share_from: int = -1
+    suffix: List[int] = dataclasses.field(default_factory=list)
+    priority: int = 0
+
+
+# Public name for the request-handle admission API (`InferenceEngine
+# .try_admit`): the serving front-end builds these for fresh submissions.
+EngineRequest = _Resume
+
+
+class InferenceEngine:
+    """Continuous-batching engine for one model on one device."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
+                 max_len: int = 1024, sampler: SamplerConfig = SamplerConfig(),
+                 eos_id: int = 0, name: str = "engine",
+                 kv_backend: str = "paged", page_size: int = 32,
+                 n_pages: Optional[int] = None, ragged_ingest: bool = True,
+                 host_swap: bool = False, device=None, seed: int = 0):
+        if kv_backend != "paged":
+            raise NotImplementedError(
+                f"kv_backend={kv_backend!r}: the dense KV backend waits for "
+                "the dense-backend slice; the port serves kv_backend='paged'")
+        if cfg.prefill_chunk <= 0:
+            raise NotImplementedError(
+                "prefill_chunk == 0 (monolithic prefill_paged) waits for the "
+                "monolithic-prefill slice; set cfg.prefill_chunk > 0")
+        if not ragged_ingest:
+            raise NotImplementedError(
+                "ragged_ingest=False (the serial one-chunk scheduler) waits "
+                "for the serial-ingest slice")
+        if host_swap:
+            raise NotImplementedError(
+                "host_swap=True (host-tier demote/promote) waits for the "
+                "host-swap slice; eviction replays instead")
+        if cfg.kv_quantized:
+            raise NotImplementedError(
+                f"kv_dtype={cfg.kv_dtype!r} waits for the quantized-pool "
+                "slice (kernels #4-#6)")
+        if cfg.kv_dtype and cfg.kv_dtype != cfg.dtype:
+            raise NotImplementedError(
+                f"kv_dtype={cfg.kv_dtype!r} narrower than the compute dtype "
+                f"{cfg.dtype!r} waits for the quantized-pool slice")
+        transformer.check_supported(cfg)
+        cfg.validate_paged(page_size, max_len)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.sampler = sampler
+        self.eos_id = eos_id
+        self.name = name
+        self.kv_backend = kv_backend
+        self.ragged_ingest = ragged_ingest
+        self.host_swap = host_swap
+        self.slots = [Slot() for _ in range(max_batch)]
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+        self.tokens_generated = 0
+        self.busy_s = 0.0
+        self._arrivals = 0
+        self.evictions = 0
+        self.peak_pages = 0
+        self._window_peak = 0
+        self._window_shared = 0
+        self._window_logical = 0
+        self._resume_queue: List[_Resume] = []
+        self._prefix_logits: Dict[int, torch.Tensor] = {}  # parked -> (1, V)
+        # per-request time-to-first-token telemetry: admission time survives
+        # eviction/resume, recorded once at the first committed token
+        self._t_admit: Dict[int, float] = {}
+        self._admit_stamp_cap = 4096
+        self._inflight: set = set()
+        self.ttft: Dict[int, float] = BoundedRecord(self._admit_stamp_cap)
+        # req_id -> prompt tokens dropped at admission (prompt > max_len)
+        self.truncations: Dict[int, int] = BoundedRecord(self._admit_stamp_cap)
+        # deferred harvest: (commit slots, device (2, B) tokens + logprobs)
+        # of the decode launched last step(), read back at the next step()
+        self._pending_decode: Optional[Tuple[List[int], torch.Tensor]] = None
+        self._table_dirty = False
+        # fault-injection surface (serving/faults.py): step_hook(engine) is
+        # called at the top of every step() and may cancel slots, stall, or
+        # raise EngineCrash
+        self.step_hook = None
+        self.cancels = 0
+        self.deadline_cancels = 0
+        # decode/ingest KV read traffic in bytes (pages touched per step x
+        # per-page pool bytes across every attention layer)
+        self.kv_bytes_read = 0
+
+        self.page_size = page_size
+        self.pages_per_seq = max_len // page_size
+        self.n_pages = n_pages or max_batch * self.pages_per_seq
+        self.alloc = PageAllocator(self.n_pages, page_size, self.pages_per_seq)
+        self.block_table = np.full((max_batch, self.pages_per_seq), -1,
+                                   np.int32)
+        self.cache = transformer.init_paged_cache(
+            cfg, max_batch, self.n_pages, page_size, self.pages_per_seq,
+            device=self.device)
+        self.prefill_chunk = cfg.prefill_chunk
+        self._page_kv_bytes = sum(
+            seg[k][:, 0].numel() * seg[k].element_size()
+            for seg in self.cache["segments"] for k in seg)
+
+    # ------------------------------------------------------------------
+    # Block table and occupancy bookkeeping
+    # ------------------------------------------------------------------
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return runtime.host_array_on(arr, self.device)
+
+    def _push_table(self):
+        self.cache["block_table"].copy_(self._to_device(self.block_table))
+        self._table_dirty = False
+
+    def _mark_table_dirty(self):
+        """Host block-table edits are batched: step() pushes the table to
+        the device at most ONCE per step (`_sync_table`), right before the
+        first launch that reads it. Deferring a freed slot's row clear is
+        safe because decode writes are active-masked and masked rows' reads
+        are discarded."""
+        self._table_dirty = True
+
+    def _sync_table(self):
+        if self._table_dirty:
+            self._push_table()
+
+    def _occupancy(self) -> Tuple[int, int, int]:
+        return (self.alloc.pages_in_use, self.alloc.pages_shared,
+                self.alloc.logical_pages)
+
+    def _track_peak(self):
+        used, shared, logical = self._occupancy()
+        self.peak_pages = max(self.peak_pages, used)
+        self._window_peak = max(self._window_peak, used)
+        self._window_shared = max(self._window_shared, shared)
+        self._window_logical = max(self._window_logical, logical)
+
+    def consume_window(self) -> Dict[str, int]:
+        """High-water occupancy since the last call, then reset the window
+        (the synchronous pipeline drains pools between requests, so only
+        the windowed peak carries the pressure signal)."""
+        self._track_peak()
+        out = {"pages": self._window_peak, "shared": self._window_shared,
+               "logical": self._window_logical}
+        (self._window_peak, self._window_shared,
+         self._window_logical) = self._occupancy()
+        return out
+
+    def consume_peak(self) -> int:
+        return self.consume_window()["pages"]
+
+    def _release_slot_pages(self, slot: int):
+        self.alloc.release(slot)
+        self.block_table[slot, :] = -1
+        self._mark_table_dirty()
+
+    def _evict_victim(self, protect: int) -> bool:
+        """Preempt one active slot other than `protect`: the lowest-priority
+        one, youngest-first within a priority class. Its unique pages return
+        to the pool (shared prefix pages survive via refcounts) and the
+        request is queued for resubmission: a fork whose prefix is still
+        parked resumes through the fork path, otherwise `prompt` holds the
+        full prefix+suffix for a fresh ingest."""
+        victims = [i for i, s in enumerate(self.slots)
+                   if s.active and i != protect]
+        if not victims:
+            return False
+        v = min(victims, key=lambda i: (self.slots[i].priority,
+                                        -self.slots[i].arrival))
+        s = self.slots[v]
+        refork = (0 <= s.fork_src < self.max_batch
+                  and self.slots[s.fork_src].parked)
+        self._resume_queue.append(_Resume(
+            req_id=s.req_id, prompt=list(s.prompt), max_new=s.max_new,
+            carry_tokens=list(s.tokens), carry_lps=list(s.logprobs),
+            share_from=s.fork_src if refork else -1,
+            suffix=list(s.suffix) if refork else [], priority=s.priority))
+        self._release_slot_pages(v)
+        s.active, s.evicted, s.req_id = False, True, -1
+        s.fork_src, s.suffix = -1, []
+        s.prefill_toks = []     # a mid-prefill victim restarts its chunks
+        self.evictions += 1
+        return True
+
+    def cancel(self, req_id: int) -> bool:
+        """Cancel a mid-flight request: ingesting, decoding, or evicted and
+        queued. Frees its pages (COW refcounts protect shared prefix pages)
+        and prunes its slot from the deferred-harvest commit list, so a slot
+        reused by a later admission never receives the cancelled request's
+        in-flight token. Survivors are untouched: each row's attention reads
+        only its own block-table row, decode writes are active-masked, and
+        the engine's generator draws noise for every row each step whatever
+        rows are active. Returns True if the request was found."""
+        hit = False
+        for i, s in enumerate(self.slots):
+            if s.active and s.req_id == req_id:
+                s.active = False
+                s.evicted = False
+                s.prefill_toks = []
+                s.fork_src, s.suffix = -1, []
+                self._release_slot_pages(i)
+                if self._pending_decode is not None:
+                    commits, packed = self._pending_decode
+                    if i in commits:
+                        self._pending_decode = (
+                            [c for c in commits if c != i], packed)
+                hit = True
+        kept = [r for r in self._resume_queue if r.req_id != req_id]
+        hit = hit or len(kept) != len(self._resume_queue)
+        self._resume_queue = kept
+        if hit:
+            self.cancels += 1
+            self._t_admit.pop(req_id, None)
+        return hit
+
+    def abort_all(self) -> int:
+        """Cancel every live request (crash recovery). Parked prefix slots
+        are left to their owner's release. Returns the number aborted."""
+        n = 0
+        for s in list(self.slots):
+            if s.active:
+                self.cancel(s.req_id)
+                n += 1
+        for r in list(self._resume_queue):
+            self.cancel(r.req_id)
+            n += 1
+        self._pending_decode = None
+        return n
+
+    def memory_stats(self) -> Dict[str, float]:
+        """Engine-level KV memory telemetry (for RuntimeMonitor)."""
+        return {"backend": "paged", "pages_total": self.n_pages,
+                "pages_in_use": self.alloc.pages_in_use,
+                "pages_shared": self.alloc.pages_shared,
+                "pages_logical": self.alloc.logical_pages,
+                "peak_pages": self.peak_pages,
+                "utilization": self.alloc.utilization,
+                "evictions": self.evictions}
+
+    def can_admit(self, prompt_len: int) -> bool:
+        """Admission check against real memory, not just a fixed max_batch."""
+        if not self.free_slots():
+            return False
+        need = max(1, -(-min(prompt_len, self.max_len) // self.page_size))
+        return len(self.alloc.free) >= need
+
+    def can_admit_fork(self, src_slot: int, extra_tokens: int = 0) -> bool:
+        """Fork admission: a free batch row plus enough free pages for the
+        tail copy AND the suffix/carry replay (extra_tokens)."""
+        if not self.free_slots():
+            return False
+        src = self.slots[src_slot]
+        total = min(src.ctx_len + extra_tokens, self.max_len)
+        full_shared = src.ctx_len // self.page_size
+        need = -(-total // self.page_size) - full_shared
+        return len(self.alloc.free) >= need
+
+    def _live_pages(self, active: List[int]) -> int:
+        """Read width for this decode step: enough block-table columns to
+        cover every active slot's cache plus the token being written,
+        bucketed to the next power of two."""
+        return self._chunk_live(max(self.slots[i].ctx_len
+                                    for i in active) + 1)
+
+    # ------------------------------------------------------------------
+    def free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots)
+                if not s.active and not s.parked]
+
+    def _alloc_slot_pages(self, slot: int, n_tokens: int):
+        """Map a fresh page chain for `n_tokens` into the slot's table row."""
+        pages = self.alloc.alloc_for(slot, n_tokens)    # MemoryError if dry
+        self._track_peak()
+        self.block_table[slot, :] = -1
+        self.block_table[slot, :len(pages)] = pages
+        self._mark_table_dirty()
+
+    def _chunk_live(self, end: int) -> int:
+        """Covering read width through position `end`, bucketed to the next
+        power of two (shared by the decode step and chunk ingest)."""
+        need = -(-min(end, self.max_len) // self.page_size)
+        live = 1
+        while live < need:
+            live *= 2
+        return min(live, self.pages_per_seq)
+
+    def _feed_chunk(self, slot: int, chunk: List[int], offset: int):
+        """One (1, prefill_chunk)-shaped ingest call: pad, pick the covering
+        live width, write+attend the chunk at `offset`. Returns the chunk's
+        last-valid-token logits (1, V)."""
+        padded = np.zeros((1, self.prefill_chunk), np.int64)
+        padded[0, :len(chunk)] = chunk
+        live = self._chunk_live(offset + len(chunk))
+        self._sync_table()
+        logits, self.cache = transformer.prefill_chunk_paged(
+            self.cfg, self.params, self._to_device(padded), self.cache,
+            slot, offset, len(chunk), live_pages=live)
+        return logits
+
+    def _prefill_into_chunks(self, slot: int, toks: List[int]):
+        """Synchronous chunked ingest of a whole prompt (prefill_prefix);
+        returns final-chunk logits. Draws nothing from the generator. An
+        empty prompt ingests one zero-length chunk so callers always get
+        logits."""
+        C = self.prefill_chunk
+        logits = None
+        for start in range(0, max(len(toks), 1), C):
+            logits = self._feed_chunk(slot, toks[start:start + C], start)
+        return logits
+
+    # ------------------------------------------------------------------
+    # Prefix sharing (PICE sketch fan-out): prefill the shared (query,
+    # sketch) prefix ONCE into a parked slot, then fork N copy-on-write
+    # block-table rows off it.
+    # ------------------------------------------------------------------
+    def prefill_prefix(self, prefix: List[int]) -> int:
+        """Prefill a shared prefix into a parked slot and return its id for
+        `add_request(..., share_from=slot)`. The slot holds its pages (and
+        is excluded from scheduling) until `release_prefix`."""
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("no free slot")
+        # park in the LAST free slot: forks then land on the same batch rows
+        # as independent submissions would
+        slot = free[-1]
+        t0 = time.perf_counter()
+        toks = list(prefix)[-self.max_len:]
+        self._alloc_slot_pages(slot, len(toks))
+        logits = self._prefill_into_chunks(slot, toks)
+        s = self.slots[slot]
+        s.req_id, s.active, s.parked = -1, False, True
+        s.prompt = list(prefix)
+        s.tokens, s.logprobs, s.prefill_toks = [], [], []
+        s.ctx_len = len(toks)
+        self._prefix_logits[slot] = logits
+        self.busy_s += time.perf_counter() - t0
+        return slot
+
+    def release_prefix(self, slot: int) -> None:
+        """Free a parked prefix slot; pages shared with live forks survive
+        via their refcounts."""
+        s = self.slots[slot]
+        assert s.parked, "release_prefix on a non-parked slot"
+        s.parked = False
+        self._prefix_logits.pop(slot, None)
+        self._release_slot_pages(slot)
+
+    def _first_draws(self, rows: List[Tuple[int, torch.Tensor]]) -> None:
+        """Sample each (slot, (1, V) logits) row's first token, in order,
+        and commit them after ONE batched device->host read."""
+        draws = []
+        for slot, logits in rows:
+            tok = sample(logits, self.sampler, self.gen)
+            draws.append(torch.stack([tok.float(),
+                                      token_logprob(logits, tok)]))
+        host = torch.cat(draws, dim=1).cpu().numpy()
+        for j, (slot, _) in enumerate(rows):
+            self._commit(slot, int(host[0, j]), float(host[1, j]))
+
+    def add_request(self, req_id: int, prompt: List[int], max_new: int,
+                    carry_tokens: Optional[List[int]] = None,
+                    carry_lps: Optional[List[float]] = None,
+                    share_from: Optional[int] = None,
+                    suffix: Optional[List[int]] = None,
+                    priority: int = 0) -> int:
+        """Admit a request. Admission maps the prompt's pages and queues its
+        tokens: `step()` ingests them one chunk per step, batched with every
+        other ingesting slot. share_from forks a parked prefix slot
+        copy-on-write instead; the fork's `suffix` (the part of the logical
+        prompt beyond the shared prefix) plus any carried tokens of a
+        preempted fork are ingested the same way, and a fork with nothing
+        to ingest samples its first token from the prefix logits now.
+        `prompt` must be the full logical prompt (prefix + suffix) so
+        eviction can always fall back to a fresh ingest. `priority` orders
+        eviction (see `_evict_victim`)."""
+        suffix = list(suffix or [])
+        carry_tokens = carry_tokens or []
+        carry_lps = carry_lps or []
+        if share_from is not None:
+            src = self.slots[share_from]
+            assert src.parked and share_from in self._prefix_logits, \
+                "share_from must be a parked prefill_prefix slot"
+            if src.ctx_len + len(suffix) + len(carry_tokens) > self.max_len:
+                share_from = None       # would overflow: ingest from scratch
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("no free slot")
+        slot = free[0]
+        t0 = time.perf_counter()
+        self._t_admit.setdefault(req_id, t0)
+        self._prune_admit_stamps()
+
+        dropped = 0
+        if share_from is not None:
+            src = self.slots[share_from]
+            # MemoryError if the tail copy cannot be allocated
+            dst_pages, tail_src, tail_dst = self.alloc.fork(
+                share_from, slot, src.ctx_len)
+            self._track_peak()
+            self.block_table[slot, :] = -1
+            self.block_table[slot, :len(dst_pages)] = dst_pages
+            self.cache = transformer.fork_slot_paged(
+                self.cfg, self.cache, share_from, slot, tail_src, tail_dst)
+            ctx = src.ctx_len
+            ingest = suffix + carry_tokens
+            if ingest:
+                # map the pages the replay will write up front
+                # (can_admit_fork gated on this need)
+                target = -(-min(ctx + len(ingest), self.max_len)
+                           // self.page_size)
+                while len(self.alloc.owned[slot]) < target:
+                    p = self.alloc.extend(
+                        slot, (len(self.alloc.owned[slot]) + 1)
+                        * self.page_size)
+                    self.block_table[slot,
+                                     len(self.alloc.owned[slot]) - 1] = p
+                self._track_peak()
+            self._mark_table_dirty()
+        else:
+            full = list(prompt) + carry_tokens
+            toks = full[-self.max_len:]
+            dropped = len(full) - len(toks)
+            self._alloc_slot_pages(slot, len(toks))
+            ctx, ingest = 0, list(toks)
+
+        s = self.slots[slot]
+        s.req_id, s.active = req_id, True
+        s.prompt = list(prompt)
+        s.tokens, s.logprobs = list(carry_tokens), list(carry_lps)
+        s.max_new, s.generated = max_new, len(carry_tokens)
+        s.ctx_len = ctx
+        s.prefill_toks = list(ingest)
+        s.fork_src = share_from if share_from is not None else -1
+        s.suffix = suffix if share_from is not None else []
+        s.evicted = False
+        s.priority = priority
+        s.truncated = dropped > 0
+        if dropped:
+            self.truncations[req_id] = dropped
+        s.arrival = self._arrivals
+        self._arrivals += 1
+        self._track_peak()
+        if not s.prefill_toks and share_from is not None:
+            # fork with nothing to ingest: sample from the prefix logits
+            self._first_draws([(slot, self._prefix_logits[share_from])])
+        elif not s.prefill_toks:
+            # degenerate empty prompt: ingest one zero-length chunk now so
+            # the first sample has logits
+            logits = self._prefill_into_chunks(slot, [])
+            self._first_draws([(slot, logits)])
+        self.busy_s += time.perf_counter() - t0
+        return slot
+
+    def _prune_admit_stamps(self):
+        """Bound `_t_admit` without losing live requests' TTFT: only stamps
+        with no remaining reference (active slot, resume queue, a _run loop
+        still driving it) are evictable."""
+        if len(self._t_admit) <= self._admit_stamp_cap:
+            return
+        live = {s.req_id for s in self.slots if s.active}
+        live |= {r.req_id for r in self._resume_queue}
+        live |= self._inflight
+        for rid in list(self._t_admit):
+            if len(self._t_admit) <= self._admit_stamp_cap:
+                break
+            if rid not in live:
+                self._t_admit.pop(rid)
+
+    def _commit(self, slot: int, tok: int, lp: float):
+        s = self.slots[slot]
+        s.tokens.append(tok)
+        s.logprobs.append(lp)
+        s.generated += 1
+        self.tokens_generated += 1
+        if s.generated == 1 and s.req_id in self._t_admit:
+            self.ttft[s.req_id] = (time.perf_counter()
+                                   - self._t_admit.pop(s.req_id))
+        # context capacity counts as completion: decoding past max_len would
+        # overwrite live cache positions
+        if (tok == self.eos_id or s.generated >= s.max_new
+                or s.ctx_len >= self.max_len):
+            s.active = False
+            self._release_slot_pages(slot)
+
+    def _grow_pages(self):
+        """Before a decode step, make every active slot's next write target
+        safe: copy-on-write any shared page the write would land in, and map
+        a fresh page when the slot crosses a page boundary; evict the
+        lowest-priority youngest request when the pool is dry. Raises
+        MemoryError only if a lone request cannot grow."""
+        changed = False
+        for i, s in enumerate(self.slots):
+            if not s.active or s.ctx_len >= self.max_len or s.prefill_toks:
+                continue
+            cow, cow_done = None, False
+            while True:
+                try:
+                    if not cow_done:
+                        cow = self.alloc.cow_page(i, s.ctx_len)
+                        cow_done = True
+                    newp = self.alloc.extend(i, s.ctx_len + 1)
+                    break
+                except MemoryError:
+                    if not self._evict_victim(protect=i):
+                        raise
+            if cow is not None:
+                old, new = cow
+                self.block_table[i, s.ctx_len // self.page_size] = new
+                # device-side page copy: fork op with src == dst slot
+                self.cache = transformer.fork_slot_paged(
+                    self.cfg, self.cache, i, i, old, new)
+                changed = True
+                self._track_peak()
+            if newp is not None:
+                self.block_table[i, len(self.alloc.owned[i]) - 1] = newp
+                changed = True
+                self._track_peak()
+        if changed:
+            self._mark_table_dirty()
+
+    def _harvest(self) -> bool:
+        """Read back and commit the decode step launched LAST step(): one
+        device->host copy of the packed (tokens, logprobs)."""
+        if self._pending_decode is None:
+            return False
+        commits, packed = self._pending_decode
+        self._pending_decode = None
+        t0 = time.perf_counter()
+        host = packed.cpu().numpy()
+        for i in commits:
+            # the guard covers direct _evict_victim calls (tests)
+            if self.slots[i].active:
+                self._commit(i, int(host[0, i]), float(host[1, i]))
+        self.busy_s += time.perf_counter() - t0
+        return True
+
+    def _plan_decode(self, active_ids: List[int]) -> StepPlan:
+        """Build this step's decode plan with numpy only."""
+        last = np.zeros((self.max_batch, 1), np.int64)
+        mask = np.zeros((self.max_batch,), bool)
+        mask[active_ids] = True
+        live = self._live_pages(active_ids)
+        for i in active_ids:
+            s = self.slots[i]
+            if s.tokens:
+                last[i, 0] = s.tokens[-1]
+            s.ctx_len = min(s.ctx_len + 1, self.max_len)
+        return StepPlan(active_ids=active_ids, last=last, mask=mask,
+                        live=live, commits=list(active_ids))
+
+    def _dispatch_decode(self, plan: StepPlan):
+        """The "run" half: one decode step + sample + logprob on the device,
+        read back at the next step's harvest."""
+        self.kv_bytes_read += self._page_kv_bytes * sum(
+            -(-self.slots[i].ctx_len // self.page_size)
+            for i in plan.active_ids)
+        logits, self.cache = transformer.decode_step_paged(
+            self.cfg, self.params, self._to_device(plan.last), self.cache,
+            active=self._to_device(plan.mask), live_pages=plan.live)
+        toks = sample(logits, self.sampler, self.gen)
+        lps = token_logprob(logits, toks)
+        self._pending_decode = (plan.commits,
+                                torch.stack([toks.float(), lps]))
+
+    def _run_ingest(self) -> bool:
+        """Batched ragged chunk ingest: EVERY ingesting slot's next chunk in
+        one `prefill_ragged_paged` call. Slots whose final chunk lands here
+        draw their first token now, in (priority, admission) order, and join
+        the decode batch next step."""
+        ing = [i for i, s in enumerate(self.slots)
+               if s.active and s.prefill_toks]
+        if not ing:
+            return False
+        ing.sort(key=lambda j: (-self.slots[j].priority,
+                                self.slots[j].arrival))
+        C = self.prefill_chunk
+        rows: List[Tuple[int, int, List[int]]] = []
+        for i in ing:
+            s = self.slots[i]
+            chunk = s.prefill_toks[:C]
+            s.prefill_toks = s.prefill_toks[C:]
+            rows.append((i, s.ctx_len, chunk))
+            s.ctx_len += len(chunk)
+        R = 1
+        while R < len(rows):
+            R *= 2                      # bucket rows (lo=1)
+        toks = np.zeros((R, C), np.int64)
+        # padding rows carry the out-of-range slot `max_batch`: their cache
+        # writes drop and their reads are discarded
+        slots = np.full((R,), self.max_batch, np.int32)
+        offs = np.zeros((R,), np.int32)
+        lens = np.zeros((R,), np.int32)
+        for r, (i, off, chunk) in enumerate(rows):
+            toks[r, :len(chunk)] = chunk
+            slots[r], offs[r], lens[r] = i, off, len(chunk)
+        live = self._chunk_live(max(off + len(chunk)
+                                    for _, off, chunk in rows))
+        self.kv_bytes_read += self._page_kv_bytes * sum(
+            -(-(off + len(chunk)) // self.page_size)
+            for _, off, chunk in rows)
+        logits, self.cache = transformer.prefill_ragged_paged(
+            self.cfg, self.params, self._to_device(toks), self.cache,
+            slots, offs, lens, live_pages=live)
+        finished = [(i, logits[r:r + 1]) for r, (i, _, _) in enumerate(rows)
+                    if self.slots[i].active and not self.slots[i].prefill_toks]
+        if finished:
+            self._first_draws(finished)
+        return True
+
+    def step(self) -> bool:
+        """One engine step, structured plan/run: (0) harvest last step's
+        decode readback, (1) host-plan page growth/COW, eviction, ragged
+        ingest rows and decode inputs with numpy, (2) push the block table
+        at most once, (3) launch at most one batched ragged ingest call and
+        one decode call, deferring the decode readback to the next step.
+        Returns True if work was done (including a harvest-only step)."""
+        if self.step_hook is not None:
+            self.step_hook(self)
+        worked = self._harvest()
+        if not any(s.active for s in self.slots):
+            return worked
+        t0 = time.perf_counter()
+        active = [i for i, s in enumerate(self.slots)
+                  if s.active and not s.prefill_toks]
+        if active:
+            self._grow_pages()          # may evict, incl. mid-ingest slots
+            active = [i for i, s in enumerate(self.slots)
+                      if s.active and not s.prefill_toks]
+        plan = self._plan_decode(active) if active else None
+        # ONE table push per step, before the first launch that reads it
+        self._sync_table()
+        worked = self._run_ingest() or worked
+        if plan is not None:
+            self._dispatch_decode(plan)
+            worked = True
+        self.busy_s += time.perf_counter() - t0
+        return worked
+
+    # ------------------------------------------------------------------
+    def generate(self, prompts: List[List[int]], max_new: int = 128,
+                 priorities: Optional[List[int]] = None,
+                 deadline_s: Optional[float] = None
+                 ) -> List[Tuple[List[int], List[float]]]:
+        """Batch-generate; returns (tokens, logprobs) per prompt.
+        `priorities` orders preemption under memory pressure; `deadline_s`
+        (perf_counter timestamp) caps the run, returning partials."""
+        priorities = priorities or [0] * len(prompts)
+        assert len(priorities) == len(prompts), \
+            "priorities must match prompts one-to-one"
+        pending = [_Resume(req_id=i, prompt=p, max_new=max_new,
+                           carry_tokens=[], carry_lps=[], priority=pr)
+                   for i, (p, pr) in enumerate(zip(prompts, priorities))]
+        return self._run(pending, deadline_s=deadline_s)
+
+    def generate_fanout(self, prefix: List[int],
+                        suffixes: List[List[int]], max_new: int = 128,
+                        priority: int = 0,
+                        deadline_s: Optional[float] = None
+                        ) -> List[Tuple[List[int], List[float]]]:
+        """Expand one shared prefix N ways (the PICE sketch fan-out): the
+        prefix is prefilled ONCE and each expansion forks a copy-on-write
+        block-table row off it; per-group suffixes are ingested before
+        sampling. Falls back to independent submissions on a 1-slot engine,
+        which has no second slot to fork into."""
+        if self.max_batch < 2:
+            return self.generate([list(prefix) + list(s) for s in suffixes],
+                                 max_new=max_new,
+                                 priorities=[priority] * len(suffixes),
+                                 deadline_s=deadline_s)
+        p_slot = self.prefill_prefix(prefix)
+        pending = [_Resume(req_id=i, prompt=list(prefix) + list(sfx),
+                           max_new=max_new, carry_tokens=[], carry_lps=[],
+                           share_from=p_slot, suffix=list(sfx),
+                           priority=priority)
+                   for i, sfx in enumerate(suffixes)]
+        try:
+            return self._run(pending, deadline_s=deadline_s)
+        finally:
+            self.release_prefix(p_slot)
+
+    def _run(self, pending: List[_Resume],
+             deadline_s: Optional[float] = None
+             ) -> List[Tuple[List[int], List[float]]]:
+        n = len(pending)
+        for r in pending:
+            self._t_admit.pop(r.req_id, None)
+        mine = {r.req_id for r in pending}
+        self._inflight |= mine
+        try:
+            return self._run_inner(pending, n, deadline_s)
+        finally:
+            self._inflight -= mine
+
+    # ------------------------------------------------------------------
+    # Request-handle admission API: the synchronous `_run` loop and the
+    # async serving front-end (serving/frontend.py) drive the engine
+    # through these same two calls.
+    # ------------------------------------------------------------------
+    def try_admit(self, r: _Resume) -> Optional[int]:
+        """Attempt to admit `r`. Returns the slot index on success, or None
+        when the request must wait for slots/pages to free. Raises
+        MemoryError when the engine is IDLE and the request still cannot
+        fit. A fork resume whose parked prefix is gone falls back to a fresh
+        ingest of its full prompt."""
+        if not self.free_slots():
+            return None
+        if r.share_from >= 0 and not self.slots[r.share_from].parked:
+            r.share_from, r.suffix = -1, []       # prefix gone: from scratch
+        if r.share_from >= 0:
+            ok = self.can_admit_fork(
+                r.share_from, len(r.suffix) + len(r.carry_tokens))
+        else:
+            ok = self.can_admit(len(r.prompt) + len(r.carry_tokens))
+        if not ok:
+            if not any(s.active for s in self.slots):
+                raise MemoryError(
+                    f"request {r.req_id} cannot fit in the page pool")
+            return None                          # wait for pages to free
+        return self.add_request(
+            r.req_id, r.prompt, r.max_new,
+            carry_tokens=r.carry_tokens, carry_lps=r.carry_lps,
+            share_from=r.share_from if r.share_from >= 0 else None,
+            suffix=r.suffix, priority=r.priority)
+
+    def drain_resumes(self) -> List[_Resume]:
+        """Take the work eviction preempted, oldest victim first."""
+        out = list(reversed(self._resume_queue))
+        self._resume_queue.clear()
+        return out
+
+    def _run_inner(self, pending: List[_Resume], n: int,
+                   deadline_s: Optional[float] = None
+                   ) -> List[Tuple[List[int], List[float]]]:
+        results: Dict[int, Tuple[List[int], List[float]]] = {}
+        submitted: Dict[int, int] = {}          # req_id -> slot
+        while pending or any(s.active for s in self.slots):
+            while pending and self.free_slots():
+                slot = self.try_admit(pending[0])
+                if slot is None:
+                    break                        # wait for pages to free
+                r = pending.pop(0)
+                submitted[r.req_id] = slot
+            self.step()
+            if deadline_s is not None and time.perf_counter() > deadline_s \
+                    and (pending or any(s.active for s in self.slots)):
+                # deadline blown: cancel every in-flight request (partial
+                # tokens are collected below) and settle queued work with
+                # whatever it carried
+                for rid, sl in list(submitted.items()):
+                    if self.slots[sl].active:
+                        self.cancel(rid)
+                        self.deadline_cancels += 1
+                pending[:0] = self.drain_resumes()
+                for r in pending:
+                    results[r.req_id] = (list(r.carry_tokens),
+                                         list(r.carry_lps))
+                    self.deadline_cancels += 1
+                pending.clear()
+            done = [rid for rid, sl in submitted.items()
+                    if not self.slots[sl].active]
+            for rid in done:
+                sl = submitted.pop(rid)
+                s = self.slots[sl]
+                s.req_id = -1
+                if s.evicted:
+                    s.evicted = False
+                    continue                     # resubmitted via _resume_queue
+                results[rid] = (list(s.tokens), list(s.logprobs))
+            pending[:0] = self.drain_resumes()
+        return [results[i] for i in range(n)]

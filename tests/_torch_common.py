@@ -1,0 +1,64 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
+the same configs on both sides, and JAX params converted for the port."""
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+from repro.models import transformer as jtransformer
+from repro.models.config import ModelConfig as JModelConfig
+from repro_torch import convert
+from repro_torch.configs.pice_cloud_edge import (TINY_CLOUD, TINY_EDGE_A,
+                                                 TINY_EDGE_B)
+from repro_torch.models.config import ModelConfig
+
+# the xdist workers share the machine's cores
+torch.set_num_threads(2)
+
+RTOL, ATOL = 1e-5, 1e-6           # tests/test_plan_run.py::_assert_same_replay
+# Activations at the end of a stack (logits, deep layers' K/V): each
+# package's float32 values lie up to 4e-6 from a float64 evaluation of the
+# same weights (tiny-cloud, 6 layers), so the two are compared at 1e-5
+# absolute; logprobs keep the replay tolerance above.
+STACK_ATOL = 1e-5
+
+TINY = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                   n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=128,
+                   max_seq_len=512, dtype="float32", remat=False)
+
+CONFIGS = {
+    "tiny": TINY,
+    "tiny-cloud": TINY_CLOUD.with_(dtype="float32"),
+    "tiny-edge-a": TINY_EDGE_A.with_(dtype="float32"),
+    "tiny-edge-b": TINY_EDGE_B.with_(dtype="float32"),
+}
+
+PROMPTS = [[65 + i for i in range(43)], [70, 71], [80] * 40, [90] * 17,
+           [5] * 64]
+
+
+def jax_config(cfg: ModelConfig) -> JModelConfig:
+    """The JAX package's ModelConfig with the same field values."""
+    return JModelConfig(**{f.name: getattr(cfg, f.name)
+                           for f in dataclasses.fields(cfg)})
+
+
+def params_pair(cfg: ModelConfig, seed: int = 0):
+    """(JAX params, port params) holding the same weights."""
+    jp = jtransformer.init_params(jax_config(cfg), jax.random.PRNGKey(seed))
+    tp = convert.params_from_reference(cfg, jax.tree.map(np.asarray, jp))
+    return jp, tp
+
+
+def assert_close(a, b, err_msg="", atol=ATOL):
+    np.testing.assert_allclose(np.asarray(a, np.float64),
+                               np.asarray(b, np.float64), rtol=RTOL,
+                               atol=atol, err_msg=err_msg)
+
+
+def assert_same_replay(a, b):
+    """Greedy tokens equal; logprobs within the replay tolerance."""
+    for i, ((ta, la), (tb, lb)) in enumerate(zip(a, b)):
+        assert list(ta) == list(tb), f"request {i}: tokens diverge"
+        assert_close(la, lb, err_msg=f"request {i}: logprobs diverge")
