@@ -9,22 +9,32 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
   1. environment: the card, its power limit, torch/CUDA versions, build time;
      TF32 is switched off for float32 matmuls and convolutions;
   2. every kernel wrapper against its plain PyTorch version on the card, on
-     the case families of the JAX package's paged-kernel tests (ragged
-     lengths with 0, unmapped -1 tail pages, COW-shared pages, padding
-     ingest rows; head_dim 24/32/128, q_per_kv 1/2/4/6, page 8/16/32,
-     chunk 16/48/64/128), float32 at rtol=atol=2e-5 and bfloat16 at
-     rtol=atol=2e-2;
+     the case families of the JAX package's kernel tests: for the paged
+     kernels ragged lengths with 0, unmapped -1 tail pages, COW-shared
+     pages, padding ingest rows (head_dim 24/32/128, q_per_kv 1/2/4/6, page
+     8/16/32, chunk 16/48/64/128); for the dense decode kernel ragged
+     lengths from 1 to S with NaN past each length and a slot of length 0;
+     for the flash kernel window 0/64, softcap 0/30, causal and not, S of
+     200 and 300; float32 at rtol=atol=2e-5 and bfloat16 at rtol=atol=2e-2;
   3. each kernel's time at the serving shapes of qwen3-8b and qwen2-1.5b
      (CUDA events, median of 21 runs, L2 flushed before each), beside its
-     bound, its plain version's time and scaled_dot_product_attention over
-     the gathered KV as a yardstick;
-  4. the TINY test config through the port's engine on the card and on the
-     CPU: greedy tokens equal, logprobs within rtol 1e-4, atol 1e-5;
-  5. the PICE pipeline at full width — qwen3-8b in the cloud, qwen2-1.5b at
-     the edge, random bf16 weights from a seed — on three corpus requests,
-     with every kernel's launch counter read around the pipeline run;
-  6. where each full-width engine's time goes: host wall time against
-     device busy time by kernel (torch.profiler) on a short batch;
+     bound, its plain version's time and scaled_dot_product_attention as a
+     yardstick (over the gathered KV for the paged kernels, with a length
+     mask over the cache for the dense decode, causal for flash);
+  4. the TINY test config through the port's dense, monolithic paged and
+     chunked paged engines on the card and on the CPU: greedy tokens
+     equal, logprobs within rtol 1e-4, atol 1e-5; dense and monolithic
+     paged give the same tokens on the card;
+  5. at full width — qwen3-8b in the cloud, qwen2-1.5b at the edge, random
+     bf16 weights from a seed: the PICE pipeline on chunked paged engines
+     (three corpus requests), the same pipeline on dense engines over the
+     same weight tensors (two requests), one batch on a monolithic paged
+     qwen3-8b engine, and `score()` of a 1024-token sequence on each model;
+     every kernel's launch counter is set to 0 just before each of these
+     paths and read just after;
+  6. where each full-width engine's time goes (chunked paged qwen3-8b and
+     qwen2-1.5b, dense qwen3-8b): host wall time against device busy time
+     by kernel (torch.profiler) on a short batch;
   7. one JSON line of the kernels, the card's name and power limit, and the
      final {"ok": true, ...} line.
 
@@ -105,6 +115,16 @@ def prefill_case(torch, gen, Hq, Hkv, hd, page, C, dtype, offs=None,
     q = torch.randn(len(offs), C, Hq, hd, generator=gen,
                     device="cuda").to(dtype)
     return q, kp, vp, table, offs.cuda(), lens.cuda()
+
+
+def poisoned_cache(torch, gen, B, S, Hkv, hd, dtype, lens):
+    """(k, v) dense caches with NaN at every position past each length."""
+    k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+    past = (torch.arange(S, device="cuda")[None, :]
+            >= lens[:, None])[:, :, None, None]
+    return (k.masked_fill(past, float("nan")),
+            v.masked_fill(past, float("nan")))
 
 
 def valid_rows(torch, out, lens):
@@ -207,8 +227,68 @@ def phase_kernels_vs_plain(torch):
             torch.testing.assert_close(valid_rows(torch, got, lens),
                                        valid_rows(torch, want, lens), **tol)
             n += 1
+        n += dense_kernel_cases(torch, gen, dtype, tol)
     log(f"{n} cases passed (float32 at rtol=atol=2e-5, bfloat16 at "
         f"rtol=atol=2e-2)")
+
+
+def dense_kernel_cases(torch, gen, dtype, tol):
+    """The dense decode and flash kernels against their plain versions
+    (tests/test_kernels.py's shapes, S no tile divides, head_dim 24/128,
+    q_per_kv 1/2/4/6)."""
+    from repro_torch.kernels.decode_attention import ops as ddops
+    from repro_torch.kernels.decode_attention import ref as ddref
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention import ref as faref
+    n = 0
+    # (B, S, Hq, Hkv, hd): lengths from 1 to S, NaN past each, slot 0 empty
+    for B, S, Hq, Hkv, hd in [(2, 128, 4, 2, 32), (3, 256, 8, 8, 64),
+                              (2, 64, 16, 4, 128), (3, 300, 12, 2, 128),
+                              (3, 200, 6, 1, 24), (8, 1024, 32, 8, 128)]:
+        lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
+        lens[0], lens[-1] = 0, S
+        lens = lens.to(torch.int32)
+        q = torch.randn(B, 1, Hq, hd, generator=gen, device="cuda").to(dtype)
+        k, v = poisoned_cache(torch, gen, B, S, Hkv, hd, dtype, lens)
+        got = ddops.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), "NaN past a length reached out"
+        assert torch.all(got[0] == 0), "a zero-length slot must give 0"
+        torch.testing.assert_close(
+            got.float(), ddref.decode_attention_ref(q, k, v, lens).float(),
+            **tol)
+        n += 1
+    # the engine's read: a view of the first live rows; lengths past it
+    # (inactive slots) read all of it
+    lens = torch.tensor([0, 5, 300, 301, 700], dtype=torch.int32,
+                        device="cuda")
+    q = torch.randn(5, 1, 32, 128, generator=gen, device="cuda").to(dtype)
+    k, v = poisoned_cache(torch, gen, 5, 1024, 8, 128, dtype, lens)
+    k, v = k[:, :301], v[:, :301]
+    got = ddops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.all(got[0] == 0)
+    torch.testing.assert_close(
+        got.float(), ddref.decode_attention_ref(q, k, v, lens).float(), **tol)
+    n += 1
+    # (B, S, Hq, Hkv, hd) x (causal, window, softcap)
+    for B, S, Hq, Hkv, hd in [(2, 128, 4, 2, 32), (1, 256, 8, 8, 64),
+                              (2, 64, 4, 1, 16), (1, 512, 2, 2, 128),
+                              (1, 200, 12, 2, 128), (2, 300, 6, 1, 24)]:
+        q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+        for causal, window, softcap in [(True, 0, 0.0), (True, 64, 0.0),
+                                        (True, 0, 30.0), (False, 0, 0.0),
+                                        (False, 64, 30.0)]:
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            got = faops.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                got.float(), faref.flash_attention_ref(q, k, v, **kw).float(),
+                **tol)
+            n += 1
+    return n
 
 
 def device_ms(torch, fn, flush, runs=21):
@@ -336,6 +416,7 @@ def phase_timing(torch):
                     F.scaled_dot_product_attention, qs, ks, vs,
                     attn_mask=mask), flush),
                 bound=bound(nbytes, 4 * hd * Hq * pairs))
+    time_dense_kernels(torch, gen, flush, models, rows)
     for (name, model), r in rows.items():
         b_ms, b_by = r["bound"]
         log(f"{name} [{model}: {r['shape']}] kernel {r['ms']:.4f} ms, bound "
@@ -344,46 +425,142 @@ def phase_timing(torch):
     return rows
 
 
+def time_dense_kernels(torch, gen, flush, models, rows):
+    """The dense decode kernel at B = 8 slots of a max_len = 1024 cache
+    filled to 512, read as the engine reads it (a view of the live rows),
+    and the flash kernel at B = 1, S = 1024, causal (bf16, head_dim 128).
+    Bound inputs are logged beside each time. The decode kernel is also
+    timed at phase 6's fill (288), over the live view and over the whole
+    cache."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as ddops
+    from repro_torch.kernels.decode_attention import ref as ddref
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention import ref as faref
+    dt, esz, hd = torch.bfloat16, 2, 128
+    for model, (Hq, Hkv) in models.items():
+        rep = Hq // Hkv
+        B, S = 8, 1024
+        q = torch.randn(B, 1, Hq, hd, generator=gen, device="cuda").to(dt)
+        for ctx, live in ((512, 512), (288, 288), (288, S)):
+            lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+            k, v = poisoned_cache(torch, gen, B, S, Hkv, hd, dt, lens)
+            k, v = k[:, :live], v[:, :live]
+            got = ddops.decode_attention(q, k, v, lens)
+            want = ddref.decode_attention_ref(q, k, v, lens)
+            torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+            run = functools.partial(ddops.decode_attention, q, k, v, lens)
+            if ctx != 512:
+                log(f"decode_attention [{model}: B={B} S={S} lengths={ctx} "
+                    f"read over {live} rows] kernel "
+                    f"{device_ms(torch, run, flush):.4f} ms")
+                continue
+            kv_bytes = int(lens.sum()) * Hkv * hd * 2 * esz
+            nbytes = kv_bytes + 2 * q.numel() * esz + B * 4
+            log(f"decode_attention bound inputs [{model}]: K/V {kv_bytes} B + "
+                f"q/out {2 * q.numel() * esz} B + lengths {B * 4} B; "
+                f"{4 * hd * Hq * int(lens.sum())} flops")
+            kc = k.nan_to_num(0.0).repeat_interleave(rep, 2).transpose(1, 2)
+            vc = v.nan_to_num(0.0).repeat_interleave(rep, 2).transpose(1, 2)
+            mask = (torch.arange(live, device="cuda")[None, :]
+                    < lens[:, None])[:, None, None]
+            rows[("decode_attention", model)] = dict(
+                shape=f"B={B} S={S} lengths={ctx} read over {live} rows "
+                      f"Hq={Hq} Hkv={Hkv} hd={hd}",
+                max_abs_err=(got.float() - want.float()).abs().max().item(),
+                ms=device_ms(torch, run, flush),
+                plain_ms=device_ms(torch, functools.partial(
+                    ddref.decode_attention_ref, q, k, v, lens), flush),
+                library_ms=device_ms(torch, functools.partial(
+                    F.scaled_dot_product_attention, q.transpose(1, 2),
+                    kc.contiguous(), vc.contiguous(), attn_mask=mask), flush),
+                bound=bound(nbytes, 4 * hd * Hq * int(lens.sum())))
+        B, S = 1, 1024
+        q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dt)
+        k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dt)
+        v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dt)
+        got = faops.flash_attention(q, k, v)
+        want = faref.flash_attention_ref(q, k, v)
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+        flops = 4 * hd * Hq * S * (S + 1) // 2
+        nbytes = (2 * q.numel() + 2 * k.numel()) * esz
+        log(f"flash_attention bound inputs [{model}]: {flops} flops "
+            f"(4 * hd * Hq * S(S+1)/2); q/out {2 * q.numel() * esz} B + "
+            f"k/v {2 * k.numel() * esz} B")
+        qs = q.transpose(1, 2)
+        ks = k.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+        vs = v.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+        rows[("flash_attention", model)] = dict(
+            shape=f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} hd={hd}",
+            max_abs_err=(got.float() - want.float()).abs().max().item(),
+            ms=device_ms(torch, functools.partial(
+                faops.flash_attention, q, k, v), flush),
+            plain_ms=device_ms(torch, functools.partial(
+                faref.flash_attention_ref, q, k, v), flush),
+            library_ms=device_ms(torch, functools.partial(
+                F.scaled_dot_product_attention, qs, ks, vs, is_causal=True),
+                flush),
+            bound=bound(nbytes, flops))
+
+
 def phase_tiny_parity(torch):
-    """The TINY test config through the port's engine on cuda and on cpu."""
+    """The TINY test config through the port's engines on cuda and on cpu:
+    dense, monolithic paged (prefill_chunk 0) and chunked paged."""
     from repro_torch.models import transformer
     from repro_torch.models.config import ModelConfig
     from repro_torch.serving.engine import InferenceEngine
-    log("== phase 4: TINY engine, card against CPU")
+    log("== phase 4: TINY engines, card against CPU")
     tiny = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
                        n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=128,
-                       max_seq_len=512, dtype="float32", remat=False,
-                       prefill_chunk=16)
+                       max_seq_len=512, dtype="float32", remat=False)
     prompts = [[65 + i for i in range(43)], [70, 71], [80] * 40, [90] * 17,
                [5] * 64]
     cpu_params = transformer.init_params(tiny, seed=0, device="cpu")
     cuda_params = _to(cpu_params, "cuda")
 
-    def engine(device, page):
-        return InferenceEngine(tiny, cuda_params if device == "cuda"
+    def engine(device, backend, chunk, page):
+        return InferenceEngine(tiny.with_(prefill_chunk=chunk),
+                               cuda_params if device == "cuda"
                                else cpu_params, max_batch=3, max_len=128,
-                               page_size=page, device=device)
+                               page_size=page, kv_backend=backend,
+                               device=device)
 
-    for page in (8, 16):
-        on_card = engine("cuda", page).generate(prompts, max_new=12)
-        on_cpu = engine("cpu", page).generate(prompts, max_new=12)
-        for i, ((tg, lg), (tc, lc)) in enumerate(zip(on_card, on_cpu)):
-            n = len(tc)
-            for t in range(min(len(tg), len(tc))):
-                if tg[t] != tc[t]:
-                    margin = _cpu_margin(torch, engine("cpu", page),
-                                         prompts[i], tc[:t])
-                    log(f"page {page} request {i}: tokens part at step {t}, "
-                        f"cpu top-2 logit margin {margin:.3g}")
-                    assert margin < 1e-4, "tokens diverge at a clear margin"
-                    n = t
-                    break
-            assert tg[:n] == tc[:n], f"request {i}: tokens diverge"
-            torch.testing.assert_close(torch.tensor(lg[:n]),
-                                       torch.tensor(lc[:n]), rtol=1e-4,
-                                       atol=1e-5)
-        log(f"page {page}: {len(prompts)} requests, greedy tokens equal, "
-            f"logprobs within rtol 1e-4 atol 1e-5")
+    on_card = {}
+    for variant in (("dense", 0, 16), ("paged", 0, 16), ("paged", 16, 8),
+                    ("paged", 16, 16)):
+        on_card[variant] = engine("cuda", *variant).generate(prompts,
+                                                             max_new=12)
+        on_cpu = engine("cpu", *variant).generate(prompts, max_new=12)
+        _same_greedy(torch, on_card[variant], on_cpu,
+                     lambda: engine("cpu", *variant), prompts, variant)
+        log(f"{variant[0]} prefill_chunk={variant[1]} page={variant[2]}: "
+            f"{len(prompts)} requests, greedy tokens equal, logprobs within "
+            f"rtol 1e-4 atol 1e-5")
+    _same_greedy(torch, on_card[("dense", 0, 16)], on_card[("paged", 0, 16)],
+                 lambda: engine("cpu", "dense", 0, 16), prompts,
+                 "dense vs monolithic paged on the card")
+    log("dense and monolithic paged engines give the same greedy tokens on "
+        "the card")
+
+
+def _same_greedy(torch, got, want, cpu_engine, prompts, what):
+    """Greedy tokens equal (a part at a CPU top-2 logit margin under 1e-4
+    ends the comparison of that request) and logprobs within rtol 1e-4,
+    atol 1e-5 up to there."""
+    for i, ((tg, lg), (tc, lc)) in enumerate(zip(got, want)):
+        n = len(tc)
+        for t in range(min(len(tg), len(tc))):
+            if tg[t] != tc[t]:
+                margin = _cpu_margin(torch, cpu_engine(), prompts[i], tc[:t])
+                log(f"{what} request {i}: tokens part at step {t}, cpu "
+                    f"top-2 logit margin {margin:.3g}")
+                assert margin < 1e-4, "tokens diverge at a clear margin"
+                n = t
+                break
+        assert tg[:n] == tc[:n], f"{what} request {i}: tokens diverge"
+        torch.testing.assert_close(torch.tensor(lg[:n]),
+                                   torch.tensor(lc[:n]), rtol=1e-4,
+                                   atol=1e-5)
 
 
 def _cpu_margin(torch, eng, prompt, prefix):
@@ -405,30 +582,99 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase_pipeline(torch):
-    """The PICE pipeline at full width on the card."""
-    from repro_torch.configs.pice_cloud_edge import cloud_config, edge_configs
-    from repro_torch.data import corpus
+def kernel_counters():
+    """Every kernel wrapper of the port, by the name its counter reports."""
+    from repro_torch.kernels.decode_attention import ops as ddops
+    from repro_torch.kernels.flash_attention import ops as faops
     from repro_torch.kernels.paged_decode_attention import ops as dops
     from repro_torch.kernels.paged_prefill_attention import ops as pops
+    return {fn.__name__: fn for fn in (
+        dops.paged_decode_attention, pops.paged_prefill_attention_ragged,
+        pops.paged_prefill_attention, ddops.decode_attention,
+        faops.flash_attention)}
+
+
+def counted(torch, fn):
+    """fn() with every launch counter set to 0 just before it; returns
+    (fn's result, {kernel: launches}) read just after."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: c.launches for name, c in counters.items()}
+
+
+def profile_prompts():
+    """Phase 6's batch: 4 prompts of 256 tokens."""
+    return [[(7 * i + j) % 251 + 1 for j in range(256)] for i in range(4)]
+
+
+def run_pipeline(torch, engines, n_requests, label):
+    """Profile the engines, build the PICE pipeline (qwen3-8b cloud) and
+    answer `n_requests` corpus requests, counting kernel launches over the
+    requests. Returns the launches."""
+    from repro_torch.data import corpus
     from repro_torch.launch import serve
+    from repro_torch.serving.requests import Request, Response
+    pipe = serve.build_pipeline(engines, serve.CAPABILITIES,
+                                log_fn=log, cloud_name="qwen3-8b")
+    before = {n: (e.tokens_generated, e.busy_s) for n, e in engines.items()}
+
+    def answer():
+        modes = []
+        for ex in corpus.corpus(n_requests, seed=7):
+            resp = pipe.handle(Request(query=ex.query, category=ex.category,
+                                       max_new_tokens=96))
+            assert isinstance(resp, Response)
+            modes.append(resp.mode)
+            log(serve.response_line(resp, 0.0))
+        return modes
+
+    t0 = time.perf_counter()
+    modes, launches = counted(torch, answer)
+    wall = time.perf_counter() - t0
+    log(f"{label} pipeline: {n_requests} requests in {wall:.2f} s, modes "
+        f"{modes}")
+    for name, e in engines.items():
+        toks = e.tokens_generated - before[name][0]
+        busy = e.busy_s - before[name][1]
+        log(f"  {name} ({label}): {toks} tokens in {busy:.2f} s busy "
+            f"({toks / max(busy, 1e-9):.1f} tok/s)")
+    log(f"  kernel launches on the {label} pipeline run: {launches}")
+    return launches
+
+
+def phase_full_width(torch):
+    """Phase 5: the full-width paths, each with its own launch counts."""
+    import math
+    import numpy as np
+    from repro_torch.configs.pice_cloud_edge import cloud_config, edge_configs
     from repro_torch.models import transformer
     from repro_torch.serving import engine as engine_mod
-    from repro_torch.serving.requests import Request, Response
-    log("== phase 5: PICE pipeline at full width (random bf16 weights)")
+    log("== phase 5: full width (random bf16 weights)")
     cfgs = {"qwen3-8b": cloud_config().with_(prefill_chunk=128),
             "qwen2-1.5b": edge_configs()["qwen2-1.5b"].with_(
                 prefill_chunk=128)}
-    engines = {}
+    kw = dict(max_batch=8, max_len=1024, device="cuda")
+    engines, dense = {}, {}
     for seed, (name, cfg) in enumerate(cfgs.items()):
         t0 = time.perf_counter()
         params = transformer.init_params(cfg, seed=seed, device="cuda")
         engines[name] = engine_mod.InferenceEngine(
-            cfg, params, max_batch=8, max_len=1024, page_size=32, name=name,
-            device="cuda")
+            cfg, params, page_size=32, name=name, **kw)
+        # the same weight tensors: no second copy
+        dense[name] = engine_mod.InferenceEngine(
+            cfg, params, kv_backend="dense", name=name, **kw)
+        cache_b = sum(seg[k].numel() * seg[k].element_size()
+                      for seg in dense[name].cache["segments"] for k in seg)
         log(f"{name}: {cfg.param_count() / 1e9:.2f} B params ({cfg.dtype}), "
-            f"pool {engines[name].n_pages} pages, built in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"pool {engines[name].n_pages} pages, dense cache "
+            f"{cache_b / 1e9:.3f} GB, built in {time.perf_counter() - t0:.1f}"
+            f" s")
+    mono = engine_mod.InferenceEngine(
+        cfgs["qwen3-8b"].with_(prefill_chunk=0), engines["qwen3-8b"].params,
+        page_size=32, name="qwen3-8b-monolithic", **kw)
     # every sampled logits row passes token_logprob: count non-finite
     # entries on the device, read once at the end
     nonfinite = torch.zeros((), dtype=torch.int64, device="cuda")
@@ -438,43 +684,49 @@ def phase_pipeline(torch):
         nonfinite.add_((~torch.isfinite(logits)).sum())
         return logprob(logits, toks)
     engine_mod.token_logprob = checked
-    pipe = serve.build_pipeline(engines, serve.CAPABILITIES,
-                                log_fn=log, cloud_name="qwen3-8b")
-    counters = (dops.paged_decode_attention,
-                pops.paged_prefill_attention_ragged,
-                pops.paged_prefill_attention)
-    for fn in counters:
-        fn.launches = 0
-    before = {n: (e.tokens_generated, e.busy_s) for n, e in engines.items()}
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    modes = []
-    for ex in corpus.corpus(3, seed=7):
-        resp = pipe.handle(Request(query=ex.query, category=ex.category,
-                                   max_new_tokens=96))
-        assert isinstance(resp, Response)
-        modes.append(resp.mode)
-        log(serve.response_line(resp, 0.0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
-    engine_mod.token_logprob = logprob
+    paths = {}
+    try:
+        paths["chunked paged pipeline"] = run_pipeline(torch, engines, 3,
+                                                       "chunked paged")
+        paths["dense pipeline"] = run_pipeline(torch, dense, 2, "dense")
+        t0 = time.perf_counter()
+        _, paths["monolithic paged generate"] = counted(
+            torch, lambda: mono.generate(profile_prompts(), max_new=32))
+        log(f"monolithic paged qwen3-8b: 4 x 256-token prompts, 32 new "
+            f"tokens each, in {time.perf_counter() - t0:.2f} s; launches "
+            f"{paths['monolithic paged generate']}")
+        seq = [(13 * i) % 251 + 1 for i in range(1024)]
+        for name, eng in dense.items():
+            (mean, gold), launches = counted(torch, lambda: eng.score(seq))
+            paths[f"score {name}"] = launches
+            assert math.isfinite(mean) and np.isfinite(gold).all(), name
+            assert launches["flash_attention"] == eng.cfg.n_layers, launches
+            log(f"score [{name}] of a 1024-token sequence: mean logprob "
+                f"{mean:.4f}, {len(gold)} tokens, flash launches "
+                f"{launches['flash_attention']} = n_layers")
+    finally:
+        engine_mod.token_logprob = logprob
     assert int(nonfinite) == 0, f"{int(nonfinite)} non-finite logits"
-    log(f"3 requests in {wall:.2f} s, modes {modes}; logits finite")
-    for name, e in engines.items():
-        toks = e.tokens_generated - before[name][0]
-        busy = e.busy_s - before[name][1]
-        log(f"{name}: {toks} tokens in {busy:.2f} s busy "
-            f"({toks / max(busy, 1e-9):.1f} tok/s)")
+    log("logits finite on every path")
     log(f"max memory allocated: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    log(f"kernel launches on the pipeline run: {launches}")
-    for name, n in launches.items():
-        assert n > 0, f"{name} was never launched on the main path"
-    return launches, engines
+    for path, kernel in (
+            ("chunked paged pipeline", "paged_decode_attention"),
+            ("chunked paged pipeline", "paged_prefill_attention_ragged"),
+            ("chunked paged pipeline", "paged_prefill_attention"),
+            ("dense pipeline", "decode_attention"),
+            ("monolithic paged generate", "paged_decode_attention")):
+        assert paths[path][kernel] > 0, f"{kernel} never ran on the {path}"
+    return paths, {"qwen3-8b": engines["qwen3-8b"],
+                   "qwen2-1.5b": engines["qwen2-1.5b"],
+                   "qwen3-8b-dense": dense["qwen3-8b"]}
 
 
 MATMUL_KERNELS = ("nvjet", "gemm", "gemv", "cutlass", "xmma")
+# the device functions of csrc/*.cu, as the profiler names them
+PORT_KERNELS = ("decode_partial", "decode_merge", "paged_prefill_kernel",
+                "flash_kernel")
 
 
 def matmul_weight_bytes(cfg, params):
@@ -502,17 +754,14 @@ def phase_profile(torch, engines):
     same run under torch.profiler for device time by kernel. Busy share =
     device time / unprofiled wall time (one stream, so kernels do not
     overlap). The matmuls' bound is their weight bytes, read once per model
-    call, over the HBM rate; model calls = paged-attention launches of the
-    profiled run / attention layers."""
+    call, over the HBM rate; model calls = attention-kernel launches of the
+    profiled run / attention layers, plus one call per prompt where the
+    prefill is monolithic (it runs no kernel of the port)."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.paged_decode_attention import ops as dops
-    from repro_torch.kernels.paged_prefill_attention import ops as pops
-    counters = (dops.paged_decode_attention,
-                pops.paged_prefill_attention_ragged,
-                pops.paged_prefill_attention)
+    counters = kernel_counters().values()
     log("== phase 6: where the time goes (4 x 256-token prompts, 32 new "
         "tokens each)")
-    prompts = [[(7 * i + j) % 251 + 1 for j in range(256)] for i in range(4)]
+    prompts = profile_prompts()
     for name, eng in engines.items():
         eng.generate(prompts, max_new=4)                 # warm up
         torch.cuda.synchronize()
@@ -526,7 +775,8 @@ def phase_profile(torch, engines):
                                  ProfilerActivity.CUDA]) as prof:
             eng.generate(prompts, max_new=32)
             torch.cuda.synchronize()
-        calls = sum(fn.launches for fn in counters) / eng.cfg.n_layers
+        calls = sum(fn.launches for fn in counters) / eng.cfg.n_layers + (
+            0 if eng.prefill_chunk else len(prompts))
         # device-side events only (kernels, copies, memsets): the host ops
         # that launched them repeat the same device time
         kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -536,9 +786,10 @@ def phase_profile(torch, engines):
         log(f"{name}: wall {wall * 1e3:.1f} ms, device busy "
             f"{device_ms:.1f} ms ({100 * device_ms / (wall * 1e3):.1f} %), "
             f"{len(kernels)} kernel kinds")
-        paged_ms = sum(ms for key, ms, _ in kernels if "paged_" in key)
-        log(f"  the port's paged-attention kernels: {paged_ms:.1f} ms "
-            f"({100 * paged_ms / device_ms:.1f} % of device time)")
+        port_ms = sum(ms for key, ms, _ in kernels
+                      if any(k in key for k in PORT_KERNELS))
+        log(f"  the port's attention kernels: {port_ms:.1f} ms "
+            f"({100 * port_ms / device_ms:.1f} % of device time)")
         mm_ms = sum(ms for key, ms, _ in kernels
                     if any(m in key for m in MATMUL_KERNELS))
         wbytes = matmul_weight_bytes(eng.cfg, eng.params)
@@ -573,7 +824,19 @@ SOURCES = {
     "paged_prefill_attention": (
         "src/repro_torch/csrc/paged_prefill_attention.cu",
         "src/repro/kernels/paged_prefill_attention/kernel.py:100"),
+    "decode_attention": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:79"),
+    "flash_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:88"),
 }
+# the full-width path each kernel's `launches` is read from (phase 5)
+MAIN_PATH = {"paged_decode_attention": "chunked paged pipeline",
+             "paged_prefill_attention_ragged": "chunked paged pipeline",
+             "paged_prefill_attention": "chunked paged pipeline",
+             "decode_attention": "dense pipeline",
+             "flash_attention": "score qwen3-8b"}
 
 
 def main() -> int:
@@ -584,12 +847,13 @@ def main() -> int:
     phase_kernels_vs_plain(torch)
     timing = phase_timing(torch)
     phase_tiny_parity(torch)
-    launches, engines = phase_pipeline(torch)
+    paths, engines = phase_full_width(torch)
     phase_profile(torch, engines)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches[name]}
+                 "replaces": replaces, "main_path": MAIN_PATH[name],
+                 "launches": paths[MAIN_PATH[name]][name]}
         # the top-level numbers are the cloud model's (qwen3-8b); the edge
         # model's follow under its name
         for model in ("qwen3-8b", "qwen2-1.5b"):

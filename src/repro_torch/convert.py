@@ -15,6 +15,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.kernels import runtime
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import compute_dtype
 from repro_torch.models.transformer import check_supported, segments_of
@@ -44,9 +45,9 @@ def _convert(tree, dtype, device, name: str = ""):
 def params_from_reference(cfg: ModelConfig, ref: Dict[str, Any],
                           device=None) -> dict:
     """ref: the JAX params pytree with numpy leaves -> the port's params on
-    `device` (default CPU)."""
+    `device` (default the card; see `kernels.runtime.resolve_device`)."""
     check_supported(cfg)
-    device = torch.device(device or "cpu")
+    device = runtime.resolve_device(device)
     dtype = compute_dtype(cfg)
     segments = []
     for (_, count), stacked in zip(segments_of(cfg), ref["segments"]):

@@ -1,0 +1,55 @@
+"""ctypes launch of the flash-attention CUDA kernel
+(`csrc/flash_attention.cu`): argument checks, output allocation, launch on
+the current stream, and the launch's error check."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import runtime
+from repro_torch.models.config import HEAD_DIM_MULTIPLE, MAX_HEAD_DIM
+
+NAME = "flash_attention"
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+             + [ctypes.c_int] + [ctypes.c_void_p])
+# the kernel's query rows per block: q_per_kv may not exceed it
+MAX_Q_PER_KV = 64
+
+
+def _lib():
+    lib = runtime.load(NAME)
+    fn = lib.flash_attention
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return lib
+
+
+def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0):
+    """q: (B,S,Hq,hd); k/v: (B,S,Hkv,hd), same dtype as q (float32 or
+    bfloat16). All contiguous on one CUDA device; head_dim a multiple of 4
+    up to 256. -> (B,S,Hq,hd)."""
+    floats = (torch.float32, torch.bfloat16)
+    runtime.check_tensor("q", q, 4, floats)
+    runtime.check_tensor("k", k, 4, (q.dtype,))
+    runtime.check_tensor("v", v, 4, (q.dtype,))
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    if k.shape != (B, S, Hkv, hd) or v.shape != k.shape or Hq % Hkv:
+        raise ValueError(f"k/v shape {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)}")
+    if Hq // Hkv > MAX_Q_PER_KV:
+        raise ValueError(f"q_per_kv {Hq // Hkv} exceeds {MAX_Q_PER_KV}")
+    if not 0 < hd <= MAX_HEAD_DIM or hd % HEAD_DIM_MULTIPLE:
+        raise ValueError(f"head_dim {hd} is not a multiple of "
+                         f"{HEAD_DIM_MULTIPLE} in 1..{MAX_HEAD_DIM}")
+    if window < 0 or softcap < 0:
+        raise ValueError("window and softcap must be >= 0")
+    out = torch.empty_like(q)
+    lib = _lib()
+    code = lib.flash_attention(
+        runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(out), B,
+        S, Hq, Hkv, hd, int(bool(causal)), int(window), float(softcap),
+        runtime.dtype_code(q.dtype), runtime.stream_ptr())
+    runtime.check(lib, NAME, code)
+    return out

@@ -5,7 +5,6 @@ the current stream, and the launch's error check."""
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -25,14 +24,10 @@ def _lib():
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def split_pages(B: int, Hkv: int, P: int, n_sm: int):
-    """(splits, pages_per_split): the fewest equal runs of the P block-table
-    columns that give the grid about BLOCKS_PER_SM blocks per SM."""
+    """(splits, units_per_split): the fewest equal runs of P units (here
+    block-table columns; the dense decode kernel's row units) that give the
+    grid about BLOCKS_PER_SM blocks per SM."""
     if P == 0:
         return 1, 1
     want = min(P, -(-BLOCKS_PER_SM * n_sm // max(B * Hkv, 1)))
@@ -63,7 +58,7 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_table, lengths):
     if block_table.shape[0] != B or lengths.shape[0] != B:
         raise ValueError("block_table and lengths need one row per slot")
     runtime.check_limits(ps, hd)
-    splits, per = split_pages(B, Hkv, P, _sm_count(q.device))
+    splits, per = split_pages(B, Hkv, P, runtime.sm_count(q.device))
     rep = Hq // Hkv
     part_o = torch.empty((B, Hkv, splits, rep, hd), dtype=torch.float32,
                          device=q.device)

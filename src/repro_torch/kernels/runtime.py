@@ -16,6 +16,7 @@ is no configuration switch and no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -31,7 +32,8 @@ from repro_torch.models.config import (HEAD_DIM_MULTIPLE, MAX_HEAD_DIM,
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("paged_decode_attention", "paged_prefill_attention")
+KERNELS = ("paged_decode_attention", "paged_prefill_attention",
+           "decode_attention", "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -103,6 +105,22 @@ def check(lib: ctypes.CDLL, name: str, code: int) -> None:
     if code != 0:
         msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device the port's entry points run on: CUDA unless the caller
+    asks for another. Without a card a CUDA request raises; nothing silently
+    runs on the CPU."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain PyTorch versions on the CPU")
+    return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

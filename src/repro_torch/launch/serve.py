@@ -1,7 +1,8 @@
 """PICE serving launcher (PyTorch port): build the cloud engine + edge fleet
 on the card and run the progressive pipeline on a stream of requests.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 --train-steps 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 --train-steps 0 \
+      [--kv-backend {dense,paged}] [--device cpu]
 
 The weights are random from `--seed` (no checkpoint is in the repository),
 so the text is gibberish while the engines do the full work. Training the
@@ -20,7 +21,8 @@ from repro_torch.core.progressive import PICEConfig, PICEPipeline
 from repro_torch.core.scheduler import EdgeModelInfo
 from repro_torch.data import corpus as corpus_lib
 from repro_torch.models import transformer
-from repro_torch.serving.engine import InferenceEngine, resolve_device
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.requests import Request
 
 CAPABILITIES = {"tiny-cloud": 0.9, "tiny-edge-a": 0.7, "tiny-edge-b": 0.55,
@@ -28,9 +30,11 @@ CAPABILITIES = {"tiny-cloud": 0.9, "tiny-edge-a": 0.7, "tiny-edge-b": 0.55,
 
 
 def build_engines(train_steps: int = 0, seed: int = 0, names=None,
-                  device=None, prefill_chunk: int = 64):
-    """The TINY dense fleet as chunked paged engines on `device` (default
-    the card). Returns (engines, capabilities)."""
+                  device=None, kv_backend: str = "paged"):
+    """The TINY dense fleet as `kv_backend` engines on `device` (default
+    the card), each config with its own prefill_chunk (monolithic for the
+    TINY fleet, as in the JAX package's launcher). Returns (engines,
+    capabilities)."""
     if train_steps:
         raise NotImplementedError(
             "--train-steps > 0 waits for the training slice; serve with "
@@ -41,11 +45,10 @@ def build_engines(train_steps: int = 0, seed: int = 0, names=None,
         pool = [(n, c) for n, c in pool if n in names]
     engines = {}
     for name, cfg in pool:
-        cfg = cfg.with_(prefill_chunk=prefill_chunk)
         params = transformer.init_params(cfg, seed, device=device)
         engines[name] = InferenceEngine(cfg, params, max_batch=8,
                                         max_len=1024, name=name,
-                                        device=device)
+                                        kv_backend=kv_backend, device=device)
     return engines, CAPABILITIES
 
 
@@ -80,12 +83,16 @@ def main():
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--train-steps", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-backend", choices=("dense", "paged"),
+                    default="paged",
+                    help="KV cache backend (paged = on-demand page pool)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args()
 
     engines, caps = build_engines(args.train_steps, args.seed,
-                                  device=args.device)
+                                  device=args.device,
+                                  kv_backend=args.kv_backend)
     pipe = build_pipeline(engines, caps)
     examples = corpus_lib.corpus(args.requests, seed=args.seed + 7)
     t0 = time.time()

@@ -1,12 +1,17 @@
-"""GQA attention against a paged KV pool (PyTorch): decode, one prompt
-chunk, and batched ragged chunks.
+"""GQA attention (PyTorch): the full sequence (scoring, training), decode
+against a dense KV cache, and decode, one prompt chunk and batched ragged
+chunks against a paged KV pool.
 
-The read of every path goes through a paged-attention wrapper in
-`repro_torch.kernels`, which picks by the tensor's device alone: a CUDA
-tensor launches the hand-written CUDA kernel, a CPU tensor runs the kernel's
-plain PyTorch version (gather the block table into the contiguous layout,
-then masked softmax). `cfg.use_pallas` selects nothing here. K/V writes
-update the pools in place.
+The kernel reads go through wrappers in `repro_torch.kernels`, which pick by
+the tensor's device alone: a CUDA tensor launches the hand-written CUDA
+kernel, a CPU tensor runs the kernel's plain PyTorch version.
+`cfg.use_pallas` selects nothing here. The full sequence reads through the
+flash-attention wrapper, one dense-cache decode token through the
+decode-attention wrapper, and every paged read through a paged-attention
+wrapper (on the CPU: gather the block table into the contiguous layout,
+then masked softmax). Monolithic prefill and multi-token dense decode stay
+plain PyTorch, as they are plain jnp in the JAX package. K/V writes update
+the cache and the pools in place.
 
 Projection weights are 2-D: wq (d, Hq*hd), wk/wv (d, Hkv*hd), wo (Hq*hd, d);
 biases are flat (H*hd,). `repro_torch.convert` reshapes the JAX package's
@@ -19,9 +24,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_decode_attention import ops as pda_ops
+from repro_torch.kernels.paged_decode_attention.ref import (NEG_INF,
+                                                           softmax_scale)
 from repro_torch.kernels.paged_prefill_attention import ops as ppa_ops
 from repro_torch.kernels import runtime
+from repro_torch.models import cache as cache_lib
 from repro_torch.models import paged_cache as pc
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, rmsnorm,
@@ -74,21 +84,260 @@ def _out_proj(params: dict, out: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, S, -1) @ params["wo"]
 
 
+def check_support(cfg: ModelConfig) -> None:
+    """Raise on configurations no attention path of the port serves yet."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "cross-attention (whisper) waits for the encoder-decoder slice")
+
+
 def check_paged_support(cfg: ModelConfig) -> None:
     """Raise on configurations the paged path does not serve yet."""
+    check_support(cfg)
     if cfg.sliding_window:
         raise NotImplementedError(
             "the paged KV cache supports full attention only")
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the paged KV cache does not hold cross-attention caches")
     if cfg.attn_logit_softcap:
         raise NotImplementedError(
-            "attention logit softcap is not on the paged path (no model of "
-            "the dense slice has one)")
+            "attention logit softcap is not on the paged path (no served "
+            "model has one)")
     if cfg.kv_quantized:
         raise NotImplementedError(
             "quantized KV pools wait for the quantized-pool slice")
+
+
+# ---------------------------------------------------------------------------
+# Plain attention (the JAX package's pure-jnp paths)
+# ---------------------------------------------------------------------------
+
+def _repeat_kv(k: torch.Tensor, q_per_kv: int) -> torch.Tensor:
+    """(B,S,n_kv,hd) -> (B,S,n_q,hd) by repeating each kv head."""
+    if q_per_kv == 1:
+        return k
+    return k.repeat_interleave(q_per_kv, dim=2)
+
+
+def _sdpa(q, k, v, mask, softcap: float = 0.0):
+    """q: (B,Tq,N,hd), k/v: (B,Tk,N,hd), mask broadcastable (B,1,Tq,Tk)."""
+    logits = torch.einsum("bqnh,bknh->bnqk", q.float(),
+                          k.float()) * softmax_scale(q.shape[-1])
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bnqk,bknh->bqnh", probs.to(v.dtype), v)
+
+
+# Use q-blocked attention when the logits matrix would exceed this many
+# elements per (batch, head) — avoids materializing S x S at long context.
+CHUNK_THRESHOLD = 4096 * 4096
+CHUNK_BQ = 512
+
+
+def chunked_sdpa(q, k, v, *, causal: bool, window: int = 0,
+                 kv_lengths: Optional[torch.Tensor] = None,
+                 softcap: float = 0.0) -> torch.Tensor:
+    """Q-blocked attention (a loop over q blocks).
+
+    q: (B,Sq,N,hd), k/v: (B,Sk,N,hd) already head-repeated. Never
+    materializes more than (B, bq, N, Sk_eff) logits; with a sliding window
+    only a (window + bq) K/V slice is read per block."""
+    Sq, hd = q.shape[1], q.shape[-1]
+    Sk = k.shape[1]
+    bq = min(CHUNK_BQ, Sq)
+    while Sq % bq:
+        bq //= 2
+    use_window_slice = bool(window) and (window + bq) <= Sk
+    dev = q.device
+    outs = []
+    for i in range(Sq // bq):
+        qi = q[:, i * bq:(i + 1) * bq]
+        rows = i * bq + torch.arange(bq, device=dev)
+        if use_window_slice:
+            start = min(max(i * bq - window, 0), Sk - (window + bq))
+            ki = k[:, start:start + window + bq]
+            vi = v[:, start:start + window + bq]
+            cols = start + torch.arange(window + bq, device=dev)
+        else:
+            ki, vi = k, v
+            cols = torch.arange(Sk, device=dev)
+        logits = torch.einsum("bqnh,bknh->bnqk", qi.float(),
+                              ki.float()) * softmax_scale(hd)
+        if softcap:
+            logits = torch.tanh(logits / softcap) * softcap
+        m = torch.ones((bq, cols.shape[0]), dtype=torch.bool, device=dev)
+        if causal:
+            m = m & (cols[None, :] <= rows[:, None])
+        if window:
+            m = m & (cols[None, :] > rows[:, None] - window)
+        m = m[None, None]
+        if kv_lengths is not None:
+            m = m & (cols[None, None, None, :]
+                     < kv_lengths[:, None, None, None])
+        logits = torch.where(m, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        outs.append(torch.einsum("bnqk,bknh->bqnh", probs.to(v.dtype), vi))
+    return torch.cat(outs, dim=1)
+
+
+def full_or_chunked_sdpa(q, k, v, *, causal: bool, window: int = 0,
+                         kv_lengths: Optional[torch.Tensor] = None,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """Dense SDPA for short sequences, q-blocked for long ones."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sq * Sk >= CHUNK_THRESHOLD and Sq > 1:
+        return chunked_sdpa(q, k, v, causal=causal, window=window,
+                            kv_lengths=kv_lengths, softcap=softcap)
+    mask = torch.ones((1, 1, Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal and Sq == Sk:
+        mask = causal_mask(Sq, Sk, window=window, device=q.device)
+    if kv_lengths is not None:
+        mask = mask & (torch.arange(Sk, device=q.device)[None, None, None, :]
+                       < kv_lengths[:, None, None, None])
+    return _sdpa(q, k, v, mask, softcap)
+
+
+def causal_mask(Tq: int, Tk: int, q_offset: int = 0, window: int = 0,
+                device=None) -> torch.Tensor:
+    """(1,1,Tq,Tk) bool; window>0 applies sliding-window causality."""
+    qi = torch.arange(Tq, device=device)[:, None] + q_offset
+    ki = torch.arange(Tk, device=device)[None, :]
+    m = ki <= qi
+    if window:
+        m = m & (ki > qi - window)
+    return m[None, None]
+
+
+def _grouped_sdpa(q, k, v, mask, q_per_kv: int, softcap: float = 0.0):
+    """GQA attention without materializing repeated K/V.
+
+    q: (B,Tq,Nq,hd) -> grouped (B,Tq,Nkv,g,hd); k/v: (B,Tk,Nkv,hd); mask
+    broadcastable to (B,1,Tq,Tk). Products accumulate in float32."""
+    if q_per_kv == 1:
+        return _sdpa(q, k, v, mask, softcap)
+    B, Tq, Nq, hd = q.shape
+    Nkv = k.shape[2]
+    qg = q.reshape(B, Tq, Nkv, q_per_kv, hd)
+    logits = torch.einsum("bqngh,bknh->bngqk", qg.float(),
+                          k.float()) * softmax_scale(hd)
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    logits = torch.where(mask[:, :, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bngqk,bknh->bqngh", probs.to(v.dtype), v)
+    return out.reshape(B, Tq, Nq, hd)
+
+
+# ---------------------------------------------------------------------------
+# Full sequence (scoring, training) and decode against a dense cache
+# ---------------------------------------------------------------------------
+
+def attention_fwd(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                  positions: torch.Tensor, *, causal: bool = True,
+                  segment_mask: Optional[torch.Tensor] = None,
+                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> torch.Tensor:
+    """Self-attention over a full sequence. x: (B, S, D); positions
+    broadcastable to (B, S), or the precomputed `rope` tables of the call.
+
+    The read goes through the flash-attention wrapper (window and softcap
+    from cfg). A `segment_mask` (B,1,S,S), which the kernel does not take,
+    runs the plain masked softmax on the CPU and raises on the card until
+    the training slice ports it."""
+    check_support(cfg)
+    S = x.shape[1]
+    q, k, v = _project_qkv(cfg, params, x)
+    if cfg.use_rope:
+        if rope is None:
+            rope = rope_tables(positions, cfg.resolved_head_dim,
+                               cfg.rope_theta)
+        q = apply_rope(q, tables=rope)
+        k = apply_rope(k, tables=rope)
+    if segment_mask is not None:
+        if x.device.type != "cpu":
+            raise NotImplementedError(
+                "segment masks wait for the training slice: the flash "
+                "kernel takes none")
+        mask = causal_mask(S, S, window=cfg.sliding_window,
+                           device=x.device) if causal else torch.ones(
+            (1, 1, S, S), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, _repeat_kv(k, cfg.q_per_kv),
+                    _repeat_kv(v, cfg.q_per_kv), mask & segment_mask,
+                    cfg.attn_logit_softcap)
+    else:
+        out = fa_ops.flash_attention(q, k, v, causal=causal,
+                                     window=cfg.sliding_window,
+                                     softcap=cfg.attn_logit_softcap)
+    return _out_proj(params, out)
+
+
+class DenseCall(NamedTuple):
+    """Per-call state of a dense-cache decode, shared by every layer."""
+    dest: torch.Tensor              # (B*T,) flat cache rows of the writes
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    positions: torch.Tensor         # (B, T) query positions
+    read_lens: torch.Tensor         # (B,) int32 rows a one-token read covers
+    live_rows: Optional[int]        # cache rows a one-token read spans
+
+
+def dense_decode_call(cfg: ModelConfig, lengths: torch.Tensor, T: int,
+                      S: int, live_rows: Optional[int] = None) -> DenseCall:
+    """The write plan, RoPE tables and read lengths of T new tokens at
+    `lengths` in an S-row cache. `live_rows` (every slot whose output is
+    kept holds at most that many rows after the write) narrows the
+    one-token read to the cache's first rows, so that the kernel splits
+    only the rows that hold keys; dropped rows past every kept slot's
+    length carry no weight."""
+    positions = lengths[:, None] + torch.arange(T, device=lengths.device)
+    rope = None
+    if cfg.use_rope:
+        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    return DenseCall(cache_lib.write_plan(lengths, T, S), rope, positions,
+                     (lengths + 1).to(torch.int32), live_rows)
+
+
+def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                     layer_k: torch.Tensor, layer_v: torch.Tensor,
+                     lengths: torch.Tensor,
+                     call: Optional[DenseCall] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode step. x: (B, T, D) with T new tokens (usually 1).
+
+    layer_k/layer_v: (B, Scache, n_kv, hd), updated in place; lengths: (B,)
+    int32 tokens already cached; `call` the model call's shared state
+    (`dense_decode_call`, built here when absent). Writes the new K/V at
+    `lengths` (clamped to fit, see `cache.write_plan`), then reads
+    positions <= each query's own: one token through the decode-attention
+    wrapper, several through the plain grouped softmax, as the JAX package
+    does. Returns (out, layer_k, layer_v).
+
+    The JAX package's kernel path (use_pallas) drops the logit softcap on
+    one-token decode; the port serves no config with a softcap and raises
+    on one. The sliding-window ring (the JAX package's `window`) is not
+    ported: `init_cache` refuses a windowed config."""
+    check_support(cfg)
+    if cfg.attn_logit_softcap:
+        raise NotImplementedError(
+            "attention logit softcap on dense decode is not ported (no "
+            "served model has one)")
+    T = x.shape[1]
+    if call is None:
+        call = dense_decode_call(cfg, lengths, T, layer_k.shape[1])
+    q, k, v = _project_qkv(cfg, params, x)
+    if call.rope is not None:
+        q = apply_rope(q, tables=call.rope)
+        k = apply_rope(k, tables=call.rope)
+    layer_k, layer_v = cache_lib.update_layer_kv(layer_k, layer_v, lengths,
+                                                 k, v, call.dest)
+    if T == 1:
+        live = slice(None, call.live_rows)
+        out = da_ops.decode_attention(q.contiguous(), layer_k[:, live],
+                                      layer_v[:, live], call.read_lens)
+    else:
+        ki = torch.arange(layer_k.shape[1], device=x.device)[None, None, :]
+        mask = (ki <= call.positions[:, :, None])[:, None]
+        out = _grouped_sdpa(q, layer_k, layer_v, mask, cfg.q_per_kv)
+    return _out_proj(params, out), layer_k, layer_v
 
 
 # ---------------------------------------------------------------------------

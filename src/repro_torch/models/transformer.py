@@ -1,11 +1,14 @@
-"""Dense decoder stack over a paged KV cache (PyTorch).
+"""Dense decoder stack (PyTorch) over a dense or a paged KV cache.
 
 The port of the JAX package's `models/transformer.py` for the dense
-attention segments the PICE serving path runs: init, the paged cache, one
-prompt chunk, batched ragged chunks, the decode step and the COW fork copy.
-Monolithic `prefill_paged`, `promote_slot_paged` (host swap), the dense-cache
-entry points and the recurrent, MoE and encoder families wait for their
-slices.
+attention segments the PICE serving path runs: init; the full-sequence
+`forward` (scoring); the dense cache with its monolithic `prefill` and
+`decode_step`; the paged cache with monolithic `prefill_paged`, one prompt
+chunk, batched ragged chunks, the decode step and the COW fork copy.
+Dense and monolithic paged prefill share `_prefill_block`, whose `kv_writer`
+hook alone differs, so both produce the same activations.
+`promote_slot_paged` (host swap) and the recurrent, MoE and encoder families
+wait for their slices.
 
 Params: {"embed": {"tok", "unembed"}, "segments": [[layer, ...], ...],
 "final_norm": {"scale"}, "length_head"?}; each layer is {"norm1": {"scale"},
@@ -13,21 +16,24 @@ Params: {"embed": {"tok", "unembed"}, "segments": [[layer, ...], ...],
 weight layout). The cache is {"lengths": (B,) int32, "block_table": (B, P)
 int32, "segments": [{"k_pages", "v_pages": (count, n_pages + 1, page, n_kv,
 hd)}]}, the last page of each pool a scratch page that dropped writes land
-in (see paged_cache.py); every entry point updates it in place and returns
-it.
+in (see paged_cache.py). The dense cache is {"lengths": (B,) int32,
+"segments": [{"k", "v": (count, B, max_len, n_kv, hd)}]}. Every entry point
+updates its cache in place and returns it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import runtime
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import cache as cache_lib
 from repro_torch.models import paged_cache as pc
 from repro_torch.models.config import ATTN, ModelConfig
-from repro_torch.models.layers import (compute_dtype, dense_init, embed,
-                                       init_embedding, init_mlp, mlp, norm,
-                                       unembed)
+from repro_torch.models.layers import (apply_rope, compute_dtype, dense_init,
+                                       embed, init_embedding, init_mlp, mlp,
+                                       norm, rope_tables, unembed)
 
 
 def segments_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -42,12 +48,18 @@ def segments_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The dense slice serves attention-only stacks of plain decoder blocks."""
+    """The port serves attention-only stacks of plain decoder blocks."""
     kinds = {kind for kind, _ in segments_of(cfg)}
     if kinds != {ATTN}:
         raise NotImplementedError(
             f"block kinds {sorted(kinds)} wait for their families' slices; "
             "the port serves dense attention stacks")
+    attn_lib.check_support(cfg)
+
+
+def check_paged_supported(cfg: ModelConfig) -> None:
+    """`check_supported` plus the paged path's own restrictions."""
+    check_supported(cfg)
     attn_lib.check_paged_support(cfg)
 
 
@@ -67,11 +79,12 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> dict:
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random weights from `seed`, drawn one tensor at a time on `device`
-    and stored in their working dtype (matmul weights and embeddings in
-    cfg.dtype, norm scales and the length head in float32)."""
+    (default the card; see `kernels.runtime.resolve_device`) and stored in
+    their working dtype (matmul weights and embeddings in cfg.dtype, norm
+    scales and the length head in float32)."""
     cfg.validate()
     check_supported(cfg)
-    device = torch.device(device or "cpu")
+    device = runtime.resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     dtype = compute_dtype(cfg)
@@ -92,6 +105,182 @@ def _layers(params: dict):
 
 
 # ---------------------------------------------------------------------------
+# Shared layer bodies
+# ---------------------------------------------------------------------------
+
+def _mlp_residual(cfg: ModelConfig, layer: dict, x: torch.Tensor
+                  ) -> torch.Tensor:
+    return x + mlp(cfg, layer["mlp"], norm(cfg, layer["norm2"], x))
+
+
+def _logits_at(cfg: ModelConfig, params: dict, x: torch.Tensor,
+               lens: torch.Tensor) -> torch.Tensor:
+    """Logits at each row's last valid position: x (R, C, D) -> (R, V).
+    The final norm is per position, so it runs on the selected rows only."""
+    R, C = x.shape[:2]
+    idx = (lens.long() - 1).clamp(0, C - 1)
+    last = x[torch.arange(R, device=x.device), idx]
+    return unembed(cfg, params["embed"], norm(cfg, params["final_norm"], last))
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    """The call's RoPE tables at `positions`, shared by every layer."""
+    if not cfg.use_rope:
+        return None
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# Full sequence (scoring)
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) int -> (logits (B, S, V), aux_loss).
+
+    Every layer reads through the flash-attention wrapper (causal, with
+    cfg's window and softcap). The aux loss is the MoE balance loss of the
+    JAX package, zero for the dense stacks the port serves."""
+    check_supported(cfg)
+    x = embed(cfg, params["embed"], tokens)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None]
+    rope = _rope(cfg, positions)
+    for layer in _layers(params):
+        h = attn_lib.attention_fwd(cfg, layer["attn"],
+                                   norm(cfg, layer["norm1"], x), positions,
+                                   causal=True, rope=rope)
+        x = _mlp_residual(cfg, layer, x + h)
+    x = norm(cfg, params["final_norm"], x)
+    logits = unembed(cfg, params["embed"], x)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Dense cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """{"lengths": (batch,) int32, "segments": [{"k", "v": (count, batch,
+    max_len, n_kv, hd)}]} in cfg.dtype, zeros (`cache.init_kv_cache`;
+    the sliding-window ring is not ported)."""
+    check_supported(cfg)
+    segs = []
+    for _, count in segments_of(cfg):
+        segs.append(cache_lib.init_kv_cache(
+            count, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
+            compute_dtype(cfg), window=cfg.sliding_window, device=device))
+    return {"lengths": torch.zeros(batch, dtype=torch.int32, device=device),
+            "segments": segs}
+
+
+def _dense_layers(cache: dict):
+    for seg in cache["segments"]:
+        for i in range(seg["k"].shape[0]):
+            yield seg["k"][i], seg["v"][i]
+
+
+KVWriter = Callable[[torch.Tensor, torch.Tensor], None]
+
+
+def _prefill_block(cfg: ModelConfig, layer: dict, x: torch.Tensor, rope,
+                   prompt_lengths: torch.Tensor, kv_writer: KVWriter
+                   ) -> torch.Tensor:
+    """One layer over a whole right-padded prompt, causal with the padding
+    masked by `prompt_lengths` (plain attention, as in the JAX package).
+    `kv_writer(k, v)` stores the layer's K/V (B, S, n_kv, hd): the dense
+    writer into the cache rows, the paged one through the block table; the
+    compute is shared, so dense and paged prefill give the same
+    activations."""
+    xin = norm(cfg, layer["norm1"], x)
+    q, k, v = attn_lib._project_qkv(cfg, layer["attn"], xin)
+    if rope is not None:
+        q = apply_rope(q, tables=rope)
+        k = apply_rope(k, tables=rope)
+    h = attn_lib.full_or_chunked_sdpa(
+        q, attn_lib._repeat_kv(k, cfg.q_per_kv),
+        attn_lib._repeat_kv(v, cfg.q_per_kv), causal=True,
+        window=cfg.sliding_window, kv_lengths=prompt_lengths,
+        softcap=cfg.attn_logit_softcap)
+    x = x + attn_lib._out_proj(layer["attn"], h)
+    kv_writer(k, v)
+    return _mlp_residual(cfg, layer, x)
+
+
+def _dense_writer(ck: torch.Tensor, cv: torch.Tensor) -> KVWriter:
+    """Rows [0, S) of the cache take the prompt's K/V and rows past S are
+    zeroed, as the JAX package's `zeros_like(c).at[:, :S].set(k)` leaves
+    them."""
+    def write(k, v):
+        S = k.shape[1]
+        for c, new in ((ck, k), (cv, v)):
+            c[:, :S] = new.to(c.dtype)
+            c[:, S:] = 0
+    return write
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            cache: dict, prompt_lengths=None) -> Tuple[torch.Tensor, dict]:
+    """Process right-padded prompts (tokens: (B, S)), fill the dense cache's
+    B rows and return each prompt's last-position logits (B, V).
+
+    prompt_lengths: (B,) valid counts (default S). The cache may be a view
+    of some rows of a larger one (the engine passes one slot's rows): the
+    rows are written in place, K/V at positions [0, S) and zeros past S,
+    and its lengths are set to prompt_lengths."""
+    check_supported(cfg)
+    x = embed(cfg, params["embed"], tokens)
+    B, S = x.shape[:2]
+    if prompt_lengths is None:
+        prompt_lengths = [S] * B
+    plens = attn_lib.as_int32(prompt_lengths, x.device)
+    rope = _rope(cfg, torch.arange(S, device=x.device)[None])
+    for layer, (ck, cv) in zip(_layers(params), _dense_layers(cache)):
+        x = _prefill_block(cfg, layer, x, rope, plens, _dense_writer(ck, cv))
+    logits = _logits_at(cfg, params, x, plens)
+    cache["lengths"].copy_(plens)
+    return logits, cache
+
+
+def _advance_lengths(lengths: torch.Tensor,
+                     active: Optional[torch.Tensor]) -> None:
+    """Post-decode length update, in place: only active rows consumed a
+    token. Without the mask, freed slots' lengths drift past max_len
+    between requests."""
+    lengths += 1 if active is None else active.to(lengths.dtype)
+
+
+def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                cache: dict, active: Optional[torch.Tensor] = None,
+                live_rows: Optional[int] = None
+                ) -> Tuple[torch.Tensor, dict]:
+    """tokens: (B, 1) -> (logits (B, vocab), cache).
+
+    Every layer writes the new token's K/V at each row's length (clamped
+    to fit, inactive rows included: their writes land in freed space) and
+    reads through the decode-attention wrapper; `active` (B,) bool masks
+    the length advance only. `live_rows` bounds the read to the cache's
+    first rows (at least every active row's length + 1; inactive rows'
+    logits are then unspecified). The write plan, RoPE tables and read
+    lengths are built once per call."""
+    check_supported(cfg)
+    x = embed(cfg, params["embed"], tokens)
+    lengths = cache["lengths"]
+    S = cache["segments"][0]["k"].shape[2]
+    call = attn_lib.dense_decode_call(cfg, lengths, 1, S, live_rows)
+    for layer, (ck, cv) in zip(_layers(params), _dense_layers(cache)):
+        h, _, _ = attn_lib.attention_decode(
+            cfg, layer["attn"], norm(cfg, layer["norm1"], x), ck, cv,
+            lengths, call=call)
+        x = _mlp_residual(cfg, layer, x + h)
+    x = norm(cfg, params["final_norm"], x)
+    logits = unembed(cfg, params["embed"], x)[:, 0]
+    _advance_lengths(lengths, active)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
 # Paged cache
 # ---------------------------------------------------------------------------
 
@@ -106,7 +295,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
       block_table:     (batch, max_pages_per_seq) int32, -1 = unmapped
       lengths:         (batch,) int32
     """
-    check_supported(cfg)
+    check_paged_supported(cfg)
     hd = cfg.resolved_head_dim
     adt = pc.kv_storage_dtype(cfg.resolved_kv_dtype)
     segs = []
@@ -126,19 +315,36 @@ def _pools(cache: dict):
             yield seg["k_pages"][i], seg["v_pages"][i]
 
 
-def _mlp_residual(cfg: ModelConfig, layer: dict, x: torch.Tensor
-                  ) -> torch.Tensor:
-    return x + mlp(cfg, layer["mlp"], norm(cfg, layer["norm2"], x))
+def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                  cache: dict, slot: int, prompt_len
+                  ) -> Tuple[torch.Tensor, dict]:
+    """Prefill one request (tokens: (1, S) right-padded) straight into the
+    paged cache at batch row `slot`, whose block-table row must already map
+    pages for `prompt_len` tokens: the layers run `_prefill_block` as dense
+    prefill does, and each writes its K/V at positions [0, prompt_len)
+    through the block table (the padding goes to the scratch page). Sets
+    lengths[slot] = prompt_len. Returns (logits (1, V), cache)."""
+    check_paged_supported(cfg)
+    x = embed(cfg, params["embed"], tokens)
+    S = x.shape[1]
+    plen = attn_lib.as_int32(prompt_len if isinstance(prompt_len, torch.Tensor)
+                             else [int(prompt_len)], x.device)
+    rope = _rope(cfg, torch.arange(S, device=x.device)[None])
+    row = cache["block_table"][slot]
+    dest = pc.prompt_write_plan(row[None], torch.zeros_like(plen), plen, S,
+                                cache["segments"][0]["k_pages"][0])
 
+    def writer(kp, vp):
+        def write(k, v):
+            pc.apply_write(kp, dest, k[0])
+            pc.apply_write(vp, dest, v[0])
+        return write
 
-def _logits_at(cfg: ModelConfig, params: dict, x: torch.Tensor,
-               lens: torch.Tensor) -> torch.Tensor:
-    """Logits at each row's last valid position: x (R, C, D) -> (R, V).
-    The final norm is per position, so it runs on the selected rows only."""
-    R, C = x.shape[:2]
-    idx = (lens.long() - 1).clamp(0, C - 1)
-    last = x[torch.arange(R, device=x.device), idx]
-    return unembed(cfg, params["embed"], norm(cfg, params["final_norm"], last))
+    for layer, (kp, vp) in zip(_layers(params), _pools(cache)):
+        x = _prefill_block(cfg, layer, x, rope, plen, writer(kp, vp))
+    logits = _logits_at(cfg, params, x, plen)
+    cache["lengths"][slot] = plen[0]
+    return logits, cache
 
 
 def prefill_chunk_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -152,7 +358,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     the single-slot paged prefill wrapper; `live_pages` trims the read to
     the covering block-table columns. Returns (logits (1, V) at the last
     valid chunk token, cache)."""
-    check_supported(cfg)
+    check_paged_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     C = x.shape[1]
     row = cache["block_table"][slot]
@@ -183,7 +389,7 @@ def prefill_ragged_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     Each row's block-table entry must already map pages through
     offsets[r] + lens[r] tokens. Returns (logits (R, V) at each row's last
     valid chunk token, cache); padding rows' logits are unspecified."""
-    check_supported(cfg)
+    check_paged_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     C = x.shape[1]
     table = cache["block_table"]
@@ -219,7 +425,7 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     block-table clears lazily, so a freed row's stale table entry may still
     map a COW sibling's pages. `live_pages` bounds the read to the first
     live block-table columns."""
-    check_supported(cfg)
+    check_paged_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     lengths = cache["lengths"]
     table = cache["block_table"]
@@ -233,7 +439,7 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         x = _mlp_residual(cfg, layer, x + h)
     x = norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)[:, 0]
-    lengths += 1 if active is None else active.to(lengths.dtype)
+    _advance_lengths(lengths, active)
     return logits, cache
 
 
@@ -246,7 +452,7 @@ def fork_slot_paged(cfg: ModelConfig, cache: dict, src_slot: int,
     the source row's cached length. Also serves plain COW page copies: call
     with src_slot == dst_slot and the (old, new) page pair from
     `PageAllocator.cow_page`."""
-    check_supported(cfg)
+    check_paged_supported(cfg)
     for seg in cache["segments"]:
         pc.copy_page(seg["k_pages"], tail_src_page, tail_dst_page)
         pc.copy_page(seg["v_pages"], tail_src_page, tail_dst_page)

@@ -1,12 +1,21 @@
-"""Real-compute inference engine (PyTorch): continuous batching over a paged
-KV cache with chunked, batched ragged prompt ingest.
+"""Real-compute inference engine (PyTorch): continuous batching over a
+shared KV cache.
 
-The port of the JAX package's `serving/engine.py` for its paged backend
-with `cfg.prefill_chunk > 0`. Pages are allocated on demand at admission,
-appended per decode step, and freed on completion; when the pool runs dry
-the lowest-priority, youngest request is evicted and transparently
-resubmitted (evict-and-replay). `generate_fanout` prefills a shared prefix
-once and forks copy-on-write block-table rows off it.
+The port of the JAX package's `serving/engine.py`. Two KV backends
+(`kv_backend`):
+  "dense": one max_batch x max_len reservation per slot; a prompt is
+      prefilled in one call (`transformer.prefill`) into its slot's rows.
+  "paged": a page pool (models/paged_cache.py); pages are allocated on
+      demand at admission, appended per decode step, and freed on
+      completion; when the pool runs dry the lowest-priority, youngest
+      request is evicted and transparently resubmitted (evict-and-replay).
+      With `cfg.prefill_chunk > 0` admission queues the prompt and the step
+      loop ingests it in chunks, batched ragged over every ingesting slot;
+      with `prefill_chunk == 0` the prompt is prefilled in one call
+      (`transformer.prefill_paged`). `generate_fanout` prefills a shared
+      prefix once and forks copy-on-write block-table rows off it.
+Dense and paged give the same tokens on the same request stream, and
+monolithic and chunked ingest the same to float32 rounding.
 
 The step loop is plan/run: every host decision — page growth, eviction,
 ragged ingest rows, decode inputs — is planned with numpy, the block table
@@ -14,18 +23,20 @@ is pushed to the device at most once per step, and the step launches at
 most one batched ragged ingest call plus one decode-and-sample call. The
 decode's tokens and logprobs are read back at the NEXT step's harvest as
 one device->host copy; a step in which a prompt's last chunk lands adds one
-batched read of those first tokens, as the JAX package's does. Host->device
-inputs go through pinned memory, so no step waits on the device otherwise.
+batched read of those first tokens, as the JAX package's does, and so does
+a monolithic admission. Host->device inputs go through pinned memory, so no
+step waits on the device otherwise. With monolithic prefill, fork suffixes
+and eviction carries are teacher-forced one token a step (`Slot.pending`).
 
-On a CUDA device the attention reads run through the hand-written paged
-kernels; on the CPU through their plain versions (tests).
+On a CUDA device the attention reads run through the hand-written kernels;
+on the CPU through their plain versions (tests). `score()` runs the
+full-sequence forward through the flash-attention wrapper.
 
 What this engine does not do yet raises NotImplementedError naming the
-slice it waits for: `kv_backend="dense"`, `prefill_chunk == 0` (monolithic
-prefill), `ragged_ingest=False` (the serial one-chunk scheduler),
+slice it waits for: `ragged_ingest=False` (the serial one-chunk scheduler),
 `host_swap=True` (host-tier demote/promote; the JAX package's default is
 True, the port's False), quantized or mixed-width `kv_dtype`, and families
-other than dense attention stacks. `warmup()` and `score()` are not ported.
+other than dense attention stacks. `warmup()` is not ported.
 """
 from __future__ import annotations
 
@@ -44,16 +55,6 @@ from repro_torch.serving.requests import BoundedRecord
 from repro_torch.serving.sampler import SamplerConfig, sample, token_logprob
 
 
-def resolve_device(device=None) -> torch.device:
-    """The engine's device: CUDA unless the caller asks for another. Without
-    a card a CUDA request raises; nothing silently runs on the CPU."""
-    dev = torch.device(device or "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "plain PyTorch versions on the CPU")
-    return dev
-
-
 @dataclasses.dataclass
 class Slot:
     req_id: int = -1
@@ -67,9 +68,13 @@ class Slot:
     arrival: int = 0        # admission order (eviction picks the youngest)
     evicted: bool = False   # preempted: requeue instead of completing
     parked: bool = False    # holds a shared prefix for forking, not decoding
+    # suffix tokens still to be teacher-forced into the cache (fork path of
+    # a monolithic engine): each decode step feeds pending[0] instead of
+    # the last sampled token
+    pending: List[int] = dataclasses.field(default_factory=list)
     fork_src: int = -1      # parked slot this one was forked from (-1: none)
     suffix: List[int] = dataclasses.field(default_factory=list)
-    # prompt (or fork suffix + carried) tokens not yet ingested: while
+    # prompt (or fork suffix + carried) tokens not yet chunk-ingested: while
     # non-empty the slot is excluded from the decode batch and step() feeds
     # it one chunk at a time; the first sample comes from the final chunk
     prefill_toks: List[int] = dataclasses.field(default_factory=list)
@@ -82,12 +87,13 @@ class Slot:
 @dataclasses.dataclass
 class StepPlan:
     """Host-side decode plan, computed with numpy only. Token-independent
-    state (ctx_len advance) is applied AT PLAN TIME; only the sampled
-    token's commit waits for the deferred harvest."""
+    state (ctx_len advance, pending-suffix pops) is applied AT PLAN TIME;
+    only the sampled token's commit waits for the deferred harvest."""
     active_ids: List[int]           # slots in this decode batch
     last: np.ndarray                # (B, 1) int64 decode inputs
     mask: np.ndarray                # (B,) bool active-row mask
-    live: int                       # live block-table width bucket
+    live: int                       # read width: block-table columns
+                                    # (paged) or cache rows (dense)
     commits: List[int]              # slots whose sampled token commits later
 
 
@@ -112,6 +118,13 @@ class _Resume:
 EngineRequest = _Resume
 
 
+def _bucket(n: int, lo: int = 32) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
 class InferenceEngine:
     """Continuous-batching engine for one model on one device."""
 
@@ -121,14 +134,9 @@ class InferenceEngine:
                  kv_backend: str = "paged", page_size: int = 32,
                  n_pages: Optional[int] = None, ragged_ingest: bool = True,
                  host_swap: bool = False, device=None, seed: int = 0):
-        if kv_backend != "paged":
-            raise NotImplementedError(
-                f"kv_backend={kv_backend!r}: the dense KV backend waits for "
-                "the dense-backend slice; the port serves kv_backend='paged'")
-        if cfg.prefill_chunk <= 0:
-            raise NotImplementedError(
-                "prefill_chunk == 0 (monolithic prefill_paged) waits for the "
-                "monolithic-prefill slice; set cfg.prefill_chunk > 0")
+        if kv_backend not in ("dense", "paged"):
+            raise ValueError(f"kv_backend must be 'dense' or 'paged', got "
+                             f"{kv_backend!r}")
         if not ragged_ingest:
             raise NotImplementedError(
                 "ragged_ingest=False (the serial one-chunk scheduler) waits "
@@ -145,9 +153,12 @@ class InferenceEngine:
             raise NotImplementedError(
                 f"kv_dtype={cfg.kv_dtype!r} narrower than the compute dtype "
                 f"{cfg.dtype!r} waits for the quantized-pool slice")
-        transformer.check_supported(cfg)
-        cfg.validate_paged(page_size, max_len)
-        self.device = resolve_device(device)
+        if kv_backend == "paged":
+            transformer.check_paged_supported(cfg)
+            cfg.validate_paged(page_size, max_len)
+        else:
+            transformer.check_supported(cfg)
+        self.device = runtime.resolve_device(device)
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
@@ -189,23 +200,31 @@ class InferenceEngine:
         self.step_hook = None
         self.cancels = 0
         self.deadline_cancels = 0
-        # decode/ingest KV read traffic in bytes (pages touched per step x
-        # per-page pool bytes across every attention layer)
+        # paged: decode/ingest KV read traffic in bytes (pages touched per
+        # step x per-page pool bytes across every attention layer)
         self.kv_bytes_read = 0
+        # chunked ingest is the paged backend's; a dense engine prefills
+        # monolithically whatever cfg.prefill_chunk says
+        self.prefill_chunk = 0
 
-        self.page_size = page_size
-        self.pages_per_seq = max_len // page_size
-        self.n_pages = n_pages or max_batch * self.pages_per_seq
-        self.alloc = PageAllocator(self.n_pages, page_size, self.pages_per_seq)
-        self.block_table = np.full((max_batch, self.pages_per_seq), -1,
-                                   np.int32)
-        self.cache = transformer.init_paged_cache(
-            cfg, max_batch, self.n_pages, page_size, self.pages_per_seq,
-            device=self.device)
-        self.prefill_chunk = cfg.prefill_chunk
-        self._page_kv_bytes = sum(
-            seg[k][:, 0].numel() * seg[k].element_size()
-            for seg in self.cache["segments"] for k in seg)
+        if kv_backend == "paged":
+            self.page_size = page_size
+            self.pages_per_seq = max_len // page_size
+            self.n_pages = n_pages or max_batch * self.pages_per_seq
+            self.alloc = PageAllocator(self.n_pages, page_size,
+                                       self.pages_per_seq)
+            self.block_table = np.full((max_batch, self.pages_per_seq), -1,
+                                       np.int32)
+            self.cache = transformer.init_paged_cache(
+                cfg, max_batch, self.n_pages, page_size, self.pages_per_seq,
+                device=self.device)
+            self.prefill_chunk = cfg.prefill_chunk
+            self._page_kv_bytes = sum(
+                seg[k][:, 0].numel() * seg[k].element_size()
+                for seg in self.cache["segments"] for k in seg)
+        else:
+            self.cache = transformer.init_cache(cfg, max_batch, max_len,
+                                                device=self.device)
 
     # ------------------------------------------------------------------
     # Block table and occupancy bookkeeping
@@ -230,8 +249,13 @@ class InferenceEngine:
             self._push_table()
 
     def _occupancy(self) -> Tuple[int, int, int]:
-        return (self.alloc.pages_in_use, self.alloc.pages_shared,
-                self.alloc.logical_pages)
+        """(physical, shared, logical) occupancy right now. Dense slots are
+        counted as one "page" each with no sharing."""
+        if self.kv_backend == "paged":
+            return (self.alloc.pages_in_use, self.alloc.pages_shared,
+                    self.alloc.logical_pages)
+        used = sum(1 for s in self.slots if s.active)
+        return used, 0, used
 
     def _track_peak(self):
         used, shared, logical = self._occupancy()
@@ -282,7 +306,7 @@ class InferenceEngine:
             suffix=list(s.suffix) if refork else [], priority=s.priority))
         self._release_slot_pages(v)
         s.active, s.evicted, s.req_id = False, True, -1
-        s.fork_src, s.suffix = -1, []
+        s.pending, s.fork_src, s.suffix = [], -1, []
         s.prefill_toks = []     # a mid-prefill victim restarts its chunks
         self.evictions += 1
         return True
@@ -301,9 +325,10 @@ class InferenceEngine:
             if s.active and s.req_id == req_id:
                 s.active = False
                 s.evicted = False
-                s.prefill_toks = []
+                s.pending, s.prefill_toks = [], []
                 s.fork_src, s.suffix = -1, []
-                self._release_slot_pages(i)
+                if self.kv_backend == "paged":
+                    self._release_slot_pages(i)
                 if self._pending_decode is not None:
                     commits, packed = self._pending_decode
                     if i in commits:
@@ -333,19 +358,28 @@ class InferenceEngine:
         return n
 
     def memory_stats(self) -> Dict[str, float]:
-        """Engine-level KV memory telemetry (for RuntimeMonitor)."""
-        return {"backend": "paged", "pages_total": self.n_pages,
-                "pages_in_use": self.alloc.pages_in_use,
-                "pages_shared": self.alloc.pages_shared,
-                "pages_logical": self.alloc.logical_pages,
-                "peak_pages": self.peak_pages,
-                "utilization": self.alloc.utilization,
-                "evictions": self.evictions}
+        """Engine-level KV memory telemetry (for RuntimeMonitor). A dense
+        engine reports its slots as pages."""
+        if self.kv_backend == "paged":
+            return {"backend": "paged", "pages_total": self.n_pages,
+                    "pages_in_use": self.alloc.pages_in_use,
+                    "pages_shared": self.alloc.pages_shared,
+                    "pages_logical": self.alloc.logical_pages,
+                    "peak_pages": self.peak_pages,
+                    "utilization": self.alloc.utilization,
+                    "evictions": self.evictions}
+        used = sum(1 for s in self.slots if s.active)
+        return {"backend": "dense", "pages_total": self.max_batch,
+                "pages_in_use": used, "pages_shared": 0,
+                "pages_logical": used, "peak_pages": self.max_batch,
+                "utilization": used / self.max_batch, "evictions": 0}
 
     def can_admit(self, prompt_len: int) -> bool:
         """Admission check against real memory, not just a fixed max_batch."""
         if not self.free_slots():
             return False
+        if self.kv_backend == "dense":
+            return True
         need = max(1, -(-min(prompt_len, self.max_len) // self.page_size))
         return len(self.alloc.free) >= need
 
@@ -366,6 +400,13 @@ class InferenceEngine:
         bucketed to the next power of two."""
         return self._chunk_live(max(self.slots[i].ctx_len
                                     for i in active) + 1)
+
+    def _live_rows(self, active: List[int]) -> int:
+        """Dense read width for this decode step: the cache rows of every
+        active slot plus the token being written. Not bucketed: the port
+        compiles nothing per shape, and the kernel takes any width."""
+        return min(max(self.slots[i].ctx_len for i in active) + 1,
+                   self.max_len)
 
     # ------------------------------------------------------------------
     def free_slots(self) -> List[int]:
@@ -413,6 +454,39 @@ class InferenceEngine:
             logits = self._feed_chunk(slot, toks[start:start + C], start)
         return logits
 
+    def _prefill_into(self, slot: int, toks: List[int], padded: np.ndarray):
+        """Prefill `toks` (right-padded in `padded`, (1, S)) into batch row
+        `slot` in one call (chunked on a chunked paged engine); returns
+        last-token logits (1, V). A dense engine writes the slot's cache
+        rows in place, zero past S, as the JAX package's fresh one-slot
+        cache inserted into the batch leaves them."""
+        if self.kv_backend == "paged":
+            self._alloc_slot_pages(slot, len(toks))
+            if self.prefill_chunk:
+                return self._prefill_into_chunks(slot, toks)
+            self._sync_table()
+            logits, self.cache = transformer.prefill_paged(
+                self.cfg, self.params, self._to_device(padded), self.cache,
+                slot, len(toks))
+            return logits
+        row = {"lengths": self.cache["lengths"][slot:slot + 1],
+               "segments": [{k: seg[k][:, slot:slot + 1] for k in seg}
+                            for seg in self.cache["segments"]]}
+        logits, _ = transformer.prefill(self.cfg, self.params,
+                                        self._to_device(padded), row,
+                                        [len(toks)])
+        return logits
+
+    @staticmethod
+    def _pad_prompt(full_prompt: List[int], max_len: int):
+        """Bucket-pad a prompt, keeping the TAIL when it exceeds max_len.
+        Returns (kept_tokens, padded (1, S), dropped)."""
+        S = min(_bucket(len(full_prompt)), max_len)
+        padded = np.zeros((1, S), np.int64)
+        toks = full_prompt[-S:]
+        padded[0, :len(toks)] = toks
+        return toks, padded, len(full_prompt) - len(toks)
+
     # ------------------------------------------------------------------
     # Prefix sharing (PICE sketch fan-out): prefill the shared (query,
     # sketch) prefix ONCE into a parked slot, then fork N copy-on-write
@@ -422,6 +496,8 @@ class InferenceEngine:
         """Prefill a shared prefix into a parked slot and return its id for
         `add_request(..., share_from=slot)`. The slot holds its pages (and
         is excluded from scheduling) until `release_prefix`."""
+        if self.kv_backend != "paged":
+            raise RuntimeError("prefix sharing needs the paged backend")
         free = self.free_slots()
         if not free:
             raise RuntimeError("no free slot")
@@ -429,13 +505,12 @@ class InferenceEngine:
         # as independent submissions would
         slot = free[-1]
         t0 = time.perf_counter()
-        toks = list(prefix)[-self.max_len:]
-        self._alloc_slot_pages(slot, len(toks))
-        logits = self._prefill_into_chunks(slot, toks)
+        toks, padded, _ = self._pad_prompt(list(prefix), self.max_len)
+        logits = self._prefill_into(slot, toks, padded)
         s = self.slots[slot]
         s.req_id, s.active, s.parked = -1, False, True
         s.prompt = list(prefix)
-        s.tokens, s.logprobs, s.prefill_toks = [], [], []
+        s.tokens, s.logprobs, s.pending, s.prefill_toks = [], [], [], []
         s.ctx_len = len(toks)
         self._prefix_logits[slot] = logits
         self.busy_s += time.perf_counter() - t0
@@ -468,15 +543,18 @@ class InferenceEngine:
                     share_from: Optional[int] = None,
                     suffix: Optional[List[int]] = None,
                     priority: int = 0) -> int:
-        """Admit a request. Admission maps the prompt's pages and queues its
-        tokens: `step()` ingests them one chunk per step, batched with every
-        other ingesting slot. share_from forks a parked prefix slot
+        """Admit a request. A monolithic engine (dense, or paged with
+        `cfg.prefill_chunk == 0`) prefills the prompt now and samples its
+        first token; a chunked engine maps the prompt's pages and queues its
+        tokens, and `step()` ingests them one chunk per step, batched with
+        every other ingesting slot. share_from forks a parked prefix slot
         copy-on-write instead; the fork's `suffix` (the part of the logical
         prompt beyond the shared prefix) plus any carried tokens of a
-        preempted fork are ingested the same way, and a fork with nothing
-        to ingest samples its first token from the prefix logits now.
-        `prompt` must be the full logical prompt (prefix + suffix) so
-        eviction can always fall back to a fresh ingest. `priority` orders
+        preempted fork are ingested in chunks, or teacher-forced one token a
+        step on a monolithic engine (`Slot.pending`), and a fork with
+        nothing to ingest samples its first token from the prefix logits
+        now. `prompt` must be the full logical prompt (prefix + suffix) so
+        eviction can always fall back to a fresh prefill. `priority` orders
         eviction (see `_evict_victim`)."""
         suffix = list(suffix or [])
         carry_tokens = carry_tokens or []
@@ -496,6 +574,9 @@ class InferenceEngine:
         self._prune_admit_stamps()
 
         dropped = 0
+        ingest: List[int] = []          # chunked: tokens step() feeds
+        pending: List[int] = []         # monolithic fork: teacher-forced
+        logits = None
         if share_from is not None:
             src = self.slots[share_from]
             # MemoryError if the tail copy cannot be allocated
@@ -506,12 +587,13 @@ class InferenceEngine:
             self.block_table[slot, :len(dst_pages)] = dst_pages
             self.cache = transformer.fork_slot_paged(
                 self.cfg, self.cache, share_from, slot, tail_src, tail_dst)
+            logits = self._prefix_logits[share_from]
             ctx = src.ctx_len
-            ingest = suffix + carry_tokens
-            if ingest:
-                # map the pages the replay will write up front
-                # (can_admit_fork gated on this need)
-                target = -(-min(ctx + len(ingest), self.max_len)
+            pending = suffix + carry_tokens
+            if self.prefill_chunk and pending:
+                # the replay goes through chunks: map the pages it will
+                # write up front (can_admit_fork gated on this need)
+                target = -(-min(ctx + len(pending), self.max_len)
                            // self.page_size)
                 while len(self.alloc.owned[slot]) < target:
                     p = self.alloc.extend(
@@ -520,13 +602,23 @@ class InferenceEngine:
                     self.block_table[slot,
                                      len(self.alloc.owned[slot]) - 1] = p
                 self._track_peak()
+                ingest, pending = pending, []
             self._mark_table_dirty()
-        else:
+        elif self.prefill_chunk:
             full = list(prompt) + carry_tokens
             toks = full[-self.max_len:]
             dropped = len(full) - len(toks)
             self._alloc_slot_pages(slot, len(toks))
             ctx, ingest = 0, list(toks)
+            if not toks:
+                # degenerate empty prompt: ingest one zero-length chunk now
+                # so the first sample has logits
+                logits = self._prefill_into_chunks(slot, toks)
+        else:
+            toks, padded, dropped = self._pad_prompt(
+                list(prompt) + carry_tokens, self.max_len)
+            logits = self._prefill_into(slot, toks, padded)
+            ctx = len(toks)
 
         s = self.slots[slot]
         s.req_id, s.active = req_id, True
@@ -534,6 +626,7 @@ class InferenceEngine:
         s.tokens, s.logprobs = list(carry_tokens), list(carry_lps)
         s.max_new, s.generated = max_new, len(carry_tokens)
         s.ctx_len = ctx
+        s.pending = list(pending)
         s.prefill_toks = list(ingest)
         s.fork_src = share_from if share_from is not None else -1
         s.suffix = suffix if share_from is not None else []
@@ -545,13 +638,9 @@ class InferenceEngine:
         s.arrival = self._arrivals
         self._arrivals += 1
         self._track_peak()
-        if not s.prefill_toks and share_from is not None:
-            # fork with nothing to ingest: sample from the prefix logits
-            self._first_draws([(slot, self._prefix_logits[share_from])])
-        elif not s.prefill_toks:
-            # degenerate empty prompt: ingest one zero-length chunk now so
-            # the first sample has logits
-            logits = self._prefill_into_chunks(slot, [])
+        if not s.pending and not s.prefill_toks:
+            # sample the first token from the (possibly shared) prefill
+            # logits; otherwise it comes after the last ingested token
             self._first_draws([(slot, logits)])
         self.busy_s += time.perf_counter() - t0
         return slot
@@ -585,7 +674,8 @@ class InferenceEngine:
         if (tok == self.eos_id or s.generated >= s.max_new
                 or s.ctx_len >= self.max_len):
             s.active = False
-            self._release_slot_pages(slot)
+            if self.kv_backend == "paged":
+                self._release_slot_pages(slot)
 
     def _grow_pages(self):
         """Before a decode step, make every active slot's next write target
@@ -640,28 +730,47 @@ class InferenceEngine:
         return True
 
     def _plan_decode(self, active_ids: List[int]) -> StepPlan:
-        """Build this step's decode plan with numpy only."""
+        """Build this step's decode plan with numpy only. A slot with a
+        pending suffix is fed pending[0] and commits nothing until the
+        suffix is exhausted: the logits after its last token seed the
+        first real sample."""
         last = np.zeros((self.max_batch, 1), np.int64)
         mask = np.zeros((self.max_batch,), bool)
         mask[active_ids] = True
-        live = self._live_pages(active_ids)
+        live = self._live_pages(active_ids) \
+            if self.kv_backend == "paged" else self._live_rows(active_ids)
+        commits: List[int] = []
         for i in active_ids:
             s = self.slots[i]
-            if s.tokens:
+            if s.pending:
+                last[i, 0] = s.pending[0]
+            elif s.tokens:
                 last[i, 0] = s.tokens[-1]
             s.ctx_len = min(s.ctx_len + 1, self.max_len)
+            if s.pending:
+                s.pending.pop(0)
+                if s.pending:
+                    continue            # still teacher-forcing the suffix
+            commits.append(i)
         return StepPlan(active_ids=active_ids, last=last, mask=mask,
-                        live=live, commits=list(active_ids))
+                        live=live, commits=commits)
 
     def _dispatch_decode(self, plan: StepPlan):
         """The "run" half: one decode step + sample + logprob on the device,
         read back at the next step's harvest."""
-        self.kv_bytes_read += self._page_kv_bytes * sum(
-            -(-self.slots[i].ctx_len // self.page_size)
-            for i in plan.active_ids)
-        logits, self.cache = transformer.decode_step_paged(
-            self.cfg, self.params, self._to_device(plan.last), self.cache,
-            active=self._to_device(plan.mask), live_pages=plan.live)
+        tokens = self._to_device(plan.last)
+        active = self._to_device(plan.mask)
+        if self.kv_backend == "paged":
+            self.kv_bytes_read += self._page_kv_bytes * sum(
+                -(-self.slots[i].ctx_len // self.page_size)
+                for i in plan.active_ids)
+            logits, self.cache = transformer.decode_step_paged(
+                self.cfg, self.params, tokens, self.cache, active=active,
+                live_pages=plan.live)
+        else:
+            logits, self.cache = transformer.decode_step(
+                self.cfg, self.params, tokens, self.cache, active=active,
+                live_rows=plan.live)
         toks = sample(logits, self.sampler, self.gen)
         lps = token_logprob(logits, toks)
         self._pending_decode = (plan.commits,
@@ -725,16 +834,19 @@ class InferenceEngine:
         if not any(s.active for s in self.slots):
             return worked
         t0 = time.perf_counter()
+        paged = self.kv_backend == "paged"
         active = [i for i, s in enumerate(self.slots)
                   if s.active and not s.prefill_toks]
-        if active:
+        if paged and active:
             self._grow_pages()          # may evict, incl. mid-ingest slots
             active = [i for i, s in enumerate(self.slots)
                       if s.active and not s.prefill_toks]
         plan = self._plan_decode(active) if active else None
-        # ONE table push per step, before the first launch that reads it
-        self._sync_table()
-        worked = self._run_ingest() or worked
+        if paged:
+            # ONE table push per step, before the first launch that reads it
+            self._sync_table()
+        if self.prefill_chunk:
+            worked = self._run_ingest() or worked
         if plan is not None:
             self._dispatch_decode(plan)
             worked = True
@@ -765,9 +877,10 @@ class InferenceEngine:
         """Expand one shared prefix N ways (the PICE sketch fan-out): the
         prefix is prefilled ONCE and each expansion forks a copy-on-write
         block-table row off it; per-group suffixes are ingested before
-        sampling. Falls back to independent submissions on a 1-slot engine,
-        which has no second slot to fork into."""
-        if self.max_batch < 2:
+        sampling. Falls back to independent submissions on the dense
+        backend, which cannot share pages, and on a 1-slot engine, which
+        has no second slot to fork into."""
+        if self.kv_backend != "paged" or self.max_batch < 2:
             return self.generate([list(prefix) + list(s) for s in suffixes],
                                  max_new=max_new,
                                  priorities=[priority] * len(suffixes),
@@ -873,3 +986,21 @@ class InferenceEngine:
                 results[rid] = (list(s.tokens), list(s.logprobs))
             pending[:0] = self.drain_resumes()
         return [results[i] for i in range(n)]
+
+    def score(self, tokens: List[int]) -> Tuple[float, np.ndarray]:
+        """Mean token logprob of a sequence under this model (perplexity),
+        teacher-forced through `transformer.forward`.
+
+        The scoring buffer is clamped to max_len: a sequence beyond it is
+        scored on its TAIL, the convention `_pad_prompt` applies. Returns
+        (mean, per-token logprobs of tokens[1:])."""
+        S = min(_bucket(len(tokens)), self.max_len)
+        toks = tokens[-S:]
+        arr = np.full((S,), self.eos_id, np.int64)
+        arr[:len(toks)] = toks
+        dev = self._to_device(arr)
+        logits, _ = transformer.forward(self.cfg, self.params, dev[None, :-1])
+        logp = torch.log_softmax(logits[0].float(), dim=-1)
+        gold = logp.gather(-1, dev[1:, None])[:, 0]
+        gold = gold.cpu().numpy()[:max(len(toks) - 1, 1)]
+        return float(np.mean(gold)), gold

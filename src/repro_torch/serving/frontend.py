@@ -574,7 +574,7 @@ class EngineFrontend:
         await all members. Falls back to independent submissions exactly
         where the engine does."""
         engine = self.engine
-        if engine.max_batch < 2:
+        if engine.kv_backend != "paged" or engine.max_batch < 2:
             return await self.generate_async(
                 [list(prefix) + list(s) for s in suffixes], max_new=max_new,
                 priorities=[priority] * len(suffixes), deadline_s=deadline_s,

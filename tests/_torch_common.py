@@ -47,7 +47,8 @@ def jax_config(cfg: ModelConfig) -> JModelConfig:
 def params_pair(cfg: ModelConfig, seed: int = 0):
     """(JAX params, port params) holding the same weights."""
     jp = jtransformer.init_params(jax_config(cfg), jax.random.PRNGKey(seed))
-    tp = convert.params_from_reference(cfg, jax.tree.map(np.asarray, jp))
+    tp = convert.params_from_reference(cfg, jax.tree.map(np.asarray, jp),
+                                       device="cpu")
     return jp, tp
 
 

@@ -9,6 +9,10 @@ with only the port installed may lack.)
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import ops as ddops
+from repro_torch.kernels.decode_attention import ref as ddref
+from repro_torch.kernels.flash_attention import ops as faops
+from repro_torch.kernels.flash_attention import ref as faref
 from repro_torch.kernels.paged_decode_attention import ops as dops
 from repro_torch.kernels.paged_decode_attention import ref as dref
 from repro_torch.kernels.paged_prefill_attention import ops as pops
@@ -81,3 +85,92 @@ def test_prefill_kernels_match_plain(gen, dtype, Hq, Hkv, hd, page, C):
         torch.testing.assert_close(got[r, :n].float(), want[r, :n].float(),
                                    **TOL[dtype])
     torch.testing.assert_close(one[0].float(), want[0].float(), **TOL[dtype])
+
+
+def _poisoned_cache(gen, B, S, Hkv, hd, dtype, lens):
+    """(k, v) caches with NaN at every position past each slot's length."""
+    k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+    past = (torch.arange(S, device="cuda")[None, :]
+            >= lens[:, None])[:, :, None, None]
+    return (k.masked_fill(past, float("nan")),
+            v.masked_fill(past, float("nan")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", [
+    (2, 128, 4, 2, 32), (3, 256, 8, 8, 64), (2, 64, 16, 4, 128),
+    (3, 300, 12, 2, 128), (3, 200, 6, 1, 24)])
+def test_dense_decode_kernel_matches_plain(gen, dtype, B, S, Hq, Hkv, hd):
+    """Ragged lengths from 1 to S, NaN past each length, a slot of length 0
+    (zeros), and S values no tile divides."""
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
+    lens[0], lens[-1] = 0, S
+    lens = lens.to(torch.int32)
+    q = torch.randn(B, 1, Hq, hd, generator=gen, device="cuda").to(dtype)
+    k, v = _poisoned_cache(gen, B, S, Hkv, hd, dtype, lens)
+    before = ddops.decode_attention.launches
+    got = ddops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert ddops.decode_attention.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert torch.all(got[0] == 0), "a zero-length slot must give zeros"
+    torch.testing.assert_close(
+        got.float(), ddref.decode_attention_ref(q, k, v, lens).float(),
+        **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_dense_decode_kernel_reads_a_cache_slice(gen):
+    """The kernel reads a (B, S', Hkv, hd) slice of a larger cache through
+    its strides, without a copy."""
+    big_k = torch.randn(4, 96, 2, 32, generator=gen, device="cuda")
+    big_v = torch.randn(4, 96, 2, 32, generator=gen, device="cuda")
+    k, v = big_k[1:3, :64], big_v[1:3, 8:72]
+    q = torch.randn(2, 1, 8, 32, generator=gen, device="cuda")
+    lens = torch.tensor([64, 17], dtype=torch.int32, device="cuda")
+    got = ddops.decode_attention(q, k, v, lens)
+    want = ddref.decode_attention_ref(q, k.contiguous(), v.contiguous(), lens)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_live_view(gen, dtype):
+    """The engine's read: a view of a cache's first live rows, where a
+    length past the view (an inactive slot) reads all of it."""
+    lens = torch.tensor([0, 5, 300, 301, 700], dtype=torch.int32,
+                        device="cuda")
+    q = torch.randn(5, 1, 32, 128, generator=gen, device="cuda").to(dtype)
+    k, v = _poisoned_cache(gen, 5, 1024, 8, 128, dtype, lens)
+    k, v = k[:, :301], v[:, :301]
+    got = ddops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.all(got[0] == 0)
+    torch.testing.assert_close(
+        got.float(), ddref.decode_attention_ref(q, k, v, lens).float(),
+        **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", [
+    (2, 128, 4, 2, 32), (1, 256, 8, 8, 64), (2, 64, 4, 1, 16),
+    (1, 512, 2, 2, 128), (1, 200, 12, 2, 128), (2, 300, 6, 1, 24)])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, 0, 0.0), (True, 64, 0.0), (True, 0, 30.0), (False, 0, 0.0),
+    (False, 64, 30.0)])
+def test_flash_kernel_matches_plain(gen, dtype, B, S, Hq, Hkv, hd, causal,
+                                    window, softcap):
+    q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+    before = faops.flash_attention.launches
+    got = faops.flash_attention(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
+    torch.cuda.synchronize()
+    assert faops.flash_attention.launches == before + 1
+    want = faref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])

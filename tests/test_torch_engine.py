@@ -130,8 +130,6 @@ def test_one_readback_per_decode_step(params):
 
 
 @pytest.mark.parametrize("kw,chunk", [
-    (dict(kv_backend="dense"), 16),
-    (dict(), 0),
     (dict(ragged_ingest=False), 16),
     (dict(host_swap=True), 16),
 ])

@@ -67,7 +67,7 @@ def test_init_params_matches_reference_layout(name):
     dense weights of std 1/sqrt(fan_in))."""
     cfg = CONFIGS[name]
     _, converted = params_pair(cfg)
-    own = tt.init_params(cfg, seed=0)
+    own = tt.init_params(cfg, seed=0, device="cpu")
     flat_c = dict(_leaves(converted))
     flat_o = dict(_leaves(own))
     assert flat_c.keys() == flat_o.keys()

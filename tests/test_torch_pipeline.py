@@ -1,7 +1,8 @@
 """The port's PICEPipeline on the TINY cloud/edge fleet on the CPU against
 the JAX package's pipeline on the same weights: with fixed latency models in
 place of profiling and no deadline, two corpus requests take the same modes
-and produce the same cloud and edge token counts."""
+and produce the same cloud and edge token counts, on chunked paged engines
+and on dense engines."""
 import pytest
 
 from _torch_common import CONFIGS, jax_config, params_pair
@@ -24,15 +25,16 @@ CAPS = {"tiny-edge-a": 0.7, "tiny-edge-b": 0.55}
 ENGINE_KW = dict(max_batch=8, max_len=256, page_size=16)
 
 
-def _run(port: bool, weights):
+def _run(port: bool, weights, backend: str = "paged"):
     engines = {}
     for name in NAMES:
         cfg = CONFIGS[name].with_(prefill_chunk=64)
         jp, tp = weights[name]
         engines[name] = (
-            InferenceEngine(cfg, tp, name=name, device="cpu", **ENGINE_KW)
+            InferenceEngine(cfg, tp, name=name, device="cpu",
+                            kv_backend=backend, **ENGINE_KW)
             if port else JEngine(jax_config(cfg), jp, name=name,
-                                 kv_backend="paged", **ENGINE_KW))
+                                 kv_backend=backend, **ENGINE_KW))
     lat = LatencyModel if port else JLatency
     info = EdgeModelInfo if port else JEdgeInfo
     infos = [info(name=n, latency=lat(*LATENCY[n], name=n),
@@ -62,3 +64,8 @@ def test_pipeline_matches_jax(weights):
     want = _run(False, weights)
     assert got == want
     assert any(mode == "progressive" for mode, *_ in got)
+
+
+def test_dense_pipeline_matches_jax(weights):
+    got = _run(True, weights, "dense")
+    assert got == _run(False, weights, "dense")
