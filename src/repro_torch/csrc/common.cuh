@@ -1,10 +1,14 @@
 // Helpers shared by the paged-attention kernels: conversions between the
-// storage types (float32, bfloat16) and float32, eight-byte row pieces,
-// and a warp sum.
+// query types (float32, bfloat16) and float32, eight-byte row pieces of
+// every pool storage type (float32, bfloat16, int8, float8 e4m3), and a
+// warp sum.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace paged {
 
@@ -26,13 +30,15 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 // Eight bytes of a row, the unit a thread loads: kN values of type T, kept
 // as raw bits until `unpack` so that a run of loads can all be in flight
-// before the first conversion waits for its data.
+// before the first conversion waits for its data. kScaled marks a quantized
+// type, whose values are multiplied by their (page, kv head) scale.
 template <typename T>
 struct Vec;
 template <>
 struct Vec<float> {
   using Raw = float2;
   static constexpr int kN = 2;
+  static constexpr bool kScaled = false;
   __device__ __forceinline__ static void unpack(Raw r, float* f) {
     f[0] = r.x;
     f[1] = r.y;
@@ -42,12 +48,50 @@ template <>
 struct Vec<__nv_bfloat16> {
   using Raw = uint2;
   static constexpr int kN = 4;
+  static constexpr bool kScaled = false;
   __device__ __forceinline__ static void unpack(Raw r, float* f) {
     // a bf16 is the high half of the float with the same bits
     f[0] = __uint_as_float(r.x << 16);
     f[1] = __uint_as_float(r.x & 0xffff0000u);
     f[2] = __uint_as_float(r.y << 16);
     f[3] = __uint_as_float(r.y & 0xffff0000u);
+  }
+};
+
+// int8: eight values, each byte sign-extended (a quantized pool's value
+// before its scale)
+template <>
+struct Vec<int8_t> {
+  using Raw = uint2;
+  static constexpr int kN = 8;
+  static constexpr bool kScaled = true;
+  __device__ __forceinline__ static void unpack(Raw r, float* f) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[i] = (float)((int)(r.x << (24 - 8 * i)) >> 24);
+      f[4 + i] = (float)((int)(r.y << (24 - 8 * i)) >> 24);
+    }
+  }
+};
+// float8 e4m3: eight values, two at a time through the e4m3x2 -> half2
+// conversion sm_90 does in hardware (every e4m3 value, NaN included, is
+// exact in half); the lower byte is the lower address's element
+template <>
+struct Vec<__nv_fp8_e4m3> {
+  using Raw = uint2;
+  static constexpr int kN = 8;
+  static constexpr bool kScaled = true;
+  __device__ __forceinline__ static void unpack(Raw r, float* f) {
+    const unsigned w[2] = {r.x, r.y};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __half2 h = __half2(__nv_cvt_fp8x2_to_halfraw2(
+          (__nv_fp8x2_storage_t)((w[i / 2] >> (16 * (i % 2))) & 0xffffu),
+          __NV_E4M3));
+      const float2 p = __half22float2(h);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
   }
 };
 

@@ -38,15 +38,16 @@ struct DenseRows {
 
   struct Cursor {
     size_t off, stride_s;
-    __device__ __forceinline__ size_t next(bool* ok) {
+    __device__ __forceinline__ size_t next(bool* ok, int* pg) {
       *ok = true;
+      *pg = 0;
       const size_t row = off;
       off += stride_s;
       return row;
     }
   };
 
-  __device__ __forceinline__ void setup(int, int split, int len, int*,
+  __device__ __forceinline__ void setup(int, int, int split, int len, int*,
                                         int* t0, int* t1) const {
     *t0 = split * tokens_per_split;
     *t1 = min(min(*t0 + tokens_per_split, len), S);
@@ -54,6 +55,11 @@ struct DenseRows {
 
   __device__ __forceinline__ Cursor cursor(int b, int t) const {
     return Cursor{(size_t)b * stride_b + (size_t)t * stride_s, stride_s};
+  }
+
+  // a dense cache is a float cache: no scales
+  __device__ __forceinline__ float2 scales(int) const {
+    return make_float2(1.f, 1.f);
   }
 };
 
@@ -84,12 +90,13 @@ int decode_attention(const void* q, const void* k_cache, const void* v_cache,
   float* pml = static_cast<float*>(part_ml);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return decode_launch<float>(q, k_cache, v_cache, rows, lens, po, pml, out,
-                                B, Hq, Hkv, hd, splits, 0, s);
+    return decode_launch<float, float>(q, k_cache, v_cache, rows, lens, po,
+                                       pml, out, B, Hq, Hkv, hd, splits, 0,
+                                       s);
   if (dtype == 1)
-    return decode_launch<__nv_bfloat16>(q, k_cache, v_cache, rows, lens, po,
-                                        pml, out, B, Hq, Hkv, hd, splits, 0,
-                                        s);
+    return decode_launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_cache, v_cache, rows, lens, po, pml, out, B, Hq, Hkv, hd, splits,
+        0, s);
   return (int)cudaErrorInvalidValue;
 }
 

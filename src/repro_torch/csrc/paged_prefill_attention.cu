@@ -6,12 +6,17 @@
 //   src/repro/kernels/paged_prefill_attention/kernel.py
 //   paged_prefill_attention_ragged_pallas (_paged_pref_ragged_kernel), and
 //   paged_prefill_attention_pallas (_paged_pref_kernel), which is this
-//   kernel at R = 1.
+//   kernel at R = 1, and their twins over an int8 / float8 e4m3 pool with
+//   an f32 scale per (page, kv head),
+//   paged_prefill_attention_ragged_quant_pallas and
+//   paged_prefill_attention_quant_pallas (R = 1).
 // and computes what they compute: row r's queries sit at absolute positions
 // offsets[r] + (j mod C) and attend causally, kpos <= offsets[r] + (j mod C),
 // to every key below offsets[r] + lens[r] that the slot holds (the chunk's
 // own K/V is written before the read); pages past the covered range and
-// unmapped (-1) pages are skipped; rows with lens == 0 exit at once.
+// unmapped (-1) pages are skipped; rows with lens == 0 exit at once. A
+// float pool may store another float type than the query's, as the Pallas
+// kernels cast to f32 inside.
 //
 // What bounds it on the H100: the larger of its flops, 4 * hd per (query,
 // key) pair it attends, over the card's peak rate, and its bytes (q and out,
@@ -31,12 +36,17 @@
 // is head h * q_per_kv + j / C at chunk position j % C. Rows of a block that
 // are past lens[r] are written as zeros (the caller discards them).
 //
-// Each page tile is read in 8-byte pieces, kLoadBatch of K and of V in
-// flight per thread before any is converted.
+// Each page tile is read in 8-byte pieces of the pool's storage type TKV
+// (2 float32, 4 bf16, 8 int8 / fp8 values), kLoadBatch of K and of V in
+// flight per thread before any is converted, and is dequantized into the
+// f32 tile in shared memory by its (page, kv head) scale as it lands (1 for
+// a float pool), as the Pallas kernels dequantize right after the page DMA.
+// Queries are read and outputs written in the query type TQ.
 //
 // Layouts (all contiguous): q, out (R, C, Hq, hd); k/v pages (n_pages, page,
-// Hkv, hd), head_dim a multiple of 4; block_rows (R, P) int32; offsets,
-// lens (R,) int32.
+// Hkv, hd), head_dim a multiple of the values in 8 bytes of TKV; k/v scales
+// (n_pages, Hkv) float32 (quantized pools only); block_rows (R, P) int32;
+// offsets, lens (R,) int32.
 
 #include "common.cuh"
 
@@ -57,16 +67,19 @@ size_t smem_bytes(int hd, int ps) {
                           (size_t)kQTile * ps + 4 * (size_t)kQTile);
 }
 
-template <typename T>
+template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                     const T* __restrict__ v_pages,
+paged_prefill_kernel(const TQ* __restrict__ q,
+                     const TKV* __restrict__ k_pages,
+                     const TKV* __restrict__ v_pages,
+                     const float* __restrict__ k_scales,
+                     const float* __restrict__ v_scales,
                      const int* __restrict__ block_rows,
                      const int* __restrict__ offsets,
-                     const int* __restrict__ lens, T* __restrict__ out, int C,
-                     int Hq, int Hkv, int hd, int ps, int P, int n_pages,
-                     float scale) {
-  using V = Vec<T>;
+                     const int* __restrict__ lens, TQ* __restrict__ out,
+                     int C, int Hq, int Hkv, int hd, int ps, int P,
+                     int n_pages, float scale) {
+  using V = Vec<TKV>;
   using Raw = typename V::Raw;
   constexpr int VEC = V::kN;
   const int r = blockIdx.x;
@@ -94,7 +107,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
   if (last_c < 0) {
     for (int e = tid; e < nq * hd; e += kThreads)
-      out[q_index(e / hd) + e % hd] = from_f32<T>(0.f);
+      out[q_index(e / hd) + e % hd] = from_f32<TQ>(0.f);
     return;
   }
 
@@ -135,6 +148,8 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     if (page < 0 || page >= n_pages) continue;  // same for every thread
     const int s0 = p * ps;
     const size_t base = (size_t)page * ps * row_stride + (size_t)h * hd;
+    const float sk = k_scales ? k_scales[(size_t)page * Hkv + h] : 1.f;
+    const float sv = v_scales ? v_scales[(size_t)page * Hkv + h] : 1.f;
     // the tile in 8-byte pieces: each thread issues kLoadBatch loads of K
     // and of V as raw bits before it converts any
     for (int e0 = 0; e0 < n_vec; e0 += kThreads * kLoadBatch) {
@@ -161,8 +176,8 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         V::unpack(vr[j], vf);
 #pragma unroll
         for (int c = 0; c < VEC; ++c) {
-          ks[t * ld + d + c] = kf[c];
-          vs[t * hd + d + c] = vf[c];
+          ks[t * ld + d + c] = kf[c] * sk;
+          vs[t * hd + d + c] = vf[c] * sv;
         }
       }
     }
@@ -213,19 +228,20 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const int i = e / hd;
     const float den = l[i];
     out[q_index(i) + e % hd] =
-        from_f32<T>(acc[e] / (den == 0.f ? 1.f : den));
+        from_f32<TQ>(acc[e] / (den == 0.f ? 1.f : den));
   }
 }
 
-template <typename T>
+template <typename TQ, typename TKV>
 int launch(const void* q, const void* k_pages, const void* v_pages,
+           const float* k_scales, const float* v_scales,
            const int* block_rows, const int* offsets, const int* lens,
            void* out, int R, int C, int Hq, int Hkv, int hd, int ps, int P,
            int n_pages, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd, ps);
-  if (smem > (size_t)kMaxSmem || hd % Vec<T>::kN)
+  if (smem > (size_t)kMaxSmem || hd % Vec<TKV>::kN)
     return (int)cudaErrorInvalidValue;
-  auto kernel = paged_prefill_kernel<T>;
+  auto kernel = paged_prefill_kernel<TQ, TKV>;
   if (smem > (size_t)kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -234,35 +250,65 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   const int rep = Hq / Hkv;
   const dim3 grid(R, Hkv, (rep * C + kQTile - 1) / kQTile);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), block_rows, offsets, lens,
-      static_cast<T*>(out), C, Hq, Hkv, hd, ps, P, n_pages,
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
+      static_cast<const TKV*>(v_pages), k_scales, v_scales, block_rows,
+      offsets, lens, static_cast<TQ*>(out), C, Hq, Hkv, hd, ps, P, n_pages,
       1.0f / sqrtf((float)hd));
   return (int)cudaGetLastError();
+}
+
+template <typename TQ>
+int launch_q(const void* q, const void* k_pages, const void* v_pages,
+             const float* k_scales, const float* v_scales,
+             const int* block_rows, const int* offsets, const int* lens,
+             void* out, int R, int C, int Hq, int Hkv, int hd, int ps, int P,
+             int n_pages, int kv_dtype, cudaStream_t s) {
+#define PAGED_PREFILL_LAUNCH(TKV)                                            \
+  return launch<TQ, TKV>(q, k_pages, v_pages, k_scales, v_scales,            \
+                         block_rows, offsets, lens, out, R, C, Hq, Hkv, hd,  \
+                         ps, P, n_pages, s)
+  switch (kv_dtype) {
+    case 0: PAGED_PREFILL_LAUNCH(float);
+    case 1: PAGED_PREFILL_LAUNCH(__nv_bfloat16);
+    case 2: PAGED_PREFILL_LAUNCH(int8_t);
+    case 3: PAGED_PREFILL_LAUNCH(__nv_fp8_e4m3);
+  }
+#undef PAGED_PREFILL_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). Returns
-// cudaGetLastError() after the launch, 0 on success.
+// q_dtype (q and out): 0 = float32, 1 = bfloat16. kv_dtype (pools): 0 =
+// float32, 1 = bfloat16, 2 = int8, 3 = float8 e4m3; the scales are given
+// for 2 and 3 and null otherwise. Returns cudaGetLastError() after the
+// launch, 0 on success.
 int paged_prefill_attention(const void* q, const void* k_pages,
-                            const void* v_pages, const void* block_rows,
+                            const void* v_pages, const void* k_scales,
+                            const void* v_scales, const void* block_rows,
                             const void* offsets, const void* lens, void* out,
                             int R, int C, int Hq, int Hkv, int hd, int ps,
-                            int P, int n_pages, int dtype, void* stream) {
+                            int P, int n_pages, int q_dtype, int kv_dtype,
+                            void* stream) {
   if (R == 0 || C == 0) return 0;
+  const bool quant = kv_dtype >= 2;
+  if (quant != (k_scales != nullptr) || quant != (v_scales != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
   const int* rows = static_cast<const int*>(block_rows);
   const int* offs = static_cast<const int*>(offsets);
   const int* ln = static_cast<const int*>(lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, rows, offs, ln, out, R, C, Hq,
-                         Hkv, hd, ps, P, n_pages, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, rows, offs, ln, out, R,
-                                 C, Hq, Hkv, hd, ps, P, n_pages, s);
+  if (q_dtype == 0)
+    return launch_q<float>(q, k_pages, v_pages, ks, vs, rows, offs, ln, out,
+                           R, C, Hq, Hkv, hd, ps, P, n_pages, kv_dtype, s);
+  if (q_dtype == 1)
+    return launch_q<__nv_bfloat16>(q, k_pages, v_pages, ks, vs, rows, offs,
+                                   ln, out, R, C, Hq, Hkv, hd, ps, P, n_pages,
+                                   kv_dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,1 +1,2 @@
-"""Paged flash-decode attention: CUDA kernel, wrapper and plain version."""
+"""Paged flash-decode attention over float and quantized pools: CUDA
+kernel, wrappers and plain versions."""

@@ -11,7 +11,7 @@ import torch
 from repro_torch.kernels import runtime
 
 NAME = "paged_decode_attention"
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 # thread blocks to aim for on each SM: split-KV cuts every (slot, kv head)
 # into runs of pages until the grid holds about this many per SM
 BLOCKS_PER_SM = 4
@@ -35,16 +35,16 @@ def split_pages(B: int, Hkv: int, P: int, n_sm: int):
     return -(-P // per), per
 
 
-def paged_decode_attention_cuda(q, k_pages, v_pages, block_table, lengths):
-    """q: (B,1,Hq,hd); k/v_pages: (n_pages, page, Hkv, hd), same dtype as q
-    (float32 or bfloat16); block_table: (B, P) int32; lengths: (B,) int32.
-    All contiguous on one CUDA device; page size and head_dim within
-    the kernels' limits (`runtime.check_limits`).
-    -> (B,1,Hq,hd)."""
-    floats = (torch.float32, torch.bfloat16)
-    runtime.check_tensor("q", q, 4, floats)
-    runtime.check_tensor("k_pages", k_pages, 4, (q.dtype,))
-    runtime.check_tensor("v_pages", v_pages, 4, (q.dtype,))
+def paged_decode_attention_cuda(q, k_pages, v_pages, block_table, lengths,
+                                k_scales=None, v_scales=None):
+    """q: (B,1,Hq,hd) float32 or bfloat16; k/v_pages: (n_pages, page, Hkv,
+    hd), float32 or bfloat16 (either, whatever q's type), or int8 /
+    float8_e4m3fn with f32 k/v_scales (n_pages, Hkv); block_table: (B, P)
+    int32; lengths: (B,) int32. All contiguous on one CUDA device; page size
+    and head_dim within the kernels' limits (`runtime.check_limits`).
+    -> (B,1,Hq,hd) in q's dtype."""
+    runtime.check_tensor("q", q, 4, tuple(runtime.Q_DTYPES))
+    runtime.check_pools(k_pages, v_pages, k_scales, v_scales)
     runtime.check_tensor("block_table", block_table, 2, (torch.int32,))
     runtime.check_tensor("lengths", lengths, 1, (torch.int32,))
     B, T, Hq, hd = q.shape
@@ -52,12 +52,12 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_table, lengths):
     P = block_table.shape[1]
     if T != 1:
         raise ValueError(f"decode takes one query token per slot, got {T}")
-    if v_pages.shape != k_pages.shape or hd_kv != hd or Hq % Hkv:
+    if hd_kv != hd or Hq % Hkv:
         raise ValueError(f"pool shape {tuple(k_pages.shape)} does not fit "
                          f"q {tuple(q.shape)}")
     if block_table.shape[0] != B or lengths.shape[0] != B:
         raise ValueError("block_table and lengths need one row per slot")
-    runtime.check_limits(ps, hd)
+    runtime.check_limits(ps, hd, k_pages.dtype)
     splits, per = split_pages(B, Hkv, P, runtime.sm_count(q.device))
     rep = Hq // Hkv
     part_o = torch.empty((B, Hkv, splits, rep, hd), dtype=torch.float32,
@@ -65,12 +65,15 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_table, lengths):
     part_ml = torch.empty((B, Hkv, splits, rep, 2), dtype=torch.float32,
                           device=q.device)
     out = torch.empty_like(q)
+    null = ctypes.c_void_p(None)
     lib = _lib()
     code = lib.paged_decode_attention(
         runtime.ptr(q), runtime.ptr(k_pages), runtime.ptr(v_pages),
+        null if k_scales is None else runtime.ptr(k_scales),
+        null if v_scales is None else runtime.ptr(v_scales),
         runtime.ptr(block_table), runtime.ptr(lengths), runtime.ptr(part_o),
         runtime.ptr(part_ml), runtime.ptr(out), B, Hq, Hkv, hd, ps, P,
         n_pages, splits, per, runtime.dtype_code(q.dtype),
-        runtime.stream_ptr())
+        runtime.kv_dtype_code(k_pages.dtype), runtime.stream_ptr())
     runtime.check(lib, NAME, code)
     return out

@@ -2,10 +2,13 @@
 
 `paged_prefill_attention_ragged` (R slots' chunks in one call, the engine's
 batched ingest) and `paged_prefill_attention` (one slot's chunk, the shared
-prefix prefill of a fan-out) each launch the hand-written kernel of
-`csrc/paged_prefill_attention.cu` on a CUDA tensor — the single-slot wrapper
-at R = 1 — or raise; on a CPU tensor each runs its plain version
-(`ref.py`). Each wrapper counts its own kernel launches in `.launches`.
+prefix prefill of a fan-out), and their `_quant` twins over an int8 / fp8
+pool with per-(page, kv head) scales, each launch the hand-written kernel
+of `csrc/paged_prefill_attention.cu` on a CUDA tensor — the single-slot
+wrappers at R = 1 — or raise; on a CPU tensor each runs its plain version
+(`ref.py`). Each wrapper counts its own kernel launches in `.launches`. A
+float pool may store float32 or bfloat16 whatever q's type; outputs are in
+q's type.
 """
 from __future__ import annotations
 
@@ -55,6 +58,44 @@ def paged_prefill_attention(q, k_pages, v_pages, block_row, offset,
     return out
 
 
+def paged_prefill_attention_ragged_quant(q, k_pages, v_pages, k_scales,
+                                         v_scales, block_rows, offsets,
+                                         lens):
+    """`paged_prefill_attention_ragged` over an int8 / float8_e4m3fn pool:
+    each page tile is dequantized with its (page, kv head) scale
+    (k/v_scales: (n_pages, Hkv) f32) as it is loaded."""
+    if not runtime.use_kernel(q, k_pages, v_pages, k_scales, v_scales,
+                              block_rows, offsets, lens):
+        return _ref.paged_prefill_attention_ragged_quant_ref(
+            q, k_pages, v_pages, k_scales, v_scales, block_rows, offsets,
+            lens)
+    out = _kernel.paged_prefill_attention_cuda(
+        q, k_pages, v_pages, block_rows, offsets, lens, k_scales, v_scales)
+    paged_prefill_attention_ragged_quant.launches += 1
+    return out
+
+
+def paged_prefill_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
+                                  block_row, offset, chunk_len):
+    """`paged_prefill_attention` over an int8 / float8_e4m3fn pool (see
+    `paged_prefill_attention_ragged_quant`)."""
+    offset = _scalar(offset, q.device)
+    chunk_len = _scalar(chunk_len, q.device)
+    if not runtime.use_kernel(q, k_pages, v_pages, k_scales, v_scales,
+                              block_row, offset, chunk_len):
+        return _ref.paged_prefill_attention_quant_ref(
+            q, k_pages, v_pages, k_scales, v_scales, block_row, offset,
+            chunk_len)
+    if q.shape[0] != 1 or block_row.dim() != 1:
+        raise ValueError("the single-slot wrapper takes q (1, C, Hq, hd) "
+                         "and a (P,) block row")
+    out = _kernel.paged_prefill_attention_cuda(
+        q, k_pages, v_pages, block_row.reshape(1, -1), offset, chunk_len,
+        k_scales, v_scales)
+    paged_prefill_attention_quant.launches += 1
+    return out
+
+
 def _scalar(v, device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.reshape(1).to(torch.int32)
@@ -63,3 +104,5 @@ def _scalar(v, device) -> torch.Tensor:
 
 paged_prefill_attention_ragged.launches = 0
 paged_prefill_attention.launches = 0
+paged_prefill_attention_ragged_quant.launches = 0
+paged_prefill_attention_quant.launches = 0

@@ -160,33 +160,80 @@ def host_array_on(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return host.pin_memory().to(device, non_blocking=True)
 
 
-def check_tensor(name: str, t: torch.Tensor, ndim: int, dtypes) -> None:
+def check_tensor(name: str, t: torch.Tensor, ndim: int, dtypes,
+                 align: bool = True) -> None:
+    """Rank, dtype and contiguity; a tensor of data rows (not int32
+    indices, not `align=False` scalars) must also start on 8 bytes."""
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
     if t.dtype not in dtypes:
         raise ValueError(f"{name} dtype {t.dtype} not in {dtypes}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.is_floating_point() and t.data_ptr() % 8:
+    if align and t.dtype != torch.int32 and t.data_ptr() % 8:
         raise ValueError(f"{name} must start on an 8-byte boundary (the "
                          f"kernels read rows in 8-byte pieces)")
 
 
-def check_limits(page_size: int, head_dim: int) -> None:
+def check_limits(page_size: int, head_dim: int,
+                 kv_dtype: torch.dtype = torch.float32) -> None:
     """Raise on a page size or head_dim the kernels do not take: past their
-    shared-memory limits, or a head_dim they cannot read in 8-byte pieces
-    (`ModelConfig.validate_paged` checks the same at engine start)."""
+    shared-memory limits, or a head_dim whose rows of `kv_dtype` they cannot
+    read in 8-byte pieces — a multiple of `HEAD_DIM_MULTIPLE` for float
+    pools, of 8 for int8 / fp8 (`ModelConfig.validate_paged` checks the same
+    at engine start)."""
     if not 0 < page_size <= MAX_PAGE_SIZE:
         raise ValueError(f"page_size {page_size} outside the kernels' range "
                          f"1..{MAX_PAGE_SIZE}")
-    if not 0 < head_dim <= MAX_HEAD_DIM or head_dim % HEAD_DIM_MULTIPLE:
+    multiple = max(HEAD_DIM_MULTIPLE, 8 // kv_dtype.itemsize)
+    if not 0 < head_dim <= MAX_HEAD_DIM or head_dim % multiple:
         raise ValueError(f"head_dim {head_dim} is not a multiple of "
-                         f"{HEAD_DIM_MULTIPLE} in 1..{MAX_HEAD_DIM}")
+                         f"{multiple} in 1..{MAX_HEAD_DIM}")
+
+
+# Type codes of the C interfaces: the query (and output) type, and the
+# type a KV pool stores (codes 0 and 1 mean the same in both).
+Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+FLOAT_POOLS = (torch.float32, torch.bfloat16)
+QUANT_POOLS = (torch.int8, torch.float8_e4m3fn)
+KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+             torch.float8_e4m3fn: 3}
 
 
 def dtype_code(dtype: torch.dtype) -> int:
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if dtype not in codes:
+    """The query type's code (float32 or bfloat16)."""
+    if dtype not in Q_DTYPES:
         raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")
-    return codes[dtype]
+    return Q_DTYPES[dtype]
+
+
+def kv_dtype_code(dtype: torch.dtype) -> int:
+    """A pool's storage type code."""
+    if dtype not in KV_DTYPES:
+        raise ValueError(f"pools store float32, bfloat16, int8 or "
+                         f"float8_e4m3fn, got {dtype}")
+    return KV_DTYPES[dtype]
+
+
+def check_pools(k_pages: torch.Tensor, v_pages: torch.Tensor, k_scales,
+                v_scales) -> None:
+    """Pools of one storage type: float32 / bfloat16 with no scales, or
+    int8 / float8_e4m3fn with float32 scales (n_pages, Hkv)."""
+    quant = k_scales is not None
+    if quant != (v_scales is not None):
+        raise ValueError("k_scales and v_scales come together")
+    allowed = QUANT_POOLS if quant else FLOAT_POOLS
+    check_tensor("k_pages", k_pages, 4, allowed)
+    check_tensor("v_pages", v_pages, 4, (k_pages.dtype,))
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(f"v_pages {tuple(v_pages.shape)} differs from "
+                         f"k_pages {tuple(k_pages.shape)}")
+    if not quant:
+        return
+    check_tensor("k_scales", k_scales, 2, (torch.float32,), align=False)
+    check_tensor("v_scales", v_scales, 2, (torch.float32,), align=False)
+    want = (k_pages.shape[0], k_pages.shape[2])
+    if tuple(k_scales.shape) != want or tuple(v_scales.shape) != want:
+        raise ValueError(f"scales must be (n_pages, Hkv) = {want}, got "
+                         f"{tuple(k_scales.shape)}, {tuple(v_scales.shape)}")
 

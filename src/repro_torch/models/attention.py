@@ -1,6 +1,7 @@
 """GQA attention (PyTorch): the full sequence (scoring, training), decode
 against a dense KV cache, and decode, one prompt chunk and batched ragged
-chunks against a paged KV pool.
+chunks against a paged KV pool (float, or int8 / fp8 with per-(page, kv
+head) scales).
 
 The kernel reads go through wrappers in `repro_torch.kernels`, which pick by
 the tensor's device alone: a CUDA tensor launches the hand-written CUDA
@@ -9,9 +10,10 @@ kernel, a CPU tensor runs the kernel's plain PyTorch version.
 flash-attention wrapper, one dense-cache decode token through the
 decode-attention wrapper, and every paged read through a paged-attention
 wrapper (on the CPU: gather the block table into the contiguous layout,
-then masked softmax). Monolithic prefill and multi-token dense decode stay
-plain PyTorch, as they are plain jnp in the JAX package. K/V writes update
-the cache and the pools in place.
+dequantizing a quantized pool on the way, then masked softmax). Monolithic
+prefill and multi-token dense decode stay plain PyTorch, as they are plain
+jnp in the JAX package. K/V writes update the cache and the pools in
+place.
 
 Projection weights are 2-D: wq (d, Hq*hd), wk/wv (d, Hkv*hd), wo (Hq*hd, d);
 biases are flat (H*hd,). `repro_torch.convert` reshapes the JAX package's
@@ -101,9 +103,6 @@ def check_paged_support(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "attention logit softcap is not on the paged path (no served "
             "model has one)")
-    if cfg.kv_quantized:
-        raise NotImplementedError(
-            "quantized KV pools wait for the quantized-pool slice")
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +345,8 @@ def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class PagedCall(NamedTuple):
-    dest: torch.Tensor              # (N,) flat pool rows of the writes
+    dest: Optional[torch.Tensor]    # (N,) flat pool rows of float writes
+    quant: Optional[pc.QuantPlan]   # touched pages of quantized writes
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
     rows: torch.Tensor              # (R, P') contiguous read rows
     offsets: torch.Tensor           # (R,) int32; decode: lengths + 1
@@ -371,8 +371,12 @@ def decode_call(cfg: ModelConfig, block_table: torch.Tensor,
     if cfg.use_rope:
         rope = rope_tables(lengths[:, None], cfg.resolved_head_dim,
                            cfg.rope_theta)
-    dest = pc.token_write_plan(block_table, lengths, pages, active)
-    return PagedCall(dest, rope, _trim(block_table, live_pages),
+    dest = quant = None
+    if cfg.kv_quantized:
+        quant = pc.token_quant_plan(block_table, lengths, pages, active)
+    else:
+        dest = pc.token_write_plan(block_table, lengths, pages, active)
+    return PagedCall(dest, quant, rope, _trim(block_table, live_pages),
                      lengths + 1, None)
 
 
@@ -385,25 +389,40 @@ def chunk_call(cfg: ModelConfig, block_rows: torch.Tensor, offsets, lens,
     if cfg.use_rope:
         pos = offsets[:, None] + torch.arange(C, device=offsets.device)
         rope = rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
-    dest = pc.prompt_write_plan(block_rows, offsets, lens, C, pages)
-    return PagedCall(dest, rope, _trim(block_rows, live_pages), offsets, lens)
+    dest = quant = None
+    if cfg.kv_quantized:
+        quant = pc.prompt_quant_plan(block_rows, offsets, lens, C, pages)
+    else:
+        dest = pc.prompt_write_plan(block_rows, offsets, lens, C, pages)
+    return PagedCall(dest, quant, rope, _trim(block_rows, live_pages),
+                     offsets, lens)
 
 
-def _qkv_written(cfg, params, x, k_pages, v_pages, call: PagedCall):
-    """Project, rotate, and write this call's K/V into the pools."""
+def _qkv_written(cfg, params, x, k_pages, v_pages, call: PagedCall,
+                 k_scales=None, v_scales=None):
+    """Project, rotate, and write this call's K/V into the pools (and, for
+    a quantized pool, their scales)."""
     q, k, v = _project_qkv(cfg, params, x)
     if call.rope is not None:
         q = apply_rope(q, tables=call.rope)
         k = apply_rope(k, tables=call.rope)
     n = k.shape[0] * k.shape[1]
-    pc.apply_write(k_pages, call.dest, k.reshape(n, *k.shape[2:]))
-    pc.apply_write(v_pages, call.dest, v.reshape(n, *v.shape[2:]))
+    k, v = k.reshape(n, *k.shape[2:]), v.reshape(n, *v.shape[2:])
+    if call.quant is not None:
+        pc.apply_quant_write(k_pages, k_scales, call.quant, k, cfg.kv_dtype)
+        pc.apply_quant_write(v_pages, v_scales, call.quant, v, cfg.kv_dtype)
+    else:
+        pc.apply_write(k_pages, call.dest, k)
+        pc.apply_write(v_pages, call.dest, v)
     return q
 
 
 # ---------------------------------------------------------------------------
-# Entry points (the JAX package's signatures; pools are updated in place
-# and only the attention output is returned)
+# Entry points (the JAX package's signatures; pools and scales are updated
+# in place and only the attention output is returned). With
+# cfg.kv_quantized, k/v_scales are the layer's (n_pages, n_kv) f32 scales:
+# the writes requantize the touched pages, and the reads go through the
+# `_quant` wrappers (on the CPU: dequantize-gather, then attention in f32).
 # ---------------------------------------------------------------------------
 
 def attention_decode_paged(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -411,7 +430,10 @@ def attention_decode_paged(cfg: ModelConfig, params: dict, x: torch.Tensor,
                            block_table: torch.Tensor, lengths: torch.Tensor,
                            live_pages: Optional[int] = None,
                            active: Optional[torch.Tensor] = None,
-                           call: Optional[PagedCall] = None) -> torch.Tensor:
+                           call: Optional[PagedCall] = None,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Decode step against a paged KV pool (vLLM-style block table).
 
     x: (B, 1, D); k_pages/v_pages: (n_pages, page, n_kv, hd) this layer's
@@ -425,9 +447,14 @@ def attention_decode_paged(cfg: ModelConfig, params: dict, x: torch.Tensor,
     if call is None:
         call = decode_call(cfg, block_table, lengths, k_pages, live_pages,
                            active)
-    q = _qkv_written(cfg, params, x, k_pages, v_pages, call)
-    out = pda_ops.paged_decode_attention(q, k_pages, v_pages, call.rows,
-                                         call.offsets)
+    q = _qkv_written(cfg, params, x, k_pages, v_pages, call, k_scales,
+                     v_scales)
+    if cfg.kv_quantized:
+        out = pda_ops.paged_decode_attention_quant(
+            q, k_pages, v_pages, k_scales, v_scales, call.rows, call.offsets)
+    else:
+        out = pda_ops.paged_decode_attention(q, k_pages, v_pages, call.rows,
+                                             call.offsets)
     return _out_proj(params, out)
 
 
@@ -436,7 +463,9 @@ def attention_prefill_chunk_paged(cfg: ModelConfig, params: dict,
                                   v_pages: torch.Tensor,
                                   block_row: torch.Tensor, offset, chunk_len,
                                   live_pages: Optional[int] = None,
-                                  call: Optional[PagedCall] = None
+                                  call: Optional[PagedCall] = None,
+                                  k_scales: Optional[torch.Tensor] = None,
+                                  v_scales: Optional[torch.Tensor] = None
                                   ) -> torch.Tensor:
     """One prompt chunk of ONE slot against a paged KV pool.
 
@@ -450,9 +479,16 @@ def attention_prefill_chunk_paged(cfg: ModelConfig, params: dict,
     if call is None:
         call = chunk_call(cfg, block_row[None], offset, chunk_len,
                           x.shape[1], k_pages, live_pages)
-    q = _qkv_written(cfg, params, x, k_pages, v_pages, call)
-    out = ppa_ops.paged_prefill_attention(q, k_pages, v_pages, call.rows[0],
-                                          call.offsets, call.lens)
+    q = _qkv_written(cfg, params, x, k_pages, v_pages, call, k_scales,
+                     v_scales)
+    if cfg.kv_quantized:
+        out = ppa_ops.paged_prefill_attention_quant(
+            q, k_pages, v_pages, k_scales, v_scales, call.rows[0],
+            call.offsets, call.lens)
+    else:
+        out = ppa_ops.paged_prefill_attention(q, k_pages, v_pages,
+                                              call.rows[0], call.offsets,
+                                              call.lens)
     return _out_proj(params, out)
 
 
@@ -461,7 +497,9 @@ def attention_prefill_ragged_paged(cfg: ModelConfig, params: dict,
                                    v_pages: torch.Tensor,
                                    block_rows: torch.Tensor, offsets, lens,
                                    live_pages: Optional[int] = None,
-                                   call: Optional[PagedCall] = None
+                                   call: Optional[PagedCall] = None,
+                                   k_scales: Optional[torch.Tensor] = None,
+                                   v_scales: Optional[torch.Tensor] = None
                                    ) -> torch.Tensor:
     """R prompt chunks — one per ingesting slot — in a single call.
 
@@ -475,7 +513,13 @@ def attention_prefill_ragged_paged(cfg: ModelConfig, params: dict,
     if call is None:
         call = chunk_call(cfg, block_rows, offsets, lens, x.shape[1],
                           k_pages, live_pages)
-    q = _qkv_written(cfg, params, x, k_pages, v_pages, call)
-    out = ppa_ops.paged_prefill_attention_ragged(
-        q, k_pages, v_pages, call.rows, call.offsets, call.lens)
+    q = _qkv_written(cfg, params, x, k_pages, v_pages, call, k_scales,
+                     v_scales)
+    if cfg.kv_quantized:
+        out = ppa_ops.paged_prefill_attention_ragged_quant(
+            q, k_pages, v_pages, k_scales, v_scales, call.rows, call.offsets,
+            call.lens)
+    else:
+        out = ppa_ops.paged_prefill_attention_ragged(
+            q, k_pages, v_pages, call.rows, call.offsets, call.lens)
     return _out_proj(params, out)

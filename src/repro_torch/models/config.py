@@ -208,8 +208,8 @@ class ModelConfig:
         one (page_size, head_dim) K/V page tile and a tile of query rows in
         shared memory, whose size `MAX_PAGE_SIZE` and `MAX_HEAD_DIM` bound;
         both kernels read K/V rows in 8-byte pieces, so head_dim is a
-        multiple of `HEAD_DIM_MULTIPLE`. The kernel wrappers check the same
-        limits on every call.
+        multiple of `HEAD_DIM_MULTIPLE`, and of 8 for an int8 / fp8 pool.
+        The kernel wrappers check the same limits on every call.
         """
         if page_size <= 0:
             raise ValueError("page_size must be positive")
@@ -221,9 +221,10 @@ class ModelConfig:
         if self.resolved_head_dim > MAX_HEAD_DIM:
             raise ValueError(f"head_dim {self.resolved_head_dim} exceeds the "
                              f"kernels' limit of {MAX_HEAD_DIM}")
-        if self.resolved_head_dim % HEAD_DIM_MULTIPLE:
+        multiple = 8 if self.kv_quantized else HEAD_DIM_MULTIPLE
+        if self.resolved_head_dim % multiple:
             raise ValueError(f"head_dim {self.resolved_head_dim} is not a "
-                             f"multiple of {HEAD_DIM_MULTIPLE}")
+                             f"multiple of {multiple}")
         if self.kv_dtype not in ("", "float32", "bfloat16", "int8", "fp8"):
             raise ValueError(
                 f"unsupported kv_dtype {self.kv_dtype!r}; expected one of "

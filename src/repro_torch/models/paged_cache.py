@@ -1,4 +1,4 @@
-"""Paged KV cache (vLLM PagedAttention analogue, PyTorch), float pools.
+"""Paged KV cache (vLLM PagedAttention analogue, PyTorch).
 
 Physical storage is a page pool per layer; sequences map to pages through a
 block table, so slot memory is allocated on demand and freed on completion.
@@ -20,24 +20,62 @@ element (padding row, unmapped -1 page, inactive row) to that page, so a
 pool write is one index_copy_ with no device->host sync. Gathers clamp
 indices where the JAX package uses mode="clip".
 
-Quantized pools (int8/fp8) and their writers are not ported yet.
+Quantized pools (cfg.kv_dtype int8 / fp8) store each value as
+round(x / scale) with one f32 scale per (page, kv head), in a scale tensor
+(n_pages + 1, n_kv) beside each pool whose last row is the scratch page's.
+Writes requantize whole pages: dequantize each touched page, overlay the new
+tokens in f32, take the abs-max over the positions that hold a token, and
+store page and scale together (`apply_quant_write`, with a `QuantPlan` built
+once per model call). The pools are written through a uint8 view, since
+PyTorch indexes no float8 tensor in place on the CPU; the same code runs on
+the card. Reads dequantize inside the `_quant` kernels on a CUDA tensor and
+through `gather_sequence_dequant` on a CPU tensor.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.models.layers import TORCH_DTYPES
 
 
+KV_QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
 def kv_storage_dtype(kv_dtype: str) -> torch.dtype:
     """torch dtype a paged pool stores for a resolved kv_dtype string."""
-    if kv_dtype in ("int8", "fp8"):
-        raise NotImplementedError(
-            "quantized KV pools wait for the quantized-pool slice")
+    if kv_dtype == "int8":
+        return torch.int8
+    if kv_dtype == "fp8":
+        return torch.float8_e4m3fn
     return TORCH_DTYPES[kv_dtype]
+
+
+def quant_scale(amax: torch.Tensor, kv_dtype: str) -> torch.Tensor:
+    """Per-(page, kv-head) scale from the abs-max of its valid positions."""
+    return torch.where(amax > 0, amax / KV_QMAX[kv_dtype],
+                       torch.ones_like(amax))
+
+
+def _quantize(x: torch.Tensor, scale: torch.Tensor, kv_dtype: str
+              ) -> torch.Tensor:
+    """x: f32 (..., page, kv, hd); scale: (..., kv) -> storage dtype. Both
+    casts round half to even, as the JAX package's do. x / scale stays
+    within +-448 for fp8 (the scale is amax / 448), where PyTorch's
+    saturating cast and ml_dtypes' agree."""
+    y = x / scale[..., None, :, None]
+    if kv_dtype == "int8":
+        return torch.clamp(torch.round(y), -127.0, 127.0).to(torch.int8)
+    return y.to(torch.float8_e4m3fn)
+
+
+def _dequant_pages(pages: torch.Tensor, scales: torch.Tensor,
+                   idx: torch.Tensor) -> torch.Tensor:
+    """Pages `idx` of a quantized pool as f32 (..., page, kv, hd)."""
+    g = pages.view(torch.uint8)[idx].view(pages.dtype).float()
+    return g * scales[idx][..., None, :, None]
 
 
 def gather_sequence(pages: torch.Tensor, block_table: torch.Tensor
@@ -47,6 +85,16 @@ def gather_sequence(pages: torch.Tensor, block_table: torch.Tensor
     must be masked by `lengths` downstream."""
     idx = block_table.clamp(min=0).long()
     g = pages[idx]                                   # (B, P, page, kv, hd)
+    B, P, page, kv, hd = g.shape
+    return g.reshape(B, P * page, kv, hd)
+
+
+def gather_sequence_dequant(pages: torch.Tensor, scales: torch.Tensor,
+                            block_table: torch.Tensor) -> torch.Tensor:
+    """`gather_sequence` for a quantized pool: dequantize per (page, head)
+    on read, returning contiguous f32 (B, P*page, n_kv, hd). scales:
+    (n_pages, n_kv) f32."""
+    g = _dequant_pages(pages, scales, block_table.clamp(min=0).long())
     B, P, page, kv, hd = g.shape
     return g.reshape(B, P * page, kv, hd)
 
@@ -154,10 +202,151 @@ def write_prompt_ragged(pages_k: torch.Tensor, pages_v: torch.Tensor,
     apply_write(pages_v, dest, new_v.reshape(R * C, *new_v.shape[2:]))
 
 
+# ---------------------------------------------------------------------------
+# Quantized writes: whole touched pages are rewritten. A QuantPlan lists the
+# pages one model call touches and the masks its writes share across
+# layers; `apply_quant_write` applies it to one layer's pool and scales.
+# ---------------------------------------------------------------------------
+
+class QuantPlan(NamedTuple):
+    read: torch.Tensor      # (N,) page each rewrite starts from
+    dest: torch.Tensor      # (N,) page it is stored to (scratch: dropped)
+    src: torch.Tensor       # (N, page) row of the call's new K/V rows
+    inchunk: torch.Tensor   # (N, page) position takes a new token
+    valid: torch.Tensor     # (N, page) position holds a token afterwards
+
+
+def token_quant_plan(block_table: torch.Tensor, lengths: torch.Tensor,
+                     pages: torch.Tensor,
+                     active: Optional[torch.Tensor] = None) -> QuantPlan:
+    """One token per slot at its current length (`write_token_quant`): each
+    slot's tail page, with positions past the new token zeroed out of the
+    abs-max and the stored page. Unmapped (-1) and inactive rows drop."""
+    n_pages, page_size = pages.shape[0], pages.shape[1]
+    P = block_table.shape[1]
+    pos = lengths.long()
+    col = (pos // page_size).clamp(0, P - 1)
+    page_of = torch.gather(block_table, 1, col[:, None])[:, 0].long()
+    off = pos % page_size
+    keep = page_of >= 0
+    if active is not None:
+        keep = keep & active
+    dest = torch.where(keep, page_of, n_pages - 1)
+    ar = torch.arange(page_size, device=pos.device)
+    src = torch.arange(pos.shape[0], device=pos.device)[:, None].expand(
+        -1, page_size)
+    return QuantPlan(dest, dest, src, ar[None, :] == off[:, None],
+                     ar[None, :] <= off[:, None])
+
+
+def prompt_quant_plan(block_rows: torch.Tensor, offsets: torch.Tensor,
+                      lens: torch.Tensor, C: int, pages: torch.Tensor
+                      ) -> QuantPlan:
+    """R rows of C chunk tokens at offsets[r].. with lens[r] valid
+    (`write_prompt_ragged_quant`): the C // page + 2 pages a chunk can
+    touch, per row. Tokens earlier chunks placed on the first touched page
+    are dequantized, merged and requantized under the page's new scale.
+    Touched pages past the block table read as unmapped. (The JAX package's
+    single-slot writer clips them to the last column instead; the two
+    differ only for a chunk that overruns its table, which the engine never
+    writes.)"""
+    n_pages, page_size = pages.shape[0], pages.shape[1]
+    R, P = block_rows.shape
+    dev = block_rows.device
+    T = C // page_size + 2
+    offsets, lens = offsets.long(), lens.long()
+    logical = (offsets // page_size)[:, None] + torch.arange(T, device=dev)
+    page_ids = torch.gather(block_rows, 1, logical.clamp(max=P - 1)).long()
+    page_ids = torch.where(logical < P, page_ids, -1)
+    kpos = logical[:, :, None] * page_size + torch.arange(page_size,
+                                                          device=dev)
+    chunk_idx = kpos - offsets[:, None, None]                  # (R, T, pg)
+    inchunk = (chunk_idx >= 0) & (chunk_idx < lens[:, None, None])
+    valid = (kpos < (offsets + lens)[:, None, None]) \
+        & (page_ids >= 0)[:, :, None]
+    src = torch.arange(R, device=dev)[:, None, None] * C \
+        + chunk_idx.clamp(0, C - 1)
+    writes = inchunk.any(dim=2) & (page_ids >= 0)
+    dest = torch.where(writes, page_ids, n_pages - 1)
+    N = R * T
+    return QuantPlan(page_ids.clamp(min=0).reshape(N), dest.reshape(N),
+                     src.reshape(N, page_size),
+                     inchunk.reshape(N, page_size),
+                     valid.reshape(N, page_size))
+
+
+def apply_quant_write(pages: torch.Tensor, scales: torch.Tensor,
+                      plan: QuantPlan, new: torch.Tensor, kv_dtype: str
+                      ) -> None:
+    """Rewrite the plan's pages of one layer's quantized pool in place.
+
+    pages: (n_pages, page, kv, hd) int8 / float8_e4m3fn, the last page
+    scratch; scales: (n_pages, kv) f32; new: (M, kv, hd) the call's new K
+    or V rows, indexed by `plan.src`."""
+    deq = _dequant_pages(pages, scales, plan.read)       # (N, pg, kv, hd)
+    deq = torch.where(plan.inchunk[:, :, None, None], new.float()[plan.src],
+                      deq)
+    deq = torch.where(plan.valid[:, :, None, None], deq, 0.0)
+    amax = deq.abs().amax(dim=(1, 3))                     # (N, kv)
+    scale = quant_scale(amax, kv_dtype)
+    pages.view(torch.uint8).index_copy_(
+        0, plan.dest, _quantize(deq, scale, kv_dtype).view(torch.uint8))
+    scales.index_copy_(0, plan.dest, scale)
+
+
+def write_token_quant(pages_k: torch.Tensor, pages_v: torch.Tensor,
+                      scales_k: torch.Tensor, scales_v: torch.Tensor,
+                      block_table: torch.Tensor, lengths: torch.Tensor,
+                      new_k: torch.Tensor, new_v: torch.Tensor,
+                      kv_dtype: str,
+                      active: Optional[torch.Tensor] = None) -> None:
+    """`write_token` for a quantized pool, in place: requantize each slot's
+    tail page. The tail page is always uniquely owned (COW copies partial
+    tails eagerly), so rewriting the whole page never clobbers a sibling.
+    new_*: (B, 1, kv, hd)."""
+    plan = token_quant_plan(block_table, lengths, pages_k, active)
+    apply_quant_write(pages_k, scales_k, plan, new_k[:, 0], kv_dtype)
+    apply_quant_write(pages_v, scales_v, plan, new_v[:, 0], kv_dtype)
+
+
+def write_prompt_quant(pages_k: torch.Tensor, pages_v: torch.Tensor,
+                       scales_k: torch.Tensor, scales_v: torch.Tensor,
+                       block_row: torch.Tensor, new_k: torch.Tensor,
+                       new_v: torch.Tensor, prompt_len, kv_dtype: str,
+                       offset=0) -> None:
+    """`write_prompt` for a quantized pool, in place. new_*: (1, S, kv, hd)
+    right-padded; prompt_len valid tokens written at offset.."""
+    dev = block_row.device
+    offs = torch.as_tensor(offset, dtype=torch.int32, device=dev).reshape(1)
+    lens = torch.as_tensor(prompt_len, dtype=torch.int32,
+                           device=dev).reshape(1)
+    S = new_k.shape[1]
+    plan = prompt_quant_plan(block_row[None], offs, lens, S, pages_k)
+    apply_quant_write(pages_k, scales_k, plan, new_k[0], kv_dtype)
+    apply_quant_write(pages_v, scales_v, plan, new_v[0], kv_dtype)
+
+
+def write_prompt_ragged_quant(pages_k: torch.Tensor, pages_v: torch.Tensor,
+                              scales_k: torch.Tensor, scales_v: torch.Tensor,
+                              block_rows: torch.Tensor, new_k: torch.Tensor,
+                              new_v: torch.Tensor, lens: torch.Tensor,
+                              offsets: torch.Tensor, kv_dtype: str) -> None:
+    """`write_prompt_ragged` for a quantized pool, in place: R slots'
+    chunks in one shot. Distinct slots own distinct pages, so the flattened
+    (R * touched) page rewrite never collides across rows."""
+    R, C = new_k.shape[0], new_k.shape[1]
+    plan = prompt_quant_plan(block_rows, offsets, lens, C, pages_k)
+    apply_quant_write(pages_k, scales_k, plan,
+                      new_k.reshape(R * C, *new_k.shape[2:]), kv_dtype)
+    apply_quant_write(pages_v, scales_v, plan,
+                      new_v.reshape(R * C, *new_v.shape[2:]), kv_dtype)
+
+
 def copy_page(pages: torch.Tensor, src: int, dst: int) -> None:
     """Copy one physical page across all layers of a segment's pool, in
-    place. pages: (count, n_pages, page, kv, hd). src == dst is a no-op,
-    used when a fork has no partial tail page to duplicate."""
+    place. pages: (count, n_pages, page, kv, hd), or a scale tensor
+    (count, n_pages, kv). src == dst is a no-op, used when a fork has no
+    partial tail page to duplicate."""
     if src != dst:
         pages[:, dst].copy_(pages[:, src])
 

@@ -16,9 +16,10 @@ Params: {"embed": {"tok", "unembed"}, "segments": [[layer, ...], ...],
 weight layout). The cache is {"lengths": (B,) int32, "block_table": (B, P)
 int32, "segments": [{"k_pages", "v_pages": (count, n_pages + 1, page, n_kv,
 hd)}]}, the last page of each pool a scratch page that dropped writes land
-in (see paged_cache.py). The dense cache is {"lengths": (B,) int32,
-"segments": [{"k", "v": (count, B, max_len, n_kv, hd)}]}. Every entry point
-updates its cache in place and returns it.
+in (see paged_cache.py); a quantized pool (cfg.kv_quantized) adds
+"k_scale", "v_scale": (count, n_pages + 1, n_kv) f32. The dense cache is
+{"lengths": (B,) int32, "segments": [{"k", "v": (count, B, max_len, n_kv,
+hd)}]}. Every entry point updates its cache in place and returns it.
 """
 from __future__ import annotations
 
@@ -294,6 +295,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
                        takes dropped writes
       block_table:     (batch, max_pages_per_seq) int32, -1 = unmapped
       lengths:         (batch,) int32
+
+    cfg.kv_quantized stores the pools as int8 / float8_e4m3fn and adds the
+    per-(page, kv head) f32 scales k_scale/v_scale: (count, n_pages + 1,
+    n_kv), initialised to ones so unwritten pages dequantize to zeros.
     """
     check_paged_supported(cfg)
     hd = cfg.resolved_head_dim
@@ -301,8 +306,13 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
     segs = []
     for _, count in segments_of(cfg):
         shape = (count, n_pages + 1, page_size, cfg.n_kv_heads, hd)
-        segs.append({"k_pages": torch.zeros(shape, dtype=adt, device=device),
-                     "v_pages": torch.zeros(shape, dtype=adt, device=device)})
+        seg = {"k_pages": torch.zeros(shape, dtype=adt, device=device),
+               "v_pages": torch.zeros(shape, dtype=adt, device=device)}
+        if cfg.kv_quantized:
+            for k in ("k_scale", "v_scale"):
+                seg[k] = torch.ones(shape[:2] + (cfg.n_kv_heads,),
+                                    dtype=torch.float32, device=device)
+        segs.append(seg)
     return {"lengths": torch.zeros(batch, dtype=torch.int32, device=device),
             "block_table": torch.full((batch, max_pages_per_seq), -1,
                                       dtype=torch.int32, device=device),
@@ -310,9 +320,14 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
 
 
 def _pools(cache: dict):
+    """Each attention layer's (k_pages, v_pages, k_scales, v_scales); the
+    scales are None for a float pool."""
     for seg in cache["segments"]:
         for i in range(seg["k_pages"].shape[0]):
-            yield seg["k_pages"][i], seg["v_pages"][i]
+            ks, vs = seg.get("k_scale"), seg.get("v_scale")
+            yield (seg["k_pages"][i], seg["v_pages"][i],
+                   None if ks is None else ks[i],
+                   None if vs is None else vs[i])
 
 
 def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -323,7 +338,8 @@ def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     pages for `prompt_len` tokens: the layers run `_prefill_block` as dense
     prefill does, and each writes its K/V at positions [0, prompt_len)
     through the block table (the padding goes to the scratch page). Sets
-    lengths[slot] = prompt_len. Returns (logits (1, V), cache)."""
+    lengths[slot] = prompt_len; a quantized pool requantizes the pages
+    the prompt covers. Returns (logits (1, V), cache)."""
     check_paged_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     S = x.shape[1]
@@ -331,17 +347,25 @@ def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                              else [int(prompt_len)], x.device)
     rope = _rope(cfg, torch.arange(S, device=x.device)[None])
     row = cache["block_table"][slot]
-    dest = pc.prompt_write_plan(row[None], torch.zeros_like(plen), plen, S,
-                                cache["segments"][0]["k_pages"][0])
+    pages = cache["segments"][0]["k_pages"][0]
+    offs = torch.zeros_like(plen)
+    if cfg.kv_quantized:
+        plan = pc.prompt_quant_plan(row[None], offs, plen, S, pages)
+    else:
+        dest = pc.prompt_write_plan(row[None], offs, plen, S, pages)
 
-    def writer(kp, vp):
+    def writer(kp, vp, ks, vs):
         def write(k, v):
-            pc.apply_write(kp, dest, k[0])
-            pc.apply_write(vp, dest, v[0])
+            if cfg.kv_quantized:
+                pc.apply_quant_write(kp, ks, plan, k[0], cfg.kv_dtype)
+                pc.apply_quant_write(vp, vs, plan, v[0], cfg.kv_dtype)
+            else:
+                pc.apply_write(kp, dest, k[0])
+                pc.apply_write(vp, dest, v[0])
         return write
 
-    for layer, (kp, vp) in zip(_layers(params), _pools(cache)):
-        x = _prefill_block(cfg, layer, x, rope, plen, writer(kp, vp))
+    for layer, pools in zip(_layers(params), _pools(cache)):
+        x = _prefill_block(cfg, layer, x, rope, plen, writer(*pools))
     logits = _logits_at(cfg, params, x, plen)
     cache["lengths"][slot] = plen[0]
     return logits, cache
@@ -365,10 +389,10 @@ def prefill_chunk_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     call = attn_lib.chunk_call(cfg, row[None], offset, chunk_len, C,
                                cache["segments"][0]["k_pages"][0],
                                live_pages)
-    for layer, (kp, vp) in zip(_layers(params), _pools(cache)):
+    for layer, (kp, vp, ks, vs) in zip(_layers(params), _pools(cache)):
         h = attn_lib.attention_prefill_chunk_paged(
             cfg, layer["attn"], norm(cfg, layer["norm1"], x), kp, vp, row,
-            call.offsets, call.lens, call=call)
+            call.offsets, call.lens, call=call, k_scales=ks, v_scales=vs)
         x = _mlp_residual(cfg, layer, x + h)
     logits = _logits_at(cfg, params, x, call.lens)
     cache["lengths"][slot] = (call.offsets + call.lens)[0]
@@ -400,10 +424,11 @@ def prefill_ragged_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     call = attn_lib.chunk_call(cfg, block_rows, offsets, lens, C,
                                cache["segments"][0]["k_pages"][0],
                                live_pages)
-    for layer, (kp, vp) in zip(_layers(params), _pools(cache)):
+    for layer, (kp, vp, ks, vs) in zip(_layers(params), _pools(cache)):
         h = attn_lib.attention_prefill_ragged_paged(
             cfg, layer["attn"], norm(cfg, layer["norm1"], x), kp, vp,
-            block_rows, call.offsets, call.lens, call=call)
+            block_rows, call.offsets, call.lens, call=call, k_scales=ks,
+            v_scales=vs)
         x = _mlp_residual(cfg, layer, x + h)
     logits = _logits_at(cfg, params, x, call.lens)
     # padding rows target index `batch` of a one-longer copy and drop
@@ -432,10 +457,10 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     call = attn_lib.decode_call(cfg, table, lengths,
                                 cache["segments"][0]["k_pages"][0],
                                 live_pages, active)
-    for layer, (kp, vp) in zip(_layers(params), _pools(cache)):
+    for layer, (kp, vp, ks, vs) in zip(_layers(params), _pools(cache)):
         h = attn_lib.attention_decode_paged(
             cfg, layer["attn"], norm(cfg, layer["norm1"], x), kp, vp, table,
-            lengths, call=call)
+            lengths, call=call, k_scales=ks, v_scales=vs)
         x = _mlp_residual(cfg, layer, x + h)
     x = norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)[:, 0]
@@ -448,14 +473,15 @@ def fork_slot_paged(cfg: ModelConfig, cache: dict, src_slot: int,
                     ) -> dict:
     """Device-side state duplication behind copy-on-write prefix sharing:
     copy the partial tail page of every attention layer (tail_src_page ==
-    tail_dst_page is a no-op when the prefix is page-aligned), then mirror
-    the source row's cached length. Also serves plain COW page copies: call
+    tail_dst_page is a no-op when the prefix is page-aligned), with its
+    scales in a quantized pool, then mirror the source row's cached
+    length. Also serves plain COW page copies: call
     with src_slot == dst_slot and the (old, new) page pair from
     `PageAllocator.cow_page`."""
     check_paged_supported(cfg)
     for seg in cache["segments"]:
-        pc.copy_page(seg["k_pages"], tail_src_page, tail_dst_page)
-        pc.copy_page(seg["v_pages"], tail_src_page, tail_dst_page)
+        for leaf in seg.values():
+            pc.copy_page(leaf, tail_src_page, tail_dst_page)
     cache["lengths"][dst_slot] = cache["lengths"][src_slot]
     return cache
 

@@ -13,7 +13,10 @@ The port of the JAX package's `serving/engine.py`. Two KV backends
       loop ingests it in chunks, batched ragged over every ingesting slot;
       with `prefill_chunk == 0` the prompt is prefilled in one call
       (`transformer.prefill_paged`). `generate_fanout` prefills a shared
-      prefix once and forks copy-on-write block-table rows off it.
+      prefix once and forks copy-on-write block-table rows off it. The
+      pool stores `cfg.kv_dtype`: the compute dtype by default, another
+      float dtype, or int8 / fp8 with a scale per (page, kv head)
+      (`cfg.with_(kv_dtype="int8")`; paged backend only).
 Dense and paged give the same tokens on the same request stream, and
 monolithic and chunked ingest the same to float32 rounding.
 
@@ -35,8 +38,8 @@ full-sequence forward through the flash-attention wrapper.
 What this engine does not do yet raises NotImplementedError naming the
 slice it waits for: `ragged_ingest=False` (the serial one-chunk scheduler),
 `host_swap=True` (host-tier demote/promote; the JAX package's default is
-True, the port's False), quantized or mixed-width `kv_dtype`, and families
-other than dense attention stacks. `warmup()` is not ported.
+True, the port's False), and families other than dense attention stacks.
+`warmup()` is not ported.
 """
 from __future__ import annotations
 
@@ -145,18 +148,13 @@ class InferenceEngine:
             raise NotImplementedError(
                 "host_swap=True (host-tier demote/promote) waits for the "
                 "host-swap slice; eviction replays instead")
-        if cfg.kv_quantized:
-            raise NotImplementedError(
-                f"kv_dtype={cfg.kv_dtype!r} waits for the quantized-pool "
-                "slice (kernels #4-#6)")
-        if cfg.kv_dtype and cfg.kv_dtype != cfg.dtype:
-            raise NotImplementedError(
-                f"kv_dtype={cfg.kv_dtype!r} narrower than the compute dtype "
-                f"{cfg.dtype!r} waits for the quantized-pool slice")
         if kv_backend == "paged":
             transformer.check_paged_supported(cfg)
             cfg.validate_paged(page_size, max_len)
         else:
+            if cfg.kv_quantized:
+                raise ValueError(f"kv_dtype={cfg.kv_dtype!r} needs the paged "
+                                 "backend")
             transformer.check_supported(cfg)
         self.device = runtime.resolve_device(device)
         self.cfg = cfg
@@ -201,7 +199,8 @@ class InferenceEngine:
         self.cancels = 0
         self.deadline_cancels = 0
         # paged: decode/ingest KV read traffic in bytes (pages touched per
-        # step x per-page pool bytes across every attention layer)
+        # step x per-page pool bytes across every attention layer, scales
+        # of a quantized pool included)
         self.kv_bytes_read = 0
         # chunked ingest is the paged backend's; a dense engine prefills
         # monolithically whatever cfg.prefill_chunk says

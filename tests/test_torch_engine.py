@@ -2,8 +2,10 @@
 the JAX package's engine with the same prefill_chunk and weights, and the
 port's own invariants: batched ragged ingest == one row at a time, fan-out
 == independent submissions, eviction-replay == uninterrupted, and cancel
-leaves survivors unchanged. The options the port does not serve yet raise."""
+leaves survivors unchanged. The options the port does not serve yet raise,
+and a dense engine refuses a quantized pool."""
 import pytest
+import torch
 
 from _torch_common import (PROMPTS, TINY, assert_same_replay, jax_config,
                            params_pair)
@@ -139,12 +141,30 @@ def test_unsupported_options_raise(params, kw, chunk):
         _engine(tp, chunk=chunk, **kw)
 
 
-@pytest.mark.parametrize("kv_dtype", ["int8", "fp8", "bfloat16"])
-def test_unsupported_kv_dtypes_raise(params, kv_dtype):
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_dense_backend_rejects_quantized_kv(params, kv_dtype):
+    """A quantized pool needs pages (the JAX package asserts the same)."""
     _, tp = params
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(TINY.with_(prefill_chunk=16, kv_dtype=kv_dtype), tp,
-                        device="cpu")
+    with pytest.raises(ValueError):
+        InferenceEngine(TINY.with_(kv_dtype=kv_dtype), tp,
+                        kv_backend="dense", device="cpu")
+
+
+@pytest.mark.parametrize("chunk", [0, 16])
+def test_bf16_pool_under_f32_compute_matches_jax(params, chunk):
+    """A float pool narrower than the compute dtype (writes cast to bf16,
+    reads compute in f32): greedy tokens equal the JAX engine's. Logprobs
+    are not compared: the JAX package's plain read sums the bf16 values in
+    bf16, the port's in f32."""
+    jp, tp = params
+    cfg = TINY.with_(prefill_chunk=chunk, kv_dtype="bfloat16")
+    want = JEngine(jax_config(cfg), jp, kv_backend="paged", max_batch=3,
+                   max_len=128, page_size=16).generate(PROMPTS, max_new=12)
+    eng = InferenceEngine(cfg, tp, max_batch=3, max_len=128, page_size=16,
+                          device="cpu")
+    assert eng.cache["segments"][0]["k_pages"].dtype == torch.bfloat16
+    got = eng.generate(PROMPTS, max_new=12)
+    assert [t for t, _ in got] == [t for t, _ in want]
 
 
 def test_default_device_is_the_card(params):
