@@ -18,37 +18,54 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      wrappers over a bf16 pool under a float32 query; for the dense decode
      kernel ragged lengths from 1 to S with NaN past each length and a slot
      of length 0; for the flash kernel window 0/64, softcap 0/30, causal
-     and not, S of 200 and 300; a float32 query at rtol=atol=2e-5 and
-     bfloat16 at rtol=atol=2e-2;
+     and not, S of 200 and 300; zamba2's attention (head_dim 80, q_per_kv
+     1) through the paged, dense-decode, flash and int8 decode kernels; a
+     float32 query at rtol=atol=2e-5 and bfloat16 at rtol=atol=2e-2; the
+     SSD scan on the JAX kernel test's cases, ragged S (37, 1000),
+     TINY_EDGE_C's and zamba2's heads and an initial state at
+     rtol=atol=1e-4; RMSNorm in float32 and bfloat16 at D 96 to 5120 and
+     row counts no block divides;
   3. each kernel's time at the serving shapes of qwen3-8b and qwen2-1.5b
      (CUDA events, median of 21 runs, L2 flushed before each), beside its
      bound, its plain version's time and scaled_dot_product_attention as a
      yardstick (over the gathered KV for the paged kernels, dequantized for
      the `_quant` ones over an int8 pool, with a length mask over the cache
-     for the dense decode, causal for flash);
+     for the dense decode, causal for flash); the SSD scan at zamba2's
+     prefill shapes (1 x 256 and 1 x 1024 tokens; no single PyTorch call
+     computes it) and RMSNorm over 1024 rows of qwen3-8b's and zamba2's
+     widths beside `torch.nn.functional.rms_norm`;
   4. the TINY test config through the port's dense, monolithic paged and
      chunked paged engines on the card and on the CPU: greedy tokens
      equal, logprobs within rtol 1e-4, atol 1e-5; dense and monolithic
      paged give the same tokens on the card; then the paged engines over
      int8 and fp8 pools, logprobs within atol 1e-2 (a float-noise rounding
      flip in a requantized page moves a value by a whole quantization
-     step);
-  5. at full width — qwen3-8b in the cloud, qwen2-1.5b at the edge, random
-     bf16 weights from a seed: the PICE pipeline on chunked paged engines
-     (three corpus requests, and one more with the scheduler's decision
-     pinned to progressive if none of them went progressive), the same on
-     chunked paged engines over int8 pools, the same pipeline on dense
-     engines over the same weight tensors (two requests), one batch each on monolithic paged qwen3-8b engines
-     over a bf16 and an fp8 pool, the int8 pool's KV read bytes against the
-     bf16 pool's on one batch, and `score()` of a 1024-token sequence on
-     each model; every kernel's launch counter is set to 0 just before
-     each of these paths and read just after;
+     step); then TINY_EDGE_C and zamba2 cut to 4 layers (float32) on the
+     dense and paged engines at the first tolerance, a fan-out whose late
+     forks must match its early ones, and the 4-layer zamba2 over an int8
+     pool;
+  5. at full width — qwen3-8b in the cloud, qwen2-1.5b and zamba2-2.7b at
+     the edge, random bf16 weights from a seed: the PICE pipeline on paged
+     engines (chunked for the attention stacks; zamba2 prefills
+     monolithically, and with an ensemble of 2 both edges expand every
+     progressive request; three corpus requests, and one more with the
+     scheduler's decision pinned to progressive if none of them went
+     progressive), the same on chunked paged engines over int8 pools
+     (qwen3-8b, qwen2-1.5b), the same pipeline on dense engines over the
+     same weight tensors (two requests), one batch each on monolithic
+     paged qwen3-8b engines over a bf16 and an fp8 pool and on the paged
+     zamba2 engine, the int8 pool's KV read bytes against the bf16 pool's
+     on one batch, and `score()` of a 1024-token sequence on each model;
+     every kernel's launch counter is set to 0 just before each of these
+     paths and read just after;
   6. where each full-width engine's time goes (chunked paged qwen3-8b over
-     a bf16 and an int8 pool, qwen2-1.5b, dense qwen3-8b): host wall time
-     against device busy time by kernel (torch.profiler) on a short batch,
-     and the host's cudaLaunchKernel calls per model call;
+     a bf16 and an int8 pool, qwen2-1.5b, dense qwen3-8b, paged zamba2):
+     host wall time against device busy time by kernel (torch.profiler) on
+     a short batch, and the host's cudaLaunchKernel calls per model call;
   7. one JSON line of the kernels, the card's name and power limit, and the
      final {"ok": true, ...} line.
+
+Each phase logs the seconds it took.
 
 It raises on the first failure and prints the final line only when every
 phase passed. It needs one CUDA card and the repository's `src/`.
@@ -68,8 +85,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+F32_FLOPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+SCAN_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_kernels.py, SSD scan
 
 
 def log(*args):
@@ -184,7 +203,8 @@ def quant_kernel_cases(torch, gen, dtype, tol):
         for B, Hq, Hkv, hd, page, P in [
                 (3, 8, 2, 32, 8, 6), (2, 4, 4, 24, 16, 4),
                 (4, 12, 2, 128, 32, 8), (3, 8, 4, 16, 16, 5),
-                (8, 32, 8, 128, 32, 16), (66, 12, 2, 128, 8, 3)]:
+                (8, 32, 8, 128, 32, 16), (66, 12, 2, 128, 8, 3),
+                (4, 32, 32, 80, 32, 4)]:
             q, _, _, tbl, lens = decode_case(torch, gen, B, Hq, Hkv, hd, page,
                                              P, dtype, n_pages=1)
             pools = quant_pools(torch, gen, B * P + 2, page, Hkv, hd,
@@ -337,7 +357,8 @@ def phase_kernels_vs_plain(torch):
         for shape in [(3, 8, 2, 32, 8, 6), (2, 4, 4, 24, 16, 4),
                       (4, 12, 2, 128, 32, 8), (3, 8, 4, 32, 16, 5),
                       (8, 32, 8, 128, 32, 16), (2, 16, 4, 64, 32, 3),
-                      (66, 8, 8, 32, 8, 3), (2, 32, 2, 256, 16, 4)]:
+                      (66, 8, 8, 32, 8, 3), (2, 32, 2, 256, 16, 4),
+                      (8, 32, 32, 80, 32, 6)]:
             q, kp, vp, tbl, lens = decode_case(torch, gen, *shape, dtype)
             got = dops.paged_decode_attention(q, kp, vp, tbl, lens)
             torch.cuda.synchronize()
@@ -396,6 +417,68 @@ def phase_kernels_vs_plain(torch):
     n += nm
     log(f"{n} cases passed (float32 query at rtol=atol=2e-5, bfloat16 at "
         f"rtol=atol=2e-2)")
+    ns, nr = ssm_scan_cases(torch, gen), rmsnorm_cases(torch, gen)
+    log(f"{ns} cases of the SSD scan passed (rtol=atol=1e-4), {nr} of "
+        f"RMSNorm (float32 at 2e-5, bfloat16 at 2e-2)")
+
+
+def scan_inputs(torch, gen, Bb, S, H, P, N, initial=False):
+    """tests/test_kernels.py's law: dt = softplus(randn) * 0.1, A =
+    -exp(randn), B and C at 0.3 scale; float32 on the card."""
+    kw = dict(generator=gen, device="cuda")
+    x = torch.randn(Bb, S, H, P, **kw)
+    dt = torch.nn.functional.softplus(torch.randn(Bb, S, H, **kw)) * 0.1
+    A = -torch.exp(torch.randn(H, **kw))
+    B = torch.randn(Bb, S, N, **kw) * 0.3
+    C = torch.randn(Bb, S, N, **kw) * 0.3
+    h0 = torch.randn(Bb, H, P, N, **kw) if initial else None
+    return x, dt, A, B, C, h0
+
+
+def ssm_scan_cases(torch, gen):
+    """#9 against its plain chunked version: the JAX kernel test's cases,
+    ragged S (37, 1000; the plain chunk halves to 37 and to 8 rows),
+    TINY_EDGE_C's heads (H 4, P 64, N 16, chunk 64), zamba2's (H 80, P 64,
+    N 64, chunk 256) at S 1024, and initial states."""
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+    n = 0
+    for Bb, S, H, P, N, chunk, initial in [
+            (2, 64, 3, 8, 16, 16, False), (1, 128, 2, 16, 32, 32, False),
+            (2, 96, 1, 4, 8, 32, False), (2, 37, 4, 64, 16, 64, False),
+            (1, 1000, 4, 64, 16, 64, False), (3, 200, 4, 64, 16, 64, False),
+            (1, 1024, 80, 64, 64, 256, False),
+            (1, 256, 80, 64, 64, 256, True), (2, 100, 3, 8, 16, 32, True)]:
+        x, dt, A, B, C, h0 = scan_inputs(torch, gen, Bb, S, H, P, N, initial)
+        y, h = sops.ssm_scan(x, dt, A, B, C, chunk=chunk, initial_state=h0)
+        torch.cuda.synchronize()
+        yr, hr = sref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk,
+                                      initial_state=h0)
+        assert torch.isfinite(y).all() and torch.isfinite(h).all()
+        torch.testing.assert_close(y, yr, **SCAN_TOL)
+        torch.testing.assert_close(h, hr, **SCAN_TOL)
+        n += 1
+    return n
+
+
+def rmsnorm_cases(torch, gen):
+    """#10 against its plain version: float32 and bfloat16, D from 96 to
+    5120, row counts no block of 8 rows divides."""
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm import ref as rref
+    n = 0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for R, D in [(3, 96), (1000, 128), (37, 1536), (64, 2560),
+                     (5, 4096), (129, 5120)]:
+            x = torch.randn(R, D, generator=gen, device="cuda").to(dtype)
+            scale = torch.randn(D, generator=gen, device="cuda")
+            got = rops.rmsnorm(x, scale, 1e-6)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype
+            torch.testing.assert_close(
+                got.float(), rref.rmsnorm_ref(x, scale, 1e-6).float(), **tol)
+            n += 1
+    return n
 
 
 def dense_kernel_cases(torch, gen, dtype, tol):
@@ -410,7 +493,8 @@ def dense_kernel_cases(torch, gen, dtype, tol):
     # (B, S, Hq, Hkv, hd): lengths from 1 to S, NaN past each, slot 0 empty
     for B, S, Hq, Hkv, hd in [(2, 128, 4, 2, 32), (3, 256, 8, 8, 64),
                               (2, 64, 16, 4, 128), (3, 300, 12, 2, 128),
-                              (3, 200, 6, 1, 24), (8, 1024, 32, 8, 128)]:
+                              (3, 200, 6, 1, 24), (8, 1024, 32, 8, 128),
+                              (4, 300, 32, 32, 80)]:
         lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
         lens[0], lens[-1] = 0, S
         lens = lens.to(torch.int32)
@@ -440,7 +524,8 @@ def dense_kernel_cases(torch, gen, dtype, tol):
     # (B, S, Hq, Hkv, hd) x (causal, window, softcap)
     for B, S, Hq, Hkv, hd in [(2, 128, 4, 2, 32), (1, 256, 8, 8, 64),
                               (2, 64, 4, 1, 16), (1, 512, 2, 2, 128),
-                              (1, 200, 12, 2, 128), (2, 300, 6, 1, 24)]:
+                              (1, 200, 12, 2, 128), (2, 300, 6, 1, 24),
+                              (1, 256, 32, 32, 80)]:
         q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
         k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
         v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
@@ -478,9 +563,9 @@ def device_ms(torch, fn, flush, runs=21):
     return statistics.median(times)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -584,12 +669,76 @@ def phase_timing(torch):
                 bound=bound(nbytes, 4 * hd * Hq * pairs))
     time_dense_kernels(torch, gen, flush, models, rows)
     time_quant_kernels(torch, gen, flush, models, rows)
+    time_ssm_rms_kernels(torch, gen, flush, rows)
     for (name, model), r in rows.items():
         b_ms, b_by = r["bound"]
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         log(f"{name} [{model}: {r['shape']}] kernel {r['ms']:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, sdpa "
-            f"{r['library_ms']:.4f} ms, max_abs_err {r['max_abs_err']:.3g}")
+            f"{b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, library "
+            f"{lib}, max_abs_err {r['max_abs_err']:.3g}")
     return rows
+
+
+def scan_flops(Bb, S, H, P, N):
+    """Flops the SSD recurrence needs, whatever algorithm computes it: per
+    token and head, one multiply-add for each (p, n) of the state update
+    and one for y = C.h, so 4.P.N flops. The chunked form's intra-chunk
+    C.B and W.x products are extra work of the algorithm, not counted."""
+    return 4 * Bb * S * H * P * N
+
+
+def time_ssm_rms_kernels(torch, gen, flush, rows):
+    """#9 at zamba2's prefill (1 x 1024 and 1 x 256 tokens, 80 heads of P
+    64, N 64, float32 as the model feeds it; no single PyTorch call
+    computes the scan), bound by its float32 operations at the card's rate
+    outside the tensor cores, and #10 over 1024 bf16 rows of qwen3-8b's
+    width (4096) and of zamba2's gated norm (5120), beside
+    `torch.nn.functional.rms_norm` (weight cast to bf16 beforehand)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm import ref as rref
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+    H, P, N, chunk = 80, 64, 64, 256
+    for label, S in (("zamba2-2.7b", 1024), ("zamba2-2.7b S=256", 256)):
+        x, dt, A, B, C, _ = scan_inputs(torch, gen, 1, S, H, P, N)
+        run = functools.partial(sops.ssm_scan, x, dt, A, B, C, chunk)
+        plain = functools.partial(sref.ssd_chunked_ref, x, dt, A, B, C,
+                                  chunk)
+        (y, h), (yr, hr) = run(), plain()
+        torch.testing.assert_close(y, yr, **SCAN_TOL)
+        torch.testing.assert_close(h, hr, **SCAN_TOL)
+        err = max((y - yr).abs().max().item(), (h - hr).abs().max().item())
+        sizes = {"x": x.numel(), "y": y.numel(), "dt": dt.numel(),
+                 "A": A.numel(), "B": B.numel(), "C": C.numel(),
+                 "state": h.numel()}
+        nbytes = 4 * sum(sizes.values())
+        flops = scan_flops(1, S, H, P, N)
+        log(f"ssm_scan bound inputs [{label}]: float32 elements {sizes}, "
+            f"{nbytes} B; {flops} flops (4.P.N a token and head)")
+        rows[("ssm_scan", label)] = dict(
+            shape=f"Bb=1 S={S} H={H} P={P} N={N} chunk={chunk} float32",
+            max_abs_err=err, ms=device_ms(torch, run, flush),
+            plain_ms=device_ms(torch, plain, flush), library_ms=None,
+            bound=bound(nbytes, flops, F32_FLOPS_PER_S))
+    R = 1024
+    for label, D in (("qwen3-8b", 4096), ("zamba2-2.7b", 5120)):
+        x = torch.randn(R, D, generator=gen, device="cuda").to(torch.bfloat16)
+        scale = torch.randn(D, generator=gen, device="cuda")
+        run = functools.partial(rops.rmsnorm, x, scale, 1e-6)
+        plain = functools.partial(rref.rmsnorm_ref, x, scale, 1e-6)
+        got, want = run(), plain()
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+        nbytes = 2 * x.numel() * 2 + D * 4
+        rows[("rmsnorm", label)] = dict(
+            shape=f"R={R} D={D} bfloat16",
+            max_abs_err=(got.float() - want.float()).abs().max().item(),
+            ms=device_ms(torch, run, flush),
+            plain_ms=device_ms(torch, plain, flush),
+            library_ms=device_ms(torch, functools.partial(
+                F.rms_norm, x, (D,), scale.to(torch.bfloat16), 1e-6), flush),
+            bound=bound(nbytes, 4 * R * D, F32_FLOPS_PER_S))
 
 
 def time_quant_kernels(torch, gen, flush, models, rows):
@@ -842,6 +991,56 @@ def phase_tiny_parity(torch):
         log(f"paged prefill_chunk={variant[1]} page={variant[2]} "
             f"kv_dtype={variant[3]}: {len(prompts)} requests, greedy tokens "
             f"equal, logprobs within atol 1e-2")
+    ssm_tiny_parity(torch, prompts)
+
+
+def ssm_tiny_parity(torch, prompts):
+    """TINY_EDGE_C and zamba2 cut to 4 layers (the shared block twice),
+    float32, on the dense and paged engines, card against CPU; a fan-out
+    of four identical one-token suffixes on 3 slots, whose late forks must
+    match its early ones; the 4-layer zamba2 over an int8 pool."""
+    from repro_torch.configs.pice_cloud_edge import TINY_EDGE_C
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import InferenceEngine
+    cfgs = {"tiny-edge-c": TINY_EDGE_C.with_(dtype="float32"),
+            "zamba2-4l": get_config("zamba2-2.7b").reduced().with_(
+                n_layers=4, dtype="float32", remat=False)}
+    for name, cfg in cfgs.items():
+        cpu_params = transformer.init_params(cfg, seed=0, device="cpu")
+        cuda_params = _to(cpu_params, "cuda")
+
+        def engine(device, backend, kv_dtype=""):
+            return InferenceEngine(cfg.with_(kv_dtype=kv_dtype),
+                                   cuda_params if device == "cuda"
+                                   else cpu_params, max_batch=3, max_len=128,
+                                   page_size=16, kv_backend=backend,
+                                   device=device)
+        for backend in ("dense", "paged"):
+            got = engine("cuda", backend).generate(prompts, max_new=12)
+            want = engine("cpu", backend).generate(prompts, max_new=12)
+            _same_greedy(torch, got, want, lambda: engine("cpu", backend),
+                         prompts, (name, backend))
+            log(f"{name} {backend}: {len(prompts)} requests, greedy tokens "
+                f"equal, logprobs within rtol 1e-4 atol 1e-5")
+        prefix = [(7 * i) % 200 + 1 for i in range(32)]
+        fan = {dev: engine(dev, "paged").generate_fanout(prefix, [[7]] * 4,
+                                                         max_new=8)
+               for dev in ("cuda", "cpu")}
+        assert all(f == fan["cuda"][0] for f in fan["cuda"]), \
+            "late forks part from early ones"
+        _same_greedy(torch, fan["cuda"], fan["cpu"],
+                     lambda: engine("cpu", "paged"), [prefix + [7]] * 4,
+                     (name, "fan-out"))
+        log(f"{name} fan-out: 4 one-token forks on 3 slots, late forks equal "
+            f"early ones, card equal to CPU")
+    got = engine("cuda", "paged", "int8").generate(prompts, max_new=12)
+    want = engine("cpu", "paged", "int8").generate(prompts, max_new=12)
+    _same_greedy(torch, got, want, lambda: engine("cpu", "paged", "int8"),
+                 prompts, ("zamba2-4l", "int8"), margin=0.05, rtol=0.0,
+                 atol=1e-2)
+    log("zamba2-4l paged kv_dtype=int8: greedy tokens equal, logprobs within "
+        "atol 1e-2")
 
 
 def _same_greedy(torch, got, want, cpu_engine, prompts, what, margin=1e-4,
@@ -890,12 +1089,24 @@ def kernel_counters():
     from repro_torch.kernels.flash_attention import ops as faops
     from repro_torch.kernels.paged_decode_attention import ops as dops
     from repro_torch.kernels.paged_prefill_attention import ops as pops
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.ssm_scan import ops as sops
     return {fn.__name__: fn for fn in (
         dops.paged_decode_attention, pops.paged_prefill_attention_ragged,
         pops.paged_prefill_attention, dops.paged_decode_attention_quant,
         pops.paged_prefill_attention_ragged_quant,
         pops.paged_prefill_attention_quant, ddops.decode_attention,
-        faops.flash_attention)}
+        faops.flash_attention, sops.ssm_scan, rops.rmsnorm)}
+
+
+# the wrappers that launch once per attention layer of a model call
+ATTENTION_KERNELS = ("paged_decode_attention",
+                     "paged_prefill_attention_ragged",
+                     "paged_prefill_attention",
+                     "paged_decode_attention_quant",
+                     "paged_prefill_attention_ragged_quant",
+                     "paged_prefill_attention_quant", "decode_attention",
+                     "flash_attention")
 
 
 def counted(torch, fn):
@@ -935,7 +1146,7 @@ def pin_progressive(scheduler):
 def run_pipeline(torch, engines, n_requests, label):
     """Profile the engines, build the PICE pipeline (qwen3-8b cloud) and
     answer `n_requests` corpus requests, counting kernel launches over the
-    requests. Returns the launches.
+    requests. Returns (the launches, the tokens each engine generated).
 
     The scheduler picks cloud_full or progressive per request from the
     engines' profiled rates, and those vary between calls (the edge's cost
@@ -974,13 +1185,15 @@ def run_pipeline(torch, engines, n_requests, label):
     wall = time.perf_counter() - t0
     log(f"{label} pipeline: {len(modes)} requests in {wall:.2f} s, modes "
         f"{modes}")
+    generated = {}
     for name, e in engines.items():
         toks = e.tokens_generated - before[name][0]
         busy = e.busy_s - before[name][1]
+        generated[name] = toks
         log(f"  {name} ({label}): {toks} tokens in {busy:.2f} s busy "
             f"({toks / max(busy, 1e-9):.1f} tok/s)")
     log(f"  kernel launches on the {label} pipeline run: {launches}")
-    return launches
+    return launches, generated
 
 
 def phase_full_width(torch):
@@ -991,9 +1204,12 @@ def phase_full_width(torch):
     from repro_torch.models import transformer
     from repro_torch.serving import engine as engine_mod
     log("== phase 5: full width (random bf16 weights)")
+    # zamba2 is recurrent: its engines prefill monolithically whatever
+    # prefill_chunk says
     cfgs = {"qwen3-8b": cloud_config().with_(prefill_chunk=128),
             "qwen2-1.5b": edge_configs()["qwen2-1.5b"].with_(
-                prefill_chunk=128)}
+                prefill_chunk=128),
+            "zamba2-2.7b": edge_configs()["zamba2-2.7b"]}
     kw = dict(max_batch=8, max_len=1024, device="cuda")
     engines, dense = {}, {}
     for seed, (name, cfg) in enumerate(cfgs.items()):
@@ -1008,12 +1224,13 @@ def phase_full_width(torch):
                       for seg in dense[name].cache["segments"] for k in seg)
         log(f"{name}: {cfg.param_count() / 1e9:.2f} B params ({cfg.dtype}), "
             f"pool {engines[name].n_pages} pages, dense cache "
-            f"{cache_b / 1e9:.3f} GB, built in {time.perf_counter() - t0:.1f}"
-            f" s")
-    # the same weight tensors over int8 pools
+            f"{cache_b / 1e9:.3f} GB (recurrent states included), prefill "
+            f"chunk {engines[name].prefill_chunk}, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+    # the same weight tensors over int8 pools (the attention stacks)
     quant = {name: engine_mod.InferenceEngine(
-        cfg.with_(kv_dtype="int8"), engines[name].params, page_size=32,
-        name=name, **kw) for name, cfg in cfgs.items()}
+        cfgs[name].with_(kv_dtype="int8"), engines[name].params,
+        page_size=32, name=name, **kw) for name in ("qwen3-8b", "qwen2-1.5b")}
     mono = engine_mod.InferenceEngine(
         cfgs["qwen3-8b"].with_(prefill_chunk=0), engines["qwen3-8b"].params,
         page_size=32, name="qwen3-8b-monolithic", **kw)
@@ -1024,6 +1241,11 @@ def phase_full_width(torch):
     for name, eng in quant.items():
         log(f"{name} int8 pool: {eng._page_kv_bytes} B a page over every "
             f"layer (bf16 pool: {engines[name]._page_kv_bytes} B)")
+    zamba = engines["zamba2-2.7b"]
+    log(f"zamba2-2.7b: {zamba._page_kv_bytes} B a page over its "
+        f"{attention_layers(zamba.cfg)} shared-attention applications; SSD "
+        f"states {state_bytes(zamba, 'ssd')} B, conv states "
+        f"{state_bytes(zamba, 'conv')} B for {kw['max_batch']} slots")
     # every sampled logits row passes token_logprob: count non-finite
     # entries on the device, read once at the end
     nonfinite = torch.zeros((), dtype=torch.int64, device="cuda")
@@ -1036,33 +1258,40 @@ def phase_full_width(torch):
     torch.cuda.reset_peak_memory_stats()
     paths = {}
     try:
-        paths["chunked paged pipeline"] = run_pipeline(torch, engines, 3,
-                                                       "chunked paged")
-        paths["int8 chunked paged pipeline"] = run_pipeline(
+        paths["chunked paged pipeline"], made = run_pipeline(
+            torch, engines, 3, "chunked paged")
+        assert made["zamba2-2.7b"] > 0, "zamba2 expanded nothing"
+        paths["int8 chunked paged pipeline"], _ = run_pipeline(
             torch, quant, 3, "int8 chunked paged")
-        for name in cfgs:
+        for name in quant:
             log(f"  {name} kv_bytes_read on the pipelines: int8 "
                 f"{quant[name].kv_bytes_read} B, bf16 "
                 f"{engines[name].kv_bytes_read} B")
-        paths["dense pipeline"] = run_pipeline(torch, dense, 2, "dense")
+        paths["dense pipeline"], made = run_pipeline(torch, dense, 2, "dense")
+        assert made["zamba2-2.7b"] > 0, "zamba2 expanded nothing"
         for label, eng in (("monolithic paged generate", mono),
-                           ("monolithic paged fp8 generate", mono_fp8)):
+                           ("monolithic paged fp8 generate", mono_fp8),
+                           ("zamba2 monolithic paged generate", zamba)):
             t0 = time.perf_counter()
             _, paths[label] = counted(
                 torch, lambda: eng.generate(profile_prompts(), max_new=32))
-            log(f"{label} qwen3-8b: 4 x 256-token prompts, 32 new tokens "
-                f"each, in {time.perf_counter() - t0:.2f} s; launches "
-                f"{paths[label]}")
+            log(f"{label} {eng.cfg.name}: 4 x 256-token prompts, 32 new "
+                f"tokens each, in {time.perf_counter() - t0:.2f} s; "
+                f"launches {paths[label]}")
         kv_read_ratio(torch, quant["qwen3-8b"], engines["qwen3-8b"])
         seq = [(13 * i) % 251 + 1 for i in range(1024)]
         for name, eng in dense.items():
             (mean, gold), launches = counted(torch, lambda: eng.score(seq))
             paths[f"score {name}"] = launches
             assert math.isfinite(mean) and np.isfinite(gold).all(), name
-            assert launches["flash_attention"] == eng.cfg.n_layers, launches
+            n_attn = attention_layers(eng.cfg)
+            n_mamba = eng.cfg.block_pattern().count("mamba2")
+            assert launches["flash_attention"] == n_attn, launches
+            assert launches["ssm_scan"] == n_mamba, launches
             log(f"score [{name}] of a 1024-token sequence: mean logprob "
                 f"{mean:.4f}, {len(gold)} tokens, flash launches "
-                f"{launches['flash_attention']} = n_layers")
+                f"{launches['flash_attention']} = attention layers, SSD "
+                f"scan launches {launches['ssm_scan']} = Mamba2 layers")
     finally:
         engine_mod.token_logprob = logprob
     assert int(nonfinite) == 0, f"{int(nonfinite)} non-finite logits"
@@ -1077,15 +1306,34 @@ def phase_full_width(torch):
             ("int8 chunked paged pipeline",
              "paged_prefill_attention_ragged_quant"),
             ("int8 chunked paged pipeline", "paged_prefill_attention_quant"),
+            ("chunked paged pipeline", "ssm_scan"),
             ("dense pipeline", "decode_attention"),
+            ("dense pipeline", "ssm_scan"),
             ("monolithic paged generate", "paged_decode_attention"),
             ("monolithic paged fp8 generate",
-             "paged_decode_attention_quant")):
+             "paged_decode_attention_quant"),
+            ("zamba2 monolithic paged generate", "ssm_scan"),
+            ("zamba2 monolithic paged generate", "paged_decode_attention"),
+            ("score zamba2-2.7b", "ssm_scan"),
+            ("score zamba2-2.7b", "flash_attention")):
         assert paths[path][kernel] > 0, f"{kernel} never ran on the {path}"
     return paths, {"qwen3-8b": engines["qwen3-8b"],
                    "qwen3-8b-int8": quant["qwen3-8b"],
                    "qwen2-1.5b": engines["qwen2-1.5b"],
-                   "qwen3-8b-dense": dense["qwen3-8b"]}
+                   "qwen3-8b-dense": dense["qwen3-8b"],
+                   "zamba2-2.7b": zamba}
+
+
+def attention_layers(cfg):
+    """Attention blocks a model call runs (a hybrid's shared block once per
+    application)."""
+    return sum(k in ("attn", "shared_attn") for k in cfg.block_pattern())
+
+
+def state_bytes(eng, key):
+    """Bytes of an engine's recurrent state leaves `key` ("ssd", "conv")."""
+    return sum(seg[key].numel() * seg[key].element_size()
+               for seg in eng.cache["segments"] if key in seg)
 
 
 def kv_read_ratio(torch, quant, ref):
@@ -1110,15 +1358,21 @@ def kv_read_ratio(torch, quant, ref):
 MATMUL_KERNELS = ("nvjet", "gemm", "gemv", "cutlass", "xmma")
 # the device functions of csrc/*.cu, as the profiler names them
 PORT_KERNELS = ("decode_partial", "decode_merge", "paged_prefill_kernel",
-                "flash_kernel")
+                "flash_kernel", "ssd_kernel", "rmsnorm_kernel")
 
 
 def matmul_weight_bytes(cfg, params):
     """Bytes a model call's matmuls must read at least once: every matrix
-    of the layers and the unembedding matrix. The token-embedding table is
-    left out where it is untied: a call gathers only a few of its rows."""
+    of the layers (a hybrid's shared block once per application: it does
+    not fit in L2) and the unembedding matrix. The token-embedding table is
+    left out where it is untied: a call gathers only a few of its rows.
+    Mamba2's conv weights (K x inner) count too; they are 0.1 % of a
+    layer."""
     layers = [t for seg in params["segments"] for layer in seg
               for t in _leaves(layer) if t.dim() >= 2]
+    if "shared" in params:
+        n = cfg.block_pattern().count("shared_attn")
+        layers += [t for t in _leaves(params["shared"]) if t.dim() >= 2] * n
     emb = params["embed"]
     out = emb["tok"] if cfg.tie_embeddings else emb["unembed"]
     return sum(t.numel() * t.element_size() for t in layers + [out])
@@ -1132,49 +1386,70 @@ def _leaves(tree):
         yield tree
 
 
+# New tokens of each engine's profiled batch in phase 6: the rows earlier
+# PRs measured at 32 run 8 (the profiler's trace processing, about a
+# minute an engine at 32, kept the script inside its time).
+PROFILE_DEPTH = {"qwen3-8b-int8": 8, "qwen2-1.5b": 8, "qwen3-8b-dense": 8}
+
+
 def phase_profile(torch, engines):
     """Where an engine's time goes (the bf16 and int8 pools of the chunked
     qwen3-8b engine side by side): 4 requests of a 256-token prompt and
-    32 new tokens, timed on the host clock without the profiler, then the
-    same run under torch.profiler for device time by kernel. Busy share =
+    32 new tokens (PROFILE_DEPTH for the earlier rows), timed on the host
+    clock without the profiler, then the same run under torch.profiler for
+    device time by kernel. Busy share =
     device time / unprofiled wall time (one stream, so kernels do not
     overlap). The matmuls' bound is their weight bytes, read once per model
     call, over the HBM rate; model calls = attention-kernel launches of the
     profiled run / attention layers, plus one call per prompt where the
-    prefill is monolithic (it runs no kernel of the port)."""
+    prefill is monolithic (it runs no attention kernel of the port). A
+    recurrent engine's decode also reads and writes every slot's SSD state
+    each step, logged beside its row."""
     from torch.profiler import ProfilerActivity, profile
-    counters = kernel_counters().values()
+    counters = kernel_counters()
     log("== phase 6: where the time goes (4 x 256-token prompts, 32 new "
-        "tokens each)")
+        "tokens each unless a row says otherwise)")
     prompts = profile_prompts()
     for name, eng in engines.items():
+        new = PROFILE_DEPTH.get(name, 32)
         eng.generate(prompts, max_new=4)                 # warm up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.generate(prompts, max_new=32)
+        eng.generate(prompts, max_new=new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        for fn in counters:
+        for fn in counters.values():
             fn.launches = 0
+        t1 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            eng.generate(prompts, max_new=32)
+            eng.generate(prompts, max_new=new)
             torch.cuda.synchronize()
-        calls = sum(fn.launches for fn in counters) / eng.cfg.n_layers + (
+        t2 = time.perf_counter()
+        averages = prof.key_averages()
+        attn = sum(counters[k].launches for k in ATTENTION_KERNELS)
+        calls = attn / attention_layers(eng.cfg) + (
             0 if eng.prefill_chunk else len(prompts))
         # device-side events only (kernels, copies, memsets): the host ops
         # that launched them repeat the same device time
         kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
+                   for e in averages
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         device_ms = sum(ms for _, ms, _ in kernels)
-        log(f"{name}: wall {wall * 1e3:.1f} ms, device busy "
-            f"{device_ms:.1f} ms ({100 * device_ms / (wall * 1e3):.1f} %), "
-            f"{len(kernels)} kernel kinds")
+        log(f"{name} ({new} new tokens): wall {wall * 1e3:.1f} ms, device "
+            f"busy {device_ms:.1f} ms ({100 * device_ms / (wall * 1e3):.1f} "
+            f"%), {len(kernels)} kernel kinds; the profiled run took "
+            f"{t2 - t1:.1f} s, its averages {time.perf_counter() - t2:.1f} s")
         port_ms = sum(ms for key, ms, _ in kernels
                       if any(k in key for k in PORT_KERNELS))
-        log(f"  the port's attention kernels: {port_ms:.1f} ms "
+        log(f"  the port's kernels: {port_ms:.1f} ms "
             f"({100 * port_ms / device_ms:.1f} % of device time)")
+        if eng.recurrent:
+            ssd = state_bytes(eng, "ssd")
+            log(f"  recurrent decode: {ssd} B of SSD state over "
+                f"{eng.max_batch} slots, read and written each step (at "
+                f"least {2 * ssd / HBM_BYTES_PER_S * 1e3:.3f} ms a step); "
+                f"SSD scan launches {counters['ssm_scan'].launches}")
         mm_ms = sum(ms for key, ms, _ in kernels
                     if any(m in key for m in MATMUL_KERNELS))
         wbytes = matmul_weight_bytes(eng.cfg, eng.params)
@@ -1189,7 +1464,7 @@ def phase_profile(torch, engines):
         # the host side of the same run (the profiler slows it; the split
         # between ops is what it shows)
         host = [(e.key, e.self_cpu_time_total / 1e3, e.count)
-                for e in prof.key_averages()
+                for e in averages
                 if e.device_type == torch.autograd.DeviceType.CPU]
         host_ms = sum(ms for _, ms, _ in host)
         log(f"  host ops: {host_ms:.1f} ms self CPU time in "
@@ -1227,6 +1502,12 @@ SOURCES = {
     "flash_attention": (
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:88"),
+    "ssm_scan": (
+        "src/repro_torch/csrc/ssm_scan.cu",
+        "src/repro/kernels/ssm_scan/kernel.py:76"),
+    "rmsnorm": (
+        "src/repro_torch/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm/kernel.py:25"),
 }
 # the full-width path each kernel's `launches` is read from (phase 5)
 MAIN_PATH = {"paged_decode_attention": "chunked paged pipeline",
@@ -1237,33 +1518,57 @@ MAIN_PATH = {"paged_decode_attention": "chunked paged pipeline",
                  "int8 chunked paged pipeline",
              "paged_prefill_attention_quant": "int8 chunked paged pipeline",
              "decode_attention": "dense pipeline",
-             "flash_attention": "score qwen3-8b"}
+             "flash_attention": "score qwen3-8b",
+             "ssm_scan": "chunked paged pipeline",
+             # no model path calls it, in the JAX package or the port
+             "rmsnorm": None}
+# the timing rows of each kernel (phase 3): the first at the top level of
+# its JSON entry, the second under its own name
+TIMING_ROWS = {"ssm_scan": ("zamba2-2.7b", "zamba2-2.7b S=256"),
+               "rmsnorm": ("qwen3-8b", "zamba2-2.7b")}
 
 
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
-    smi = phase_environment(torch)
-    phase_kernels_vs_plain(torch)
-    timing = phase_timing(torch)
-    phase_tiny_parity(torch)
-    paths, engines = phase_full_width(torch)
-    phase_profile(torch, engines)
+    t_start = time.perf_counter()
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"-- {label} took {time.perf_counter() - t0:.1f} s "
+            f"({time.perf_counter() - t_start:.1f} s in all)")
+        return out
+    smi = timed("phase 1", phase_environment, torch)
+    timed("phase 2", phase_kernels_vs_plain, torch)
+    timing = timed("phase 3", phase_timing, torch)
+    timed("phase 4", phase_tiny_parity, torch)
+    paths, engines = timed("phase 5", phase_full_width, torch)
+    timed("phase 6", phase_profile, torch, engines)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
+        path = MAIN_PATH[name]
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "main_path": MAIN_PATH[name],
-                 "launches": paths[MAIN_PATH[name]][name]}
-        # the top-level numbers are the cloud model's (qwen3-8b); the edge
-        # model's follow under its name
-        for model in ("qwen3-8b", "qwen2-1.5b"):
+                 "replaces": replaces, "main_path": path}
+        if path is None:
+            # on no main path: its launches summed over every phase-5 path
+            entry["launches"] = sum(p[name] for p in paths.values())
+            entry["launches_from"] = "all phase-5 paths"
+        else:
+            entry["launches"] = paths[path][name]
+        # the top-level numbers are the first timing row's (the cloud
+        # model's, qwen3-8b, for attention; zamba2's prefill for the SSD
+        # scan); the second row's follow under its own name
+        first, second = TIMING_ROWS.get(name, ("qwen3-8b", "qwen2-1.5b"))
+        for model in (first, second):
             r = timing[(name, model)]
             nums = {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
-                    "tolerance": BF16_TOL, "ms": r["ms"],
-                    "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                    "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
-            if model == "qwen3-8b":
+                    "tolerance": SCAN_TOL if name == "ssm_scan" else BF16_TOL,
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                    "library_ms": r["library_ms"]}
+            if model == first:
                 entry.update(nums)
             else:
                 entry[model] = nums

@@ -6,9 +6,10 @@ pairing here is qwen3-8b in the cloud with qwen2-1.5b at the edge. TINY_*
 variants are CPU-runnable models used by the tests and the launcher; they keep
 the >=10x size ratio the paper recommends.
 
-The edge fleet of the JAX package also holds xlstm-1.3b, zamba2-2.7b and the
-Mamba2 TINY_EDGE_C; their families (xLSTM, SSM, hybrid) are not ported yet,
-so `edge_configs()` and `TINY_EDGE_CONFIGS` leave them out.
+The full-size edge fleet holds qwen2-1.5b and the Mamba2 hybrid zamba2-2.7b;
+the TINY fleet adds the pure Mamba2 TINY_EDGE_C to the two dense SLMs. The
+JAX package's fleet also holds xlstm-1.3b, whose family (xLSTM) waits for its
+slice, so `edge_configs()` leaves it out.
 """
 from repro_torch.configs.registry import get_config
 from repro_torch.models.config import ModelConfig
@@ -19,7 +20,10 @@ def cloud_config() -> ModelConfig:
 
 
 def edge_configs() -> dict:
-    return {"qwen2-1.5b": get_config("qwen2-1.5b")}
+    return {
+        "qwen2-1.5b": get_config("qwen2-1.5b"),
+        "zamba2-2.7b": get_config("zamba2-2.7b"),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +78,24 @@ TINY_EDGE_B = ModelConfig(
     source="tiny llama-style edge SLM",
 )
 
+TINY_EDGE_C = ModelConfig(
+    name="tiny-edge-c",
+    family="ssm",
+    n_layers=2,
+    d_model=128,
+    n_heads=4,
+    n_kv_heads=4,
+    d_ff=0,
+    vocab_size=256,
+    max_seq_len=2048,
+    ssm_state=16,
+    ssm_chunk=64,
+    remat=False,
+    source="tiny mamba2-style edge SLM (O(1) decode state)",
+)
+
 TINY_EDGE_CONFIGS = {
     "tiny-edge-a": TINY_EDGE_A,
     "tiny-edge-b": TINY_EDGE_B,
+    "tiny-edge-c": TINY_EDGE_C,
 }

@@ -5,8 +5,13 @@ The JAX package stacks each segment's layer params on a leading layer axis
 leaf in float32. The port keeps one dict per layer, 2-D projection weights
 and flat biases (see `models/attention.py`), and each leaf in its working
 dtype: matmul weights, embeddings and biases in `cfg.dtype`, norm scales and
-the length head in float32. Give this module the pytree as numpy arrays
-(`jax.tree.map(np.asarray, params)`), so the port itself never imports JAX.
+the length head in float32. A Mamba2 layer keeps A_log, D, dt_bias and its
+norm scale in float32 (the JAX package casts them to float32 at use) and
+w_in, w_out, conv_w and conv_b in `cfg.dtype`. A hybrid's shared block
+(`ref["shared"]`, unstacked) converts as one layer, and its SHARED_ATTN
+segments, empty in the pytree, become empty lists. Give this module the
+pytree as numpy arrays (`jax.tree.map(np.asarray, params)`), so the port
+itself never imports JAX.
 """
 from __future__ import annotations
 
@@ -16,11 +21,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import runtime
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import SHARED_ATTN, ModelConfig
 from repro_torch.models.layers import compute_dtype
 from repro_torch.models.transformer import check_supported, segments_of
 
-_FLOAT32_LEAVES = ("scale", "q_norm", "k_norm")
+_FLOAT32_LEAVES = ("scale", "q_norm", "k_norm", "A_log", "D", "dt_bias",
+                   "norm_scale")
 
 
 def _leaf(name: str, a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -50,12 +56,14 @@ def params_from_reference(cfg: ModelConfig, ref: Dict[str, Any],
     device = runtime.resolve_device(device)
     dtype = compute_dtype(cfg)
     segments = []
-    for (_, count), stacked in zip(segments_of(cfg), ref["segments"]):
-        segments.append([
+    for (kind, count), stacked in zip(segments_of(cfg), ref["segments"]):
+        segments.append([] if kind == SHARED_ATTN else [
             _convert(_take(stacked, i), dtype, device) for i in range(count)])
     out = {"embed": _convert(ref["embed"], dtype, device),
            "segments": segments,
            "final_norm": _convert(ref["final_norm"], dtype, device)}
+    if "shared" in ref:
+        out["shared"] = _convert(ref["shared"], dtype, device)
     if "length_head" in ref:
         out["length_head"] = torch.from_numpy(
             np.array(ref["length_head"], np.float32)).to(device)

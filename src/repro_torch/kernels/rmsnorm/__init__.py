@@ -1,0 +1,1 @@
+"""Row RMSNorm: CUDA kernel, wrapper and plain version."""

@@ -1,0 +1,46 @@
+"""ctypes launch of the RMSNorm CUDA kernel (`csrc/rmsnorm.cu`): argument
+checks, output allocation, launch on the current stream, and the launch's
+error check."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import runtime
+
+NAME = "rmsnorm"
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float]
+             + [ctypes.c_int] + [ctypes.c_void_p])
+
+
+def _lib():
+    lib = runtime.load(NAME)
+    fn = lib.rmsnorm
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return lib
+
+
+def rmsnorm_cuda(x, scale, eps: float = 1e-6):
+    """x: (..., D) float32 or bfloat16, contiguous; scale: (D,) float32.
+    Rows are read 16 bytes at a time: D a multiple of 4 (float32) or 8
+    (bfloat16), both tensors 16-byte aligned. -> out like x."""
+    if x.dtype not in runtime.Q_DTYPES:
+        raise ValueError(f"rmsnorm takes float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous() or x.dim() < 1:
+        raise ValueError("x must be contiguous, at least 1-D")
+    runtime.check_tensor("scale", scale, 1, (torch.float32,))
+    D = x.shape[-1]
+    per_piece = 16 // x.element_size()
+    if D < 1 or D % per_piece or scale.shape != (D,):
+        raise ValueError(f"D {D} must be a multiple of {per_piece} and match "
+                         f"scale {tuple(scale.shape)}")
+    if x.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("x and scale must start on 16-byte boundaries")
+    out = torch.empty_like(x)
+    lib = _lib()
+    code = lib.rmsnorm(runtime.ptr(x), runtime.ptr(scale), runtime.ptr(out),
+                       x.numel() // D, D, float(eps),
+                       runtime.dtype_code(x.dtype), runtime.stream_ptr())
+    runtime.check(lib, NAME, code)
+    return out

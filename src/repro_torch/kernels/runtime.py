@@ -33,7 +33,7 @@ from repro_torch.models.config import (HEAD_DIM_MULTIPLE, MAX_HEAD_DIM,
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("paged_decode_attention", "paged_prefill_attention",
-           "decode_attention", "flash_attention")
+           "decode_attention", "flash_attention", "ssm_scan", "rmsnorm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,0 +1,96 @@
+"""Plain PyTorch versions of the Mamba2 SSD scan, written as the JAX
+package's oracle (`repro/kernels/ssm_scan/ref.py`) is.
+
+Recurrence (per batch b, head h):
+    h_t = exp(dt_t * A_h) * h_{t-1} + dt_t * B_t (outer) x_t
+    y_t = C_t^T h_t
+with h in R^{P x N} (head_dim x state), B/C shared across heads (n_groups=1).
+
+  ssd_sequential_ref — the literal per-token scan (ground truth for tests)
+  ssd_chunked_ref    — the chunked parallel form (the models' plain path on
+                       the CPU, and the CUDA kernel's plain version)
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _f32(*ts):
+    return tuple(t.float() for t in ts)
+
+
+def ssd_sequential_ref(x, dt, A, B, C, initial_state=None):
+    """x: (Bb,S,H,P), dt: (Bb,S,H), A: (H,), B/C: (Bb,S,N).
+
+    Returns y (Bb,S,H,P), final_state (Bb,H,P,N). All math in f32."""
+    Bb, S, H, P = x.shape
+    N = B.shape[-1]
+    x, dt, A, B, C = _f32(x, dt, A, B, C)
+    h = (x.new_zeros((Bb, H, P, N))
+         if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, t] * A[None])                       # (Bb,H)
+        upd = (dt[:, t, :, None] * x[:, t])[..., None] \
+            * B[:, t, None, None, :]
+        h = h * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, C[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def chunk_len(S: int, chunk: int) -> int:
+    """The JAX package's chunk for S tokens: `chunk` (at most S), halved
+    until it divides S."""
+    Q = min(chunk, S)
+    while S % Q:
+        Q //= 2
+    return Q
+
+
+def ssd_chunked_ref(x, dt, A, B, C, chunk: int = 128, initial_state=None):
+    """Chunked-parallel SSD. Same signature and semantics as
+    `ssd_sequential_ref`."""
+    Bb, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = chunk_len(S, chunk)
+    nc = S // Q
+    x, dt, A, B, C = _f32(x, dt, A, B, C)
+
+    xc = x.reshape(Bb, nc, Q, H, P)
+    dtc = dt.reshape(Bb, nc, Q, H)
+    Bc = B.reshape(Bb, nc, Q, N)
+    Cc = C.reshape(Bb, nc, Q, N)
+
+    dA = dtc * A[None, None, None, :]                  # (Bb,nc,Q,H) log-decays
+    ca = torch.cumsum(dA, dim=2)                       # inclusive cumsum
+    ca_end = ca[:, :, -1:]                             # (Bb,nc,1,H)
+
+    # intra-chunk: y[t] = sum_{s<=t} exp(ca_t - ca_s) dt_s (C_t.B_s) x_s
+    decay = ca[:, :, :, None, :] - ca[:, :, None, :, :]   # (Bb,nc,Q,Q,H) t,s
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    L = torch.exp(torch.where(tri[None, None, :, :, None], decay,
+                              float("-inf")))
+    cb = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)          # (Bb,nc,Q,Q)
+    w = cb[..., None] * L * dtc[:, :, None, :, :]         # (Bb,nc,Q,Q,H)
+    y_intra = torch.einsum("bcqsh,bcshp->bcqhp", w, xc)
+
+    # chunk state contributions: G_c = sum_s exp(ca_end - ca_s) dt_s B_s x_s
+    kdecay = torch.exp(ca_end - ca) * dtc                 # (Bb,nc,Q,H)
+    G = torch.einsum("bcqh,bcqn,bcqhp->bchpn", kdecay, Bc, xc)
+
+    # inter-chunk scan of states (the state BEFORE each chunk is kept)
+    h = (x.new_zeros((Bb, H, P, N))
+         if initial_state is None else initial_state.float())
+    chunk_decay = torch.exp(ca_end[:, :, 0])              # (Bb,nc,H)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + G[:, c]
+    h_prev = torch.stack(h_prevs, dim=1)                  # (Bb,nc,H,P,N)
+
+    # state contribution within chunk: y_state[t] = exp(ca_t) C_t . h_prev
+    qdecay = torch.exp(ca)
+    y_state = torch.einsum("bcqn,bchpn->bcqhp", Cc, h_prev) \
+        * qdecay[..., None]
+    y = (y_intra + y_state).reshape(Bb, S, H, P)
+    return y, h

@@ -7,7 +7,7 @@ on the card and run the progressive pipeline on a stream of requests.
 The weights are random from `--seed` (no checkpoint is in the repository),
 so the text is gibberish while the engines do the full work. Training the
 tiny fleet first (`--train-steps > 0`) waits for the training slice. The
-TINY edge fleet leaves out the Mamba2 TINY_EDGE_C until the SSM slice.
+TINY edge fleet is the two dense SLMs and the Mamba2 TINY_EDGE_C.
 """
 from __future__ import annotations
 
@@ -26,14 +26,15 @@ from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.requests import Request
 
 CAPABILITIES = {"tiny-cloud": 0.9, "tiny-edge-a": 0.7, "tiny-edge-b": 0.55,
-                "qwen3-8b": 0.9, "qwen2-1.5b": 0.7}
+                "tiny-edge-c": 0.6, "qwen3-8b": 0.9, "qwen2-1.5b": 0.7,
+                "zamba2-2.7b": 0.6}
 
 
 def build_engines(train_steps: int = 0, seed: int = 0, names=None,
                   device=None, kv_backend: str = "paged"):
-    """The TINY dense fleet as `kv_backend` engines on `device` (default
-    the card), each config with its own prefill_chunk (monolithic for the
-    TINY fleet, as in the JAX package's launcher). Returns (engines,
+    """The TINY fleet as `kv_backend` engines on `device` (default the
+    card), each config with its own prefill_chunk (monolithic for the TINY
+    fleet, as in the JAX package's launcher). Returns (engines,
     capabilities)."""
     if train_steps:
         raise NotImplementedError(

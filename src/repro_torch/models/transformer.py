@@ -1,25 +1,42 @@
-"""Dense decoder stack (PyTorch) over a dense or a paged KV cache.
+"""Decoder stacks (PyTorch) over a dense or a paged KV cache: dense
+attention, Mamba2 (SSM) and the Mamba2 + shared-attention hybrid (zamba2).
 
-The port of the JAX package's `models/transformer.py` for the dense
-attention segments the PICE serving path runs: init; the full-sequence
-`forward` (scoring); the dense cache with its monolithic `prefill` and
-`decode_step`; the paged cache with monolithic `prefill_paged`, one prompt
-chunk, batched ragged chunks, the decode step and the COW fork copy.
-Dense and monolithic paged prefill share `_prefill_block`, whose `kv_writer`
-hook alone differs, so both produce the same activations.
-`promote_slot_paged` (host swap) and the recurrent, MoE and encoder families
+The port of the JAX package's `models/transformer.py` for the segments the
+PICE serving path runs: init; the full-sequence `forward` (scoring); the
+dense cache with its monolithic `prefill` and `decode_step`; the paged cache
+with monolithic `prefill_paged`, one prompt chunk, batched ragged chunks
+(attention-only stacks), the decode step and the COW fork copy. Dense and
+monolithic paged prefill share `_prefill_block`, whose `kv_writer` hook
+alone differs, so both produce the same activations.
+`promote_slot_paged` (host swap) and the xLSTM, MoE and encoder families
 wait for their slices.
 
+Layers come in segments (`segments_of`): runs of one block kind. ATTN is an
+attention + MLP block, MAMBA2 a Mamba2 block (`models/ssm.py`) and
+SHARED_ATTN an application of the one weight-tied attention + MLP block of
+a hybrid, whose weights live once in params["shared"] while every
+application has its own cache segment.
+
 Params: {"embed": {"tok", "unembed"}, "segments": [[layer, ...], ...],
-"final_norm": {"scale"}, "length_head"?}; each layer is {"norm1": {"scale"},
-"attn": {...}, "norm2": {"scale"}, "mlp": {...}} (see attention.py for the
-weight layout). The cache is {"lengths": (B,) int32, "block_table": (B, P)
-int32, "segments": [{"k_pages", "v_pages": (count, n_pages + 1, page, n_kv,
-hd)}]}, the last page of each pool a scratch page that dropped writes land
-in (see paged_cache.py); a quantized pool (cfg.kv_quantized) adds
-"k_scale", "v_scale": (count, n_pages + 1, n_kv) f32. The dense cache is
-{"lengths": (B,) int32, "segments": [{"k", "v": (count, B, max_len, n_kv,
-hd)}]}. Every entry point updates its cache in place and returns it.
+"shared"?: layer, "final_norm": {"scale"}, "length_head"?}; an attention
+layer is {"norm1": {"scale"}, "attn": {...}, "norm2": {"scale"}, "mlp":
+{...}} (see attention.py for the weight layout), a Mamba2 layer {"norm1":
+{"scale"}, "mamba": {...}}, and a SHARED_ATTN segment's list is empty. The
+paged cache is {"lengths": (B,) int32, "block_table": (B, P) int32,
+"segments": [...]}: an attention segment holds {"k_pages", "v_pages":
+(count, n_pages + 1, page, n_kv, hd)}, the last page of each pool a scratch
+page that dropped writes land in (see paged_cache.py), and a quantized pool
+(cfg.kv_quantized) adds "k_scale", "v_scale": (count, n_pages + 1, n_kv)
+f32. The dense cache is {"lengths": (B,) int32, "segments": [...]} with
+{"k", "v": (count, B, max_len, n_kv, hd)} for an attention segment. A
+Mamba2 segment holds the same per-slot states in both caches: {"conv":
+(count, B, ssm_conv - 1, inner) in cfg.dtype, "ssd": (count, B, H, P, N)
+f32}. Every entry point updates its cache in place and returns it.
+
+The recurrent states follow the JAX package with one departure: a decode
+step with an `active` mask leaves inactive rows' states as they were (the
+JAX package advances every row, which corrupts a parked prefix that later
+forks copy; see `ssm.mamba2_decode`).
 """
 from __future__ import annotations
 
@@ -31,7 +48,8 @@ from repro_torch.kernels import runtime
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import paged_cache as pc
-from repro_torch.models.config import ATTN, ModelConfig
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.config import ATTN, MAMBA2, SHARED_ATTN, ModelConfig
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense_init,
                                        embed, init_embedding, init_mlp, mlp,
                                        norm, rope_tables, unembed)
@@ -48,14 +66,31 @@ def segments_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return segs
 
 
+SUPPORTED_KINDS = (ATTN, MAMBA2, SHARED_ATTN)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves attention-only stacks of plain decoder blocks."""
+    """The port serves stacks of attention, Mamba2 and shared-attention
+    blocks."""
     kinds = {kind for kind, _ in segments_of(cfg)}
-    if kinds != {ATTN}:
+    if not kinds <= set(SUPPORTED_KINDS):
         raise NotImplementedError(
-            f"block kinds {sorted(kinds)} wait for their families' slices; "
-            "the port serves dense attention stacks")
+            f"block kinds {sorted(kinds - set(SUPPORTED_KINDS))} wait for "
+            "their families' slices; the port serves "
+            f"{list(SUPPORTED_KINDS)}")
     attn_lib.check_support(cfg)
+
+
+def is_recurrent(cfg: ModelConfig) -> bool:
+    """True for a stack with a recurrent (Mamba2) segment: its prefill scans
+    the whole prompt in one call, so it cannot ingest in chunks."""
+    return any(kind == MAMBA2 for kind, _ in segments_of(cfg))
+
+
+def _check_attention_only(cfg: ModelConfig) -> None:
+    if is_recurrent(cfg):
+        raise ValueError("chunked prefill supports attention-only stacks: a "
+                         "recurrent segment's scan cannot resume mid-prompt")
 
 
 def check_paged_supported(cfg: ModelConfig) -> None:
@@ -68,8 +103,12 @@ def check_paged_supported(cfg: ModelConfig) -> None:
 # Init (the JAX package's shapes and init law, drawn with a torch Generator)
 # ---------------------------------------------------------------------------
 
-def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> dict:
+def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
+                device) -> dict:
     d = cfg.d_model
+    if kind == MAMBA2:
+        return {"norm1": {"scale": torch.ones(d, device=device)},
+                "mamba": ssm_lib.init_mamba2(cfg, gen, dtype, device)}
     return {
         "norm1": {"scale": torch.ones(d, device=device)},
         "attn": attn_lib.init_attention(cfg, gen, dtype, device),
@@ -90,8 +129,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     gen.manual_seed(seed)
     dtype = compute_dtype(cfg)
     p: Dict[str, Any] = {"embed": init_embedding(cfg, gen, dtype, device)}
-    p["segments"] = [[_init_layer(cfg, gen, dtype, device)
-                      for _ in range(count)] for _, count in segments_of(cfg)]
+    segs = []
+    for kind, count in segments_of(cfg):
+        if kind == SHARED_ATTN:
+            if "shared" not in p:
+                p["shared"] = _init_layer(cfg, kind, gen, dtype, device)
+            segs.append([])         # the weights live in p["shared"]
+        else:
+            segs.append([_init_layer(cfg, kind, gen, dtype, device)
+                         for _ in range(count)])
+    p["segments"] = segs
     p["final_norm"] = {"scale": torch.ones(cfg.d_model, dtype=torch.float32,
                                            device=device)}
     if cfg.length_buckets:
@@ -100,9 +147,44 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     return p
 
 
-def _layers(params: dict):
-    for seg in params["segments"]:
-        yield from seg
+def _walk(cfg: ModelConfig, params: dict, cache: Optional[dict] = None):
+    """(kind, layer params, layer cache) of every block in order: the shared
+    block's params at each SHARED_ATTN application, and a dict of views of
+    the segment's cache leaves at the layer (None without a cache)."""
+    for i, (kind, count) in enumerate(segments_of(cfg)):
+        seg = params["segments"][i]
+        segc = None if cache is None else cache["segments"][i]
+        for j in range(count):
+            layer = params["shared"] if kind == SHARED_ATTN else seg[j]
+            yield kind, layer, (None if segc is None
+                                else {k: v[j] for k, v in segc.items()})
+
+
+def attention_segments(cache: dict) -> List[dict]:
+    """The cache's attention segments (K/V rows or page pools)."""
+    return [seg for seg in cache["segments"] if "ssd" not in seg]
+
+
+def _state_segments(cache: dict) -> List[dict]:
+    """The cache's Mamba2 segments (per-slot recurrent states)."""
+    return [seg for seg in cache["segments"] if "ssd" in seg]
+
+
+def _first_attention(cache: dict) -> Optional[dict]:
+    """The first attention segment of a cache (None for a pure SSM stack):
+    the per-call plans are built from its shapes."""
+    segs = attention_segments(cache)
+    return segs[0] if segs else None
+
+
+def _ssm_states(cfg: ModelConfig, count: int, batch: int, device) -> dict:
+    """A Mamba2 segment's per-slot states, zeros: the conv tail in
+    cfg.dtype and the SSD state in float32."""
+    inner, H, P, N = ssm_lib.ssm_dims(cfg)
+    return {"conv": torch.zeros((count, batch, cfg.ssm_conv - 1, inner),
+                                dtype=compute_dtype(cfg), device=device),
+            "ssd": torch.zeros((count, batch, H, P, N), dtype=torch.float32,
+                               device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +194,28 @@ def _layers(params: dict):
 def _mlp_residual(cfg: ModelConfig, layer: dict, x: torch.Tensor
                   ) -> torch.Tensor:
     return x + mlp(cfg, layer["mlp"], norm(cfg, layer["norm2"], x))
+
+
+def _mamba_prefill(cfg: ModelConfig, layer: dict, x: torch.Tensor,
+                   conv: torch.Tensor, ssd: torch.Tensor) -> torch.Tensor:
+    """One Mamba2 block over whole prompts (x: (B, S, D)); its final states
+    are copied into `conv` (B, K-1, inner) and `ssd` (B, H, P, N). The scan
+    runs over all S rows, padding included, as in the JAX package."""
+    out, conv_s, ssd_s = ssm_lib.mamba2_fwd(
+        cfg, layer["mamba"], norm(cfg, layer["norm1"], x), return_state=True)
+    conv.copy_(conv_s)
+    ssd.copy_(ssd_s)
+    return x + out
+
+
+def _mamba_decode(cfg: ModelConfig, layer: dict, x: torch.Tensor, c: dict,
+                  active: Optional[torch.Tensor]) -> torch.Tensor:
+    """One Mamba2 block's decode step on x (B, 1, D), its states `c` updated
+    in place where `active` (all rows without one)."""
+    out, _, _ = ssm_lib.mamba2_decode(cfg, layer["mamba"],
+                                      norm(cfg, layer["norm1"], x), c["conv"],
+                                      c["ssd"], active)
+    return x + out
 
 
 def _logits_at(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -139,15 +243,20 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int -> (logits (B, S, V), aux_loss).
 
-    Every layer reads through the flash-attention wrapper (causal, with
-    cfg's window and softcap). The aux loss is the MoE balance loss of the
-    JAX package, zero for the dense stacks the port serves."""
+    Every attention layer reads through the flash-attention wrapper
+    (causal, with cfg's window and softcap), every Mamba2 layer scans
+    through the SSD-scan wrapper. The aux loss is the MoE balance loss of
+    the JAX package, zero for the stacks the port serves."""
     check_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None]
     rope = _rope(cfg, positions)
-    for layer in _layers(params):
+    for kind, layer, _ in _walk(cfg, params):
+        if kind == MAMBA2:
+            x = x + ssm_lib.mamba2_fwd(cfg, layer["mamba"],
+                                       norm(cfg, layer["norm1"], x))
+            continue
         h = attn_lib.attention_fwd(cfg, layer["attn"],
                                    norm(cfg, layer["norm1"], x), positions,
                                    causal=True, rope=rope)
@@ -163,23 +272,21 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """{"lengths": (batch,) int32, "segments": [{"k", "v": (count, batch,
-    max_len, n_kv, hd)}]} in cfg.dtype, zeros (`cache.init_kv_cache`;
-    the sliding-window ring is not ported)."""
+    """{"lengths": (batch,) int32, "segments": [...]}, zeros: an attention
+    segment's {"k", "v": (count, batch, max_len, n_kv, hd)} in cfg.dtype
+    (`cache.init_kv_cache`; the sliding-window ring is not ported), a
+    Mamba2 segment's per-slot states."""
     check_supported(cfg)
     segs = []
-    for _, count in segments_of(cfg):
+    for kind, count in segments_of(cfg):
+        if kind == MAMBA2:
+            segs.append(_ssm_states(cfg, count, batch, device))
+            continue
         segs.append(cache_lib.init_kv_cache(
             count, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
             compute_dtype(cfg), window=cfg.sliding_window, device=device))
     return {"lengths": torch.zeros(batch, dtype=torch.int32, device=device),
             "segments": segs}
-
-
-def _dense_layers(cache: dict):
-    for seg in cache["segments"]:
-        for i in range(seg["k"].shape[0]):
-            yield seg["k"][i], seg["v"][i]
 
 
 KVWriter = Callable[[torch.Tensor, torch.Tensor], None]
@@ -229,7 +336,9 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     prompt_lengths: (B,) valid counts (default S). The cache may be a view
     of some rows of a larger one (the engine passes one slot's rows): the
     rows are written in place, K/V at positions [0, S) and zeros past S,
-    and its lengths are set to prompt_lengths."""
+    the Mamba2 states after all S positions (padding included, as in the
+    JAX package: the engine prefills a recurrent stack unpadded), and its
+    lengths are set to prompt_lengths."""
     check_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     B, S = x.shape[:2]
@@ -237,8 +346,12 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         prompt_lengths = [S] * B
     plens = attn_lib.as_int32(prompt_lengths, x.device)
     rope = _rope(cfg, torch.arange(S, device=x.device)[None])
-    for layer, (ck, cv) in zip(_layers(params), _dense_layers(cache)):
-        x = _prefill_block(cfg, layer, x, rope, plens, _dense_writer(ck, cv))
+    for kind, layer, c in _walk(cfg, params, cache):
+        if kind == MAMBA2:
+            x = _mamba_prefill(cfg, layer, x, c["conv"], c["ssd"])
+            continue
+        x = _prefill_block(cfg, layer, x, rope, plens,
+                           _dense_writer(c["k"], c["v"]))
     logits = _logits_at(cfg, params, x, plens)
     cache["lengths"].copy_(plens)
     return logits, cache
@@ -258,21 +371,26 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, dict]:
     """tokens: (B, 1) -> (logits (B, vocab), cache).
 
-    Every layer writes the new token's K/V at each row's length (clamped
-    to fit, inactive rows included: their writes land in freed space) and
-    reads through the decode-attention wrapper; `active` (B,) bool masks
-    the length advance only. `live_rows` bounds the read to the cache's
-    first rows (at least every active row's length + 1; inactive rows'
-    logits are then unspecified). The write plan, RoPE tables and read
-    lengths are built once per call."""
+    Every attention layer writes the new token's K/V at each row's length
+    (clamped to fit, inactive rows included: their writes land in freed
+    space) and reads through the decode-attention wrapper; every Mamba2
+    layer advances its states. `active` (B,) bool masks the length advance
+    and the Mamba2 state updates. `live_rows` bounds the read to the
+    cache's first rows (at least every active row's length + 1; inactive
+    rows' logits are then unspecified). The write plan, RoPE tables and
+    read lengths are built once per call."""
     check_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     lengths = cache["lengths"]
-    S = cache["segments"][0]["k"].shape[2]
-    call = attn_lib.dense_decode_call(cfg, lengths, 1, S, live_rows)
-    for layer, (ck, cv) in zip(_layers(params), _dense_layers(cache)):
+    attn = _first_attention(cache)
+    call = None if attn is None else attn_lib.dense_decode_call(
+        cfg, lengths, 1, attn["k"].shape[2], live_rows)
+    for kind, layer, c in _walk(cfg, params, cache):
+        if kind == MAMBA2:
+            x = _mamba_decode(cfg, layer, x, c, active)
+            continue
         h, _, _ = attn_lib.attention_decode(
-            cfg, layer["attn"], norm(cfg, layer["norm1"], x), ck, cv,
+            cfg, layer["attn"], norm(cfg, layer["norm1"], x), c["k"], c["v"],
             lengths, call=call)
         x = _mlp_residual(cfg, layer, x + h)
     x = norm(cfg, params["final_norm"], x)
@@ -299,12 +417,16 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
     cfg.kv_quantized stores the pools as int8 / float8_e4m3fn and adds the
     per-(page, kv head) f32 scales k_scale/v_scale: (count, n_pages + 1,
     n_kv), initialised to ones so unwritten pages dequantize to zeros.
+    Mamba2 segments keep their O(1) per-slot states, as in the dense cache.
     """
     check_paged_supported(cfg)
     hd = cfg.resolved_head_dim
     adt = pc.kv_storage_dtype(cfg.resolved_kv_dtype)
     segs = []
-    for _, count in segments_of(cfg):
+    for kind, count in segments_of(cfg):
+        if kind == MAMBA2:
+            segs.append(_ssm_states(cfg, count, batch, device))
+            continue
         shape = (count, n_pages + 1, page_size, cfg.n_kv_heads, hd)
         seg = {"k_pages": torch.zeros(shape, dtype=adt, device=device),
                "v_pages": torch.zeros(shape, dtype=adt, device=device)}
@@ -319,17 +441,6 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
             "segments": segs}
 
 
-def _pools(cache: dict):
-    """Each attention layer's (k_pages, v_pages, k_scales, v_scales); the
-    scales are None for a float pool."""
-    for seg in cache["segments"]:
-        for i in range(seg["k_pages"].shape[0]):
-            ks, vs = seg.get("k_scale"), seg.get("v_scale")
-            yield (seg["k_pages"][i], seg["v_pages"][i],
-                   None if ks is None else ks[i],
-                   None if vs is None else vs[i])
-
-
 def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                   cache: dict, slot: int, prompt_len
                   ) -> Tuple[torch.Tensor, dict]:
@@ -337,9 +448,10 @@ def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     paged cache at batch row `slot`, whose block-table row must already map
     pages for `prompt_len` tokens: the layers run `_prefill_block` as dense
     prefill does, and each writes its K/V at positions [0, prompt_len)
-    through the block table (the padding goes to the scratch page). Sets
-    lengths[slot] = prompt_len; a quantized pool requantizes the pages
-    the prompt covers. Returns (logits (1, V), cache)."""
+    through the block table (the padding goes to the scratch page); the
+    Mamba2 layers scan all S positions and store their final states in row
+    `slot`. Sets lengths[slot] = prompt_len; a quantized pool requantizes
+    the pages the prompt covers. Returns (logits (1, V), cache)."""
     check_paged_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     S = x.shape[1]
@@ -347,25 +459,32 @@ def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                              else [int(prompt_len)], x.device)
     rope = _rope(cfg, torch.arange(S, device=x.device)[None])
     row = cache["block_table"][slot]
-    pages = cache["segments"][0]["k_pages"][0]
-    offs = torch.zeros_like(plen)
-    if cfg.kv_quantized:
-        plan = pc.prompt_quant_plan(row[None], offs, plen, S, pages)
-    else:
-        dest = pc.prompt_write_plan(row[None], offs, plen, S, pages)
+    attn = _first_attention(cache)
+    if attn is not None:
+        offs, pages = torch.zeros_like(plen), attn["k_pages"][0]
+        if cfg.kv_quantized:
+            plan = pc.prompt_quant_plan(row[None], offs, plen, S, pages)
+        else:
+            dest = pc.prompt_write_plan(row[None], offs, plen, S, pages)
 
-    def writer(kp, vp, ks, vs):
+    def writer(c):
         def write(k, v):
             if cfg.kv_quantized:
-                pc.apply_quant_write(kp, ks, plan, k[0], cfg.kv_dtype)
-                pc.apply_quant_write(vp, vs, plan, v[0], cfg.kv_dtype)
+                pc.apply_quant_write(c["k_pages"], c["k_scale"], plan, k[0],
+                                     cfg.kv_dtype)
+                pc.apply_quant_write(c["v_pages"], c["v_scale"], plan, v[0],
+                                     cfg.kv_dtype)
             else:
-                pc.apply_write(kp, dest, k[0])
-                pc.apply_write(vp, dest, v[0])
+                pc.apply_write(c["k_pages"], dest, k[0])
+                pc.apply_write(c["v_pages"], dest, v[0])
         return write
 
-    for layer, pools in zip(_layers(params), _pools(cache)):
-        x = _prefill_block(cfg, layer, x, rope, plen, writer(*pools))
+    for kind, layer, c in _walk(cfg, params, cache):
+        if kind == MAMBA2:
+            x = _mamba_prefill(cfg, layer, x, c["conv"][slot:slot + 1],
+                               c["ssd"][slot:slot + 1])
+            continue
+        x = _prefill_block(cfg, layer, x, rope, plen, writer(c))
     logits = _logits_at(cfg, params, x, plen)
     cache["lengths"][slot] = plen[0]
     return logits, cache
@@ -381,18 +500,21 @@ def prefill_chunk_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     within the chunk and against the slot's already-written context through
     the single-slot paged prefill wrapper; `live_pages` trims the read to
     the covering block-table columns. Returns (logits (1, V) at the last
-    valid chunk token, cache)."""
+    valid chunk token, cache). Attention-only stacks (a recurrent
+    segment's scan cannot resume mid-prompt)."""
     check_paged_supported(cfg)
+    _check_attention_only(cfg)
     x = embed(cfg, params["embed"], tokens)
     C = x.shape[1]
     row = cache["block_table"][slot]
     call = attn_lib.chunk_call(cfg, row[None], offset, chunk_len, C,
                                cache["segments"][0]["k_pages"][0],
                                live_pages)
-    for layer, (kp, vp, ks, vs) in zip(_layers(params), _pools(cache)):
+    for _, layer, c in _walk(cfg, params, cache):
         h = attn_lib.attention_prefill_chunk_paged(
-            cfg, layer["attn"], norm(cfg, layer["norm1"], x), kp, vp, row,
-            call.offsets, call.lens, call=call, k_scales=ks, v_scales=vs)
+            cfg, layer["attn"], norm(cfg, layer["norm1"], x), c["k_pages"],
+            c["v_pages"], row, call.offsets, call.lens, call=call,
+            k_scales=c.get("k_scale"), v_scales=c.get("v_scale"))
         x = _mlp_residual(cfg, layer, x + h)
     logits = _logits_at(cfg, params, x, call.lens)
     cache["lengths"][slot] = (call.offsets + call.lens)[0]
@@ -412,8 +534,10 @@ def prefill_ragged_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     block-table gathers clamp to the last row, whose results are discarded.
     Each row's block-table entry must already map pages through
     offsets[r] + lens[r] tokens. Returns (logits (R, V) at each row's last
-    valid chunk token, cache); padding rows' logits are unspecified."""
+    valid chunk token, cache); padding rows' logits are unspecified.
+    Attention-only stacks, as `prefill_chunk_paged`."""
     check_paged_supported(cfg)
+    _check_attention_only(cfg)
     x = embed(cfg, params["embed"], tokens)
     C = x.shape[1]
     table = cache["block_table"]
@@ -424,11 +548,11 @@ def prefill_ragged_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     call = attn_lib.chunk_call(cfg, block_rows, offsets, lens, C,
                                cache["segments"][0]["k_pages"][0],
                                live_pages)
-    for layer, (kp, vp, ks, vs) in zip(_layers(params), _pools(cache)):
+    for _, layer, c in _walk(cfg, params, cache):
         h = attn_lib.attention_prefill_ragged_paged(
-            cfg, layer["attn"], norm(cfg, layer["norm1"], x), kp, vp,
-            block_rows, call.offsets, call.lens, call=call, k_scales=ks,
-            v_scales=vs)
+            cfg, layer["attn"], norm(cfg, layer["norm1"], x), c["k_pages"],
+            c["v_pages"], block_rows, call.offsets, call.lens, call=call,
+            k_scales=c.get("k_scale"), v_scales=c.get("v_scale"))
         x = _mlp_residual(cfg, layer, x + h)
     logits = _logits_at(cfg, params, x, call.lens)
     # padding rows target index `batch` of a one-longer copy and drop
@@ -444,23 +568,29 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                       ) -> Tuple[torch.Tensor, dict]:
     """tokens: (B, 1) -> (logits (B, vocab), cache).
 
-    Every layer appends the new token into its page pools through the block
-    table and reads through the paged decode wrapper. `active` masks freed
-    rows' length advance AND their K/V writes — the engine pushes
-    block-table clears lazily, so a freed row's stale table entry may still
-    map a COW sibling's pages. `live_pages` bounds the read to the first
-    live block-table columns."""
+    Every attention layer appends the new token into its page pools through
+    the block table and reads through the paged decode wrapper; every
+    Mamba2 layer advances its per-slot states. `active` masks freed rows'
+    length advance, their K/V writes — the engine pushes block-table clears
+    lazily, so a freed row's stale table entry may still map a COW
+    sibling's pages — and their Mamba2 state updates (a parked prefix row
+    keeps the state its forks copy). `live_pages` bounds the read to the
+    first live block-table columns."""
     check_paged_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     lengths = cache["lengths"]
     table = cache["block_table"]
-    call = attn_lib.decode_call(cfg, table, lengths,
-                                cache["segments"][0]["k_pages"][0],
-                                live_pages, active)
-    for layer, (kp, vp, ks, vs) in zip(_layers(params), _pools(cache)):
+    attn = _first_attention(cache)
+    call = None if attn is None else attn_lib.decode_call(
+        cfg, table, lengths, attn["k_pages"][0], live_pages, active)
+    for kind, layer, c in _walk(cfg, params, cache):
+        if kind == MAMBA2:
+            x = _mamba_decode(cfg, layer, x, c, active)
+            continue
         h = attn_lib.attention_decode_paged(
-            cfg, layer["attn"], norm(cfg, layer["norm1"], x), kp, vp, table,
-            lengths, call=call, k_scales=ks, v_scales=vs)
+            cfg, layer["attn"], norm(cfg, layer["norm1"], x), c["k_pages"],
+            c["v_pages"], table, lengths, call=call,
+            k_scales=c.get("k_scale"), v_scales=c.get("v_scale"))
         x = _mlp_residual(cfg, layer, x + h)
     x = norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)[:, 0]
@@ -474,14 +604,18 @@ def fork_slot_paged(cfg: ModelConfig, cache: dict, src_slot: int,
     """Device-side state duplication behind copy-on-write prefix sharing:
     copy the partial tail page of every attention layer (tail_src_page ==
     tail_dst_page is a no-op when the prefix is page-aligned), with its
-    scales in a quantized pool, then mirror the source row's cached
-    length. Also serves plain COW page copies: call
-    with src_slot == dst_slot and the (old, new) page pair from
-    `PageAllocator.cow_page`."""
+    scales in a quantized pool, and the source row's Mamba2 states into
+    the destination row, then mirror the source row's cached length. Also
+    serves plain COW page copies: call with src_slot == dst_slot and the
+    (old, new) page pair from `PageAllocator.cow_page`."""
     check_paged_supported(cfg)
-    for seg in cache["segments"]:
+    for seg in attention_segments(cache):
         for leaf in seg.values():
             pc.copy_page(leaf, tail_src_page, tail_dst_page)
+    if src_slot != dst_slot:
+        for seg in _state_segments(cache):
+            for leaf in seg.values():
+                leaf[:, dst_slot].copy_(leaf[:, src_slot])
     cache["lengths"][dst_slot] = cache["lengths"][src_slot]
     return cache
 

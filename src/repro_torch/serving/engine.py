@@ -31,15 +31,27 @@ a monolithic admission. Host->device inputs go through pinned memory, so no
 step waits on the device otherwise. With monolithic prefill, fork suffixes
 and eviction carries are teacher-forced one token a step (`Slot.pending`).
 
-On a CUDA device the attention reads run through the hand-written kernels;
-on the CPU through their plain versions (tests). `score()` runs the
-full-sequence forward through the flash-attention wrapper.
+On a CUDA device the attention reads and the Mamba2 scans run through the
+hand-written kernels; on the CPU through their plain versions (tests).
+`score()` runs the full-sequence forward through the flash-attention and
+SSD-scan wrappers.
+
+Recurrent stacks (Mamba2, and the zamba2 hybrid) prefill monolithically
+whatever `cfg.prefill_chunk` says (a scan cannot resume mid-prompt) and
+resume evicted requests by replay, as in the JAX package. Two departures
+from the JAX engine's results on those stacks, both deliberate: a prompt
+is prefilled at its own length, not padded to a bucket, so the recurrent
+states are those after the prompt's last token (the JAX engine scans the
+padding into them); and decode leaves inactive rows' recurrent states as
+they were (the JAX engine advances every row, so a parked prefix that late
+forks copy has drifted). Both keep the contracts decode == teacher-forced
+forward and fan-out == independent submissions.
 
 What this engine does not do yet raises NotImplementedError naming the
 slice it waits for: `ragged_ingest=False` (the serial one-chunk scheduler),
 `host_swap=True` (host-tier demote/promote; the JAX package's default is
-True, the port's False), and families other than dense attention stacks.
-`warmup()` is not ported.
+True, the port's False), and families other than attention, Mamba2 and
+the shared-attention hybrid. `warmup()` is not ported.
 """
 from __future__ import annotations
 
@@ -202,9 +214,13 @@ class InferenceEngine:
         # step x per-page pool bytes across every attention layer, scales
         # of a quantized pool included)
         self.kv_bytes_read = 0
-        # chunked ingest is the paged backend's; a dense engine prefills
+        # chunked ingest is the paged backend's and needs an attention-only
+        # stack; a dense engine, or a recurrent stack, prefills
         # monolithically whatever cfg.prefill_chunk says
         self.prefill_chunk = 0
+        # a recurrent stack's prefill scans every row it is given, padding
+        # included: its prompts go in at their own length (`_pad_prompt`)
+        self.recurrent = transformer.is_recurrent(cfg)
 
         if kv_backend == "paged":
             self.page_size = page_size
@@ -217,10 +233,13 @@ class InferenceEngine:
             self.cache = transformer.init_paged_cache(
                 cfg, max_batch, self.n_pages, page_size, self.pages_per_seq,
                 device=self.device)
-            self.prefill_chunk = cfg.prefill_chunk
+            self.prefill_chunk = 0 if self.recurrent else cfg.prefill_chunk
+            # bytes one page holds over every attention layer (recurrent
+            # states are per slot, not per page)
             self._page_kv_bytes = sum(
                 seg[k][:, 0].numel() * seg[k].element_size()
-                for seg in self.cache["segments"] for k in seg)
+                for seg in transformer.attention_segments(self.cache)
+                for k in seg)
         else:
             self.cache = transformer.init_cache(cfg, max_batch, max_len,
                                                 device=self.device)
@@ -476,11 +495,14 @@ class InferenceEngine:
                                         [len(toks)])
         return logits
 
-    @staticmethod
-    def _pad_prompt(full_prompt: List[int], max_len: int):
+    def _pad_prompt(self, full_prompt: List[int]):
         """Bucket-pad a prompt, keeping the TAIL when it exceeds max_len.
-        Returns (kept_tokens, padded (1, S), dropped)."""
-        S = min(_bucket(len(full_prompt)), max_len)
+        Returns (kept_tokens, padded (1, S), dropped). A recurrent stack's
+        prompt is not padded (S is its own length, at least 1): its
+        prefill would scan the padding into the recurrent states."""
+        n = len(full_prompt)
+        S = max(n, 1) if self.recurrent else _bucket(n)
+        S = min(S, self.max_len)
         padded = np.zeros((1, S), np.int64)
         toks = full_prompt[-S:]
         padded[0, :len(toks)] = toks
@@ -504,7 +526,7 @@ class InferenceEngine:
         # as independent submissions would
         slot = free[-1]
         t0 = time.perf_counter()
-        toks, padded, _ = self._pad_prompt(list(prefix), self.max_len)
+        toks, padded, _ = self._pad_prompt(list(prefix))
         logits = self._prefill_into(slot, toks, padded)
         s = self.slots[slot]
         s.req_id, s.active, s.parked = -1, False, True
@@ -615,7 +637,7 @@ class InferenceEngine:
                 logits = self._prefill_into_chunks(slot, toks)
         else:
             toks, padded, dropped = self._pad_prompt(
-                list(prompt) + carry_tokens, self.max_len)
+                list(prompt) + carry_tokens)
             logits = self._prefill_into(slot, toks, padded)
             ctx = len(toks)
 

@@ -10,7 +10,8 @@ from repro.models import transformer as jtransformer
 from repro.models.config import ModelConfig as JModelConfig
 from repro_torch import convert
 from repro_torch.configs.pice_cloud_edge import (TINY_CLOUD, TINY_EDGE_A,
-                                                 TINY_EDGE_B)
+                                                 TINY_EDGE_B, TINY_EDGE_C)
+from repro_torch.configs.registry import get_config
 from repro_torch.models.config import ModelConfig
 
 # the xdist workers share the machine's cores
@@ -33,6 +34,20 @@ CONFIGS = {
     "tiny-edge-a": TINY_EDGE_A.with_(dtype="float32"),
     "tiny-edge-b": TINY_EDGE_B.with_(dtype="float32"),
 }
+
+# The recurrent stacks: the Mamba2 edge SLM and zamba2 cut to 4 Mamba2
+# layers with the shared attention block applied twice (M M S M M S).
+SSM_CONFIGS = {
+    "tiny-edge-c": TINY_EDGE_C.with_(dtype="float32"),
+    "zamba2-4l": get_config("zamba2-2.7b").reduced().with_(
+        n_layers=4, dtype="float32", remat=False),
+}
+# Logits and states of a recurrent stack: one Mamba2 block's float32 output
+# lies up to 1.2e-5 from a float64 evaluation on either side (TINY_EDGE_C,
+# 40 tokens), and the two packages' logits differ by up to 9e-5 after four
+# blocks, so they are compared at the JAX package's own tolerance for
+# decode == forward over these families (tests/test_models.py:114).
+SSM_TOL = dict(rtol=2e-4, atol=2e-4)
 
 PROMPTS = [[65 + i for i in range(43)], [70, 71], [80] * 40, [90] * 17,
            [5] * 64]

@@ -17,6 +17,10 @@ from repro_torch.kernels.paged_decode_attention import ops as dops
 from repro_torch.kernels.paged_decode_attention import ref as dref
 from repro_torch.kernels.paged_prefill_attention import ops as pops
 from repro_torch.kernels.paged_prefill_attention import ref as pref
+from repro_torch.kernels.rmsnorm import ops as rops
+from repro_torch.kernels.rmsnorm import ref as rref
+from repro_torch.kernels.ssm_scan import ops as sops
+from repro_torch.kernels.ssm_scan import ref as sref
 
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -304,6 +308,82 @@ def test_quant_tiny_engine_card_vs_cpu(gen, kv_dtype):
         torch.testing.assert_close(torch.tensor(lg[:n]), torch.tensor(lc[:n]),
                                    rtol=0, atol=1e-2)
     assert parted <= 1, "greedy tokens part on more than one request"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bb,S,H,P,N,chunk,initial", [
+    (2, 64, 3, 8, 16, 16, False), (1, 128, 2, 16, 32, 32, False),
+    (2, 96, 1, 4, 8, 32, False), (1, 37, 4, 64, 16, 64, False),
+    (1, 1000, 4, 64, 16, 64, False), (1, 1024, 80, 64, 64, 256, False),
+    (2, 100, 3, 64, 64, 256, True)])
+def test_ssm_scan_kernel_matches_plain(gen, Bb, S, H, P, N, chunk, initial):
+    """The SSD kernel against its plain chunked version at rtol = atol =
+    1e-4 (tests/test_kernels.py's tolerance for the TPU kernel): the JAX
+    test's cases, ragged S, TINY_EDGE_C's and zamba2's heads, an initial
+    state."""
+    x = torch.randn(Bb, S, H, P, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn(Bb, S, H, generator=gen, device="cuda")) * 0.1
+    A = -torch.exp(torch.randn(H, generator=gen, device="cuda"))
+    B = torch.randn(Bb, S, N, generator=gen, device="cuda") * 0.3
+    C = torch.randn(Bb, S, N, generator=gen, device="cuda") * 0.3
+    h0 = (torch.randn(Bb, H, P, N, generator=gen, device="cuda")
+          if initial else None)
+    before = sops.ssm_scan.launches
+    y, h = sops.ssm_scan(x, dt, A, B, C, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    assert sops.ssm_scan.launches == before + 1
+    yr, hr = sref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk,
+                                  initial_state=h0)
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, hr, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D", [(3, 96), (1000, 128), (37, 1536),
+                                 (64, 2560), (5, 4096), (129, 5120)])
+def test_rmsnorm_kernel_matches_plain(gen, dtype, R, D):
+    x = torch.randn(R, D, generator=gen, device="cuda").to(dtype)
+    scale = torch.randn(D, generator=gen, device="cuda")
+    before = rops.rmsnorm.launches
+    got = rops.rmsnorm(x, scale, 1e-6)
+    torch.cuda.synchronize()
+    assert rops.rmsnorm.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(),
+                               rref.rmsnorm_ref(x, scale, 1e-6).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_ssm_tiny_engines_card_vs_cpu(gen, backend):
+    """TINY_EDGE_C and zamba2 cut to 4 layers (float32) on the card against
+    the CPU: greedy tokens equal, logprobs within rtol 1e-4, atol 1e-5 (the
+    SSD kernel sums in another order than the plain scan), and the
+    prefills went through the SSD kernel."""
+    from repro_torch.configs.pice_cloud_edge import TINY_EDGE_C
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import InferenceEngine
+    prompts = [[65 + i for i in range(43)], [70, 71], [80] * 32]
+    for cfg in (TINY_EDGE_C.with_(dtype="float32"),
+                get_config("zamba2-2.7b").reduced().with_(
+                    n_layers=4, dtype="float32", remat=False)):
+        params = transformer.init_params(cfg, seed=0, device="cpu")
+        out = {}
+        before = sops.ssm_scan.launches
+        for dev in ("cpu", "cuda"):
+            p = params if dev == "cpu" else _to(params, "cuda")
+            out[dev] = InferenceEngine(cfg, p, max_batch=3, max_len=128,
+                                       page_size=16, kv_backend=backend,
+                                       device=dev).generate(prompts,
+                                                            max_new=12)
+        assert sops.ssm_scan.launches > before
+        for (tg, lg), (tc, lc) in zip(out["cuda"], out["cpu"]):
+            assert tg == tc
+            torch.testing.assert_close(torch.tensor(lg), torch.tensor(lc),
+                                       rtol=1e-4, atol=1e-5)
 
 
 def _to(tree, device):
