@@ -15,7 +15,11 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      8/16/32, chunk 16/48/64/128); the same over int8 and fp8 pools (the
      `_quant` wrappers; head_dim 16/24/32/128, a chunk starting mid-page,
      NaN or the extreme value stored past each length), and the float
-     wrappers over a bf16 pool under a float32 query; for the dense decode
+     wrappers over a bf16 pool under a float32 query; the tensor-core
+     prefill kernel (a bf16 query over bf16, int8 and fp8 pools) at page
+     12 and 64, head_dim 24/36/80/128/256, q_per_kv 1/4/6/16/72, chunks of
+     37 and 40, NaN or the extreme value past each length, with one and
+     with two key groups a block; for the dense decode
      kernel ragged lengths from 1 to S with NaN past each length and a slot
      of length 0; for the flash kernel window 0/64, softcap 0/30, causal
      and not, S of 200 and 300; zamba2's attention (head_dim 80, q_per_kv
@@ -61,7 +65,8 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
   6. where each full-width engine's time goes (chunked paged qwen3-8b over
      a bf16 and an int8 pool, qwen2-1.5b, dense qwen3-8b, paged zamba2):
      host wall time against device busy time by kernel (torch.profiler) on
-     a short batch, and the host's cudaLaunchKernel calls per model call;
+     a short batch, the port's kernels' time by device function, and the
+     host's cudaLaunchKernel calls per model call;
   7. one JSON line of the kernels, the card's name and power limit, and the
      final {"ok": true, ...} line.
 
@@ -74,6 +79,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -179,14 +185,96 @@ def quant_pools(torch, gen, n_pages, page, Hkv, hd, kv_dtype):
 
 
 def poison_past(torch, pools, table, lens, page):
-    """Store NaN (fp8) or the extreme value (int8) at every position of each
-    row's last mapped page past its length."""
+    """Store NaN (float32, bf16, fp8) or the extreme value (int8) at every
+    position of each row's last mapped page past its length."""
     for p in pools:
         raw = p.view(torch.uint8)
         for b, ln in enumerate(lens):
             ln = int(ln)
-            if ln % page:
+            if not ln % page:
+                continue
+            if p.dtype in (torch.float32, torch.bfloat16):
+                p[int(table[b, ln // page]), ln % page:] = float("nan")
+            else:
                 raw[int(table[b, ln // page]), ln % page:] = 0x7F
+
+
+def mma_grid_blocks(q, k_pages, R):
+    """Blocks of the tensor-core prefill kernel's grid: 64-row blocks of
+    one kv head's query heads (64 at most) at 64 / heads chunk positions.
+    Below the card's SM count a block takes two key groups."""
+    C, Hq, Hkv = q.shape[1], q.shape[2], k_pages.shape[2]
+    rep = Hq // Hkv
+    hb = min(rep, 64)
+    return R * Hkv * -(-rep // hb) * -(-C // (64 // hb))
+
+
+def prefill_mma_cases(torch, gen):
+    """The tensor-core prefill kernel (a bfloat16 query over a bf16, int8 or
+    fp8 pool) at its edges, through the wrappers, against the plain
+    versions at BF16_TOL: page 12 (not a multiple of 8) and 64, head_dim 24
+    / 36 (8-byte copies of bf16 rows) / 80 / 256 (zero-padded 16-wide
+    steps), q_per_kv 1, 4, 6, 16 and 72 (a GQA group split over blocks),
+    chunks of 37 and 40 (no multiple of 16), rows that start mid-page, a
+    padding row (lens 0, all pages -1) and -1 tail pages, NaN (bf16, fp8)
+    or 127 (int8) stored past each length. qwen3-8b's heads at R = 4 give a
+    grid of at least the SM count (one key group a block), every other
+    case a smaller one (two key groups): both paths are checked."""
+    from repro_torch.kernels.paged_prefill_attention import ops as pops
+    from repro_torch.kernels.paged_prefill_attention import ref as pref
+    bf16 = torch.bfloat16
+    n = 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    key_groups = {1: 0, 2: 0}          # cases by key groups a block
+    # (Hq, Hkv, hd, page, C): q_per_kv 4, 1, 6, 16, 16, 1, 72, 4
+    shapes = [(8, 2, 32, 12, 37), (6, 6, 80, 64, 48), (12, 2, 24, 12, 64),
+              (32, 2, 256, 16, 40), (16, 1, 64, 64, 128),
+              (8, 8, 36, 12, 37), (72, 1, 32, 12, 37),
+              (32, 8, 128, 32, 128)]
+    for kv_dtype in ("bf16", "int8", "fp8"):
+        quant = kv_dtype != "bf16"
+        for Hq, Hkv, hd, page, C in shapes:
+            if quant and hd % 8:
+                continue            # int8 / fp8 rows are read in 8 bytes
+            for offs, lens in ((None, None), ([C + 5], [C])):
+                q, kp, vp, rows, ot, lt = prefill_case(
+                    torch, gen, Hq, Hkv, hd, page, C, bf16, offs, lens)
+                pools = (quant_pools(torch, gen, kp.shape[0], page, Hkv, hd,
+                                     kv_dtype) if quant else (kp, vp))
+                # row 1 shares row 0's first pages: poison rows 0 and 2
+                live = [0, 2] if len(ot) > 1 else [0]
+                poison_past(torch, pools[:2], rows.cpu()[live],
+                            (ot + lt).cpu()[live], page)
+                if len(ot) > 1:
+                    fn = (pops.paged_prefill_attention_ragged_quant if quant
+                          else pops.paged_prefill_attention_ragged)
+                    plain = (pref.paged_prefill_attention_ragged_quant_ref
+                             if quant else
+                             pref.paged_prefill_attention_ragged_ref)
+                    got = fn(q, *pools, rows, ot, lt)
+                else:
+                    fn = (pops.paged_prefill_attention_quant if quant
+                          else pops.paged_prefill_attention)
+                    plain = (pref.paged_prefill_attention_quant_ref if quant
+                             else pref.paged_prefill_attention_ref)
+                    got = fn(q, *pools, rows[0], ot, lt)
+                want = plain(q, *pools, rows if len(ot) > 1 else rows[0],
+                             ot, lt)
+                torch.cuda.synchronize()
+                dead = torch.arange(C, device="cuda")[None, :] >= lt[:, None]
+                assert torch.isfinite(got).all(), \
+                    "NaN past a length reached out"
+                assert torch.all(got[dead] == 0), \
+                    "rows past a length must be zeros"
+                torch.testing.assert_close(valid_rows(torch, got, lt),
+                                           valid_rows(torch, want, lt),
+                                           **BF16_TOL)
+                key_groups[1 if mma_grid_blocks(q, kp, len(ot)) >= sms
+                           else 2] += 1
+                n += 1
+    assert key_groups[1] and key_groups[2], key_groups
+    log(f"tensor-core prefill cases by key groups a block: {key_groups}")
+    return n
 
 
 def quant_kernel_cases(torch, gen, dtype, tol):
@@ -406,6 +494,11 @@ def phase_kernels_vs_plain(torch):
             torch.testing.assert_close(valid_rows(torch, got, lens),
                                        valid_rows(torch, want, lens), **tol)
             n += 1
+        if dtype == torch.bfloat16:
+            nm = prefill_mma_cases(torch, gen)
+            log(f"{nm} cases of the tensor-core prefill kernel (bf16 query "
+                f"over bf16, int8 and fp8 pools) passed")
+            n += nm
         n += dense_kernel_cases(torch, gen, dtype, tol)
         nq = quant_kernel_cases(torch, gen, dtype, tol)
         log(f"{dtype} query: {nq} cases of the _quant kernels over int8 and "
@@ -1361,6 +1454,20 @@ PORT_KERNELS = ("decode_partial", "decode_merge", "paged_prefill_kernel",
                 "flash_kernel", "ssd_kernel", "rmsnorm_kernel")
 
 
+def port_kernel_times(kernels):
+    """{device function: (ms, launches)} of the port's kernels among the
+    profiler's (key, ms, count) rows, by the function's name in the key
+    (its template instances summed)."""
+    out = {}
+    for key, ms, n in kernels:
+        if not any(k in key for k in PORT_KERNELS):
+            continue
+        name = re.search(r"(\w+)[<(]", key).group(1)
+        t, c = out.get(name, (0.0, 0))
+        out[name] = (t + ms, c + n)
+    return out
+
+
 def matmul_weight_bytes(cfg, params):
     """Bytes a model call's matmuls must read at least once: every matrix
     of the layers (a hybrid's shared block once per application: it does
@@ -1442,8 +1549,10 @@ def phase_profile(torch, engines):
             f"{t2 - t1:.1f} s, its averages {time.perf_counter() - t2:.1f} s")
         port_ms = sum(ms for key, ms, _ in kernels
                       if any(k in key for k in PORT_KERNELS))
+        by_name = ", ".join(f"{name} {ms:.3f} ms x{n}" for name, (ms, n)
+                            in port_kernel_times(kernels).items())
         log(f"  the port's kernels: {port_ms:.1f} ms "
-            f"({100 * port_ms / device_ms:.1f} % of device time)")
+            f"({100 * port_ms / device_ms:.1f} % of device time): {by_name}")
         if eng.recurrent:
             ssd = state_bytes(eng, "ssd")
             log(f"  recurrent decode: {ssd} B of SSD state over "

@@ -1,0 +1,87 @@
+// Tensor-core and asynchronous-copy helpers shared by the attention kernels
+// that run their products on mma.sync (flash_attention.cu's bf16 path and
+// paged_prefill_attention.cu's mma kernel): the m16n8k16 bf16 product, the
+// ldmatrix loads that feed K's and (transposed) V's B fragments, bf16
+// packing, and the cp.async copies (with zero fill) that stage K/V tiles in
+// shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace paged {
+
+// d += a . b on the tensor cores: a 16 x 16 bf16 A fragment (four registers,
+// rows g and g + 8, columns 2 t, 2 t + 1, 2 t + 8, 2 t + 9 with g = lane / 4
+// and t = lane % 4), a 16 x 8 B fragment (b0: rows 2 t, 2 t + 1 of column
+// g; b1: rows 2 t + 8, 2 t + 9), f32 accumulators (rows g, g + 8 at
+// columns 2 t, 2 t + 1).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices: lanes 8 i .. 8 i + 7 give the row addresses of
+// matrix i, and r[i] receives row lane / 4, columns 2 (lane % 4) and
+// 2 (lane % 4) + 1 of it: the B fragment of a matrix stored column-major
+// (K's rows are B's columns).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const uint32_t* row) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Four 8x8 b16 matrices, transposed: lanes 8 i .. 8 i + 7 give the row
+// addresses of matrix i, and r[i] receives its B-fragment register.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const uint32_t* row) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// cp.async of 16 or 8 bytes from global into shared memory. With `fill`
+// false nothing is read and the destination is written with zeros (the
+// src-size operand 0), so a masked row lands as zeros in the same stage.
+// 16-byte copies bypass L1 (.cg); 8-byte copies can only go through it.
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
+                                            bool fill) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(fill ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_8(void* smem, const void* gmem,
+                                           bool fill) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(fill ? 8 : 0));
+}
+// Close the copies started since the last commit into one group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most N committed groups of this thread are in flight; the
+// landed bytes are then visible to this thread (a barrier makes them
+// visible to the block).
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+}  // namespace paged

@@ -34,8 +34,12 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("paged_decode_attention", "paged_prefill_attention",
            "decode_attention", "flash_attention", "ssm_scan", "rmsnorm")
+# --split-compile=0 optimises a source's kernel instances in parallel on
+# every core: the same code, in less than half the build time for the
+# prefill source's 23 instances.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

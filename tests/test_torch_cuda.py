@@ -69,7 +69,10 @@ def test_decode_kernel_matches_plain(gen, dtype, Hq, Hkv, hd, page):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,hd,page,C", [(8, 2, 32, 8, 16),
-                                              (12, 2, 128, 32, 64)])
+                                              (12, 2, 128, 32, 64),
+                                              (12, 2, 80, 12, 40),
+                                              (24, 4, 256, 64, 64),
+                                              (72, 1, 32, 12, 37)])
 def test_prefill_kernels_match_plain(gen, dtype, Hq, Hkv, hd, page, C):
     offs = torch.tensor([C, 0, 0], dtype=torch.int32)
     lens = torch.tensor([C, C // 2, 0], dtype=torch.int32)
@@ -216,7 +219,10 @@ def test_quant_decode_kernel_matches_plain(gen, kv_dtype, dtype, Hq, Hkv,
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,hd,page,C", [(8, 2, 32, 8, 16),
-                                              (12, 2, 128, 32, 64)])
+                                              (12, 2, 128, 32, 64),
+                                              (12, 2, 80, 12, 40),
+                                              (24, 4, 256, 64, 64),
+                                              (72, 1, 32, 12, 37)])
 def test_quant_prefill_kernels_match_plain(gen, kv_dtype, dtype, Hq, Hkv, hd,
                                            page, C):
     offs = torch.tensor([C, 3, 0], dtype=torch.int32)
