@@ -22,13 +22,16 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      with two key groups a block; for the dense decode
      kernel ragged lengths from 1 to S with NaN past each length and a slot
      of length 0; for the flash kernel window 0/64, softcap 0/30, causal
-     and not, S of 200 and 300; zamba2's attention (head_dim 80, q_per_kv
-     1) through the paged, dense-decode, flash and int8 decode kernels; a
-     float32 query at rtol=atol=2e-5 and bfloat16 at rtol=atol=2e-2; the
+     and not, S of 200 and 300, and its tensor-core kernel (bf16) at
+     q_per_kv 1/4/6/16/72, head_dim 64/80/128/256, S 1/37/200/1000 under
+     six masks, in each of its launch shapes; zamba2's attention (head_dim
+     80, q_per_kv 1) through the paged, dense-decode, flash and int8 decode
+     kernels; a float32 query at rtol=atol=2e-5 and bfloat16 at
+     rtol=atol=2e-2; the
      SSD scan on the JAX kernel test's cases, ragged S (37, 1000),
      TINY_EDGE_C's and zamba2's heads and an initial state at
-     rtol=atol=1e-4; RMSNorm in float32 and bfloat16 at D 96 to 5120 and
-     row counts no block divides;
+     rtol=atol=1e-4; RMSNorm in float32 and bfloat16 at D 96 to 5120 (the
+     served widths among them) and 1 to 1027 rows;
   3. each kernel's time at the serving shapes of qwen3-8b and qwen2-1.5b
      (CUDA events, median of 21 runs, L2 flushed before each), beside its
      bound, its plain version's time and scaled_dot_product_attention as a
@@ -37,7 +40,9 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      for the dense decode, causal for flash); the SSD scan at zamba2's
      prefill shapes (1 x 256 and 1 x 1024 tokens; no single PyTorch call
      computes it) and RMSNorm over 1024 rows of qwen3-8b's and zamba2's
-     widths beside `torch.nn.functional.rms_norm`;
+     widths, qwen3-8b's decode (8 x 4096) and q-norm (8192 x 128) rows
+     beside `torch.nn.functional.rms_norm`; the flash kernel also at phase
+     6's monolithic prefill (qwen3-8b, B 4, S 256);
   4. the TINY test config through the port's dense, monolithic paged and
      chunked paged engines on the card and on the CPU: greedy tokens
      equal, logprobs within rtol 1e-4, atol 1e-5; dense and monolithic
@@ -61,7 +66,8 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      zamba2 engine, the int8 pool's KV read bytes against the bf16 pool's
      on one batch, and `score()` of a 1024-token sequence on each model;
      every kernel's launch counter is set to 0 just before each of these
-     paths and read just after;
+     paths and read just after: RMSNorm runs on every path, and the flash
+     kernel once an attention layer for each monolithic prefill;
   6. where each full-width engine's time goes (chunked paged qwen3-8b over
      a bf16 and an int8 pool, qwen2-1.5b, dense qwen3-8b, paged zamba2):
      host wall time against device busy time by kernel (torch.profiler) on
@@ -499,6 +505,9 @@ def phase_kernels_vs_plain(torch):
             log(f"{nm} cases of the tensor-core prefill kernel (bf16 query "
                 f"over bf16, int8 and fp8 pools) passed")
             n += nm
+            nf = flash_wgmma_cases(torch, gen)
+            log(f"{nf} cases of the tensor-core flash kernel passed")
+            n += nf
         n += dense_kernel_cases(torch, gen, dtype, tol)
         nq = quant_kernel_cases(torch, gen, dtype, tol)
         log(f"{dtype} query: {nq} cases of the _quant kernels over int8 and "
@@ -554,15 +563,76 @@ def ssm_scan_cases(torch, gen):
     return n
 
 
+def flash_launch_shape(torch, B, S, Hq, Hkv, hd):
+    """(rows, key groups) of a block of the bf16 flash kernel's launch
+    (`csrc/flash_attention.cu` launch_wgmma_shape): 128 rows where that
+    grid has at least as many blocks as the card has SMs; else 64 rows with
+    two key groups up to head_dim 192, one above."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rep = Hq // Hkv
+    hb = min(rep, 128)
+    if B * Hkv * -(-rep // hb) * -(-S // (128 // hb)) >= sms:
+        return 128, 1
+    return 64, (2 if hd <= 192 else 1)
+
+
+def flash_wgmma_cases(torch, gen):
+    """The tensor-core flash kernel (bf16) against its plain version at
+    BF16_TOL: q_per_kv 1, 4, 6, 16 and 72 (a GQA group split over blocks),
+    head_dim 64, 80, 128 and 256 (64-wide atoms, zero padded), S 1, 37,
+    200 and 1000 (no multiple of a tile), causal and not, window 0 / 64,
+    softcap 0 / 30. Every launch shape (128 rows; 64 rows with two key
+    groups and with one) is among them."""
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention import ref as faref
+    bf16 = torch.bfloat16
+    shapes = {}
+    n = 0
+    # (Hq, Hkv, hd): q_per_kv 1, 4, 6, 16, 72, 1 (zamba2's heads)
+    for Hq, Hkv, hd in [(8, 8, 64), (32, 8, 128), (12, 2, 128),
+                        (32, 2, 256), (72, 1, 80), (32, 32, 80)]:
+        for S in (1, 37, 200, 1000):
+            B = 2 if S == 37 else 1
+            q = torch.randn(B, S, Hq, hd, generator=gen,
+                            device="cuda").to(bf16)
+            k = torch.randn(B, S, Hkv, hd, generator=gen,
+                            device="cuda").to(bf16)
+            v = torch.randn(B, S, Hkv, hd, generator=gen,
+                            device="cuda").to(bf16)
+            shape = flash_launch_shape(torch, B, S, Hq, Hkv, hd)
+            for causal, window, softcap in FLASH_MASKS:
+                kw = dict(causal=causal, window=window, softcap=softcap)
+                got = faops.flash_attention(q, k, v, **kw)
+                torch.cuda.synchronize()
+                assert torch.isfinite(got).all()
+                torch.testing.assert_close(
+                    got.float(),
+                    faref.flash_attention_ref(q, k, v, **kw).float(),
+                    **BF16_TOL)
+                shapes[shape] = shapes.get(shape, 0) + 1
+                n += 1
+    assert set(shapes) == {(128, 1), (64, 2), (64, 1)}, shapes
+    log(f"tensor-core flash cases by (rows, key groups) a block: {shapes}")
+    return n
+
+
+# (causal, window, softcap) of the flash kernel's card cases
+FLASH_MASKS = [(True, 0, 0.0), (True, 64, 0.0), (True, 0, 30.0),
+               (False, 0, 0.0), (False, 64, 30.0), (True, 64, 30.0)]
+
+
 def rmsnorm_cases(torch, gen):
     """#10 against its plain version: float32 and bfloat16, D from 96 to
-    5120, row counts no block of 8 rows divides."""
+    5120 (the served widths: 128 for q/k-norm, 1536, 2560, 4096 and 5120),
+    row counts no block divides (1, 8, 256, 1027 and more)."""
     from repro_torch.kernels.rmsnorm import ops as rops
     from repro_torch.kernels.rmsnorm import ref as rref
     n = 0
+    widths = (128, 1536, 2560, 4096, 5120)
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         for R, D in [(3, 96), (1000, 128), (37, 1536), (64, 2560),
-                     (5, 4096), (129, 5120)]:
+                     (5, 4096), (129, 5120)] + [
+                (R, D) for R in (1, 8, 256, 1027) for D in widths]:
             x = torch.randn(R, D, generator=gen, device="cuda").to(dtype)
             scale = torch.randn(D, generator=gen, device="cuda")
             got = rops.rmsnorm(x, scale, 1e-6)
@@ -786,8 +856,10 @@ def time_ssm_rms_kernels(torch, gen, flush, rows):
     64, N 64, float32 as the model feeds it; no single PyTorch call
     computes the scan), bound by its float32 operations at the card's rate
     outside the tensor cores, and #10 over 1024 bf16 rows of qwen3-8b's
-    width (4096) and of zamba2's gated norm (5120), beside
-    `torch.nn.functional.rms_norm` (weight cast to bf16 beforehand)."""
+    width (4096) and of zamba2's gated norm (5120), over qwen3-8b's decode
+    rows (8 x 4096) and its q-norm rows (8 x 32 heads x 32 positions of
+    128), beside `torch.nn.functional.rms_norm` (weight cast to bf16
+    beforehand)."""
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import ops as rops
     from repro_torch.kernels.rmsnorm import ref as rref
@@ -815,8 +887,9 @@ def time_ssm_rms_kernels(torch, gen, flush, rows):
             max_abs_err=err, ms=device_ms(torch, run, flush),
             plain_ms=device_ms(torch, plain, flush), library_ms=None,
             bound=bound(nbytes, flops, F32_FLOPS_PER_S))
-    R = 1024
-    for label, D in (("qwen3-8b", 4096), ("zamba2-2.7b", 5120)):
+    for label, R, D in (("qwen3-8b", 1024, 4096), ("zamba2-2.7b", 1024, 5120),
+                        ("qwen3-8b decode", 8, 4096),
+                        ("qwen3-8b q-norm", 8192, 128)):
         x = torch.randn(R, D, generator=gen, device="cuda").to(torch.bfloat16)
         scale = torch.randn(D, generator=gen, device="cuda")
         run = functools.partial(rops.rmsnorm, x, scale, 1e-6)
@@ -956,15 +1029,14 @@ def time_quant_kernels(torch, gen, flush, models, rows):
 def time_dense_kernels(torch, gen, flush, models, rows):
     """The dense decode kernel at B = 8 slots of a max_len = 1024 cache
     filled to 512, read as the engine reads it (a view of the live rows),
-    and the flash kernel at B = 1, S = 1024, causal (bf16, head_dim 128).
+    and the flash kernel at B = 1, S = 1024, causal (bf16, head_dim 128),
+    and at phase 6's monolithic prefill (qwen3-8b, B = 4, S = 256).
     Bound inputs are logged beside each time. The decode kernel is also
     timed at phase 6's fill (288), over the live view and over the whole
     cache."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as ddops
     from repro_torch.kernels.decode_attention import ref as ddref
-    from repro_torch.kernels.flash_attention import ops as faops
-    from repro_torch.kernels.flash_attention import ref as faref
     dt, esz, hd = torch.bfloat16, 2, 128
     for model, (Hq, Hkv) in models.items():
         rep = Hq // Hkv
@@ -1003,32 +1075,48 @@ def time_dense_kernels(torch, gen, flush, models, rows):
                     F.scaled_dot_product_attention, q.transpose(1, 2),
                     kc.contiguous(), vc.contiguous(), attn_mask=mask), flush),
                 bound=bound(nbytes, 4 * hd * Hq * int(lens.sum())))
-        B, S = 1, 1024
-        q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dt)
-        k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dt)
-        v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dt)
-        got = faops.flash_attention(q, k, v)
-        want = faref.flash_attention_ref(q, k, v)
-        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
-        flops = 4 * hd * Hq * S * (S + 1) // 2
-        nbytes = (2 * q.numel() + 2 * k.numel()) * esz
-        log(f"flash_attention bound inputs [{model}]: {flops} flops "
-            f"(4 * hd * Hq * S(S+1)/2); q/out {2 * q.numel() * esz} B + "
-            f"k/v {2 * k.numel() * esz} B")
-        qs = q.transpose(1, 2)
-        ks = k.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
-        vs = v.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
-        rows[("flash_attention", model)] = dict(
-            shape=f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} hd={hd}",
-            max_abs_err=(got.float() - want.float()).abs().max().item(),
-            ms=device_ms(torch, functools.partial(
-                faops.flash_attention, q, k, v), flush),
-            plain_ms=device_ms(torch, functools.partial(
-                faref.flash_attention_ref, q, k, v), flush),
-            library_ms=device_ms(torch, functools.partial(
-                F.scaled_dot_product_attention, qs, ks, vs, is_causal=True),
-                flush),
-            bound=bound(nbytes, flops))
+        rows[("flash_attention", model)] = flash_row(
+            torch, gen, flush, model, 1, 1024, Hq, Hkv, hd)
+    # monolithic prefill of phase 6's batch: 4 prompts of 256 tokens
+    rows[("flash_attention", "qwen3-8b B=4 S=256")] = flash_row(
+        torch, gen, flush, "qwen3-8b B=4 S=256", 4, 256,
+        *models["qwen3-8b"], hd)
+
+
+def flash_row(torch, gen, flush, label, B, S, Hq, Hkv, hd):
+    """#7 at (B, S), causal, bf16: kernel, plain and SDPA (over
+    head-repeated K/V, is_causal) times, the bound by 4 * hd flops a kept
+    (query, key) pair against q, k, v and out read or written once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention import ref as faref
+    dt, esz, rep = torch.bfloat16, 2, Hq // Hkv
+    q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dt)
+    got = faops.flash_attention(q, k, v)
+    want = faref.flash_attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    flops = 4 * hd * Hq * B * S * (S + 1) // 2
+    nbytes = (2 * q.numel() + 2 * k.numel()) * esz
+    log(f"flash_attention bound inputs [{label}]: {flops} flops "
+        f"(4 * hd * Hq * B * S(S+1)/2); q/out {2 * q.numel() * esz} B + "
+        f"k/v {2 * k.numel() * esz} B; launch shape (rows, key groups) "
+        f"{flash_launch_shape(torch, B, S, Hq, Hkv, hd)}")
+    qs = q.transpose(1, 2)
+    ks = k.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+    vs = v.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+    return dict(
+        shape=f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} hd={hd}",
+        max_abs_err=(got.float() - want.float()).abs().max().item(),
+        ms=device_ms(torch, functools.partial(
+            faops.flash_attention, q, k, v), flush),
+        plain_ms=device_ms(torch, functools.partial(
+            faref.flash_attention_ref, q, k, v), flush),
+        library_ms=device_ms(torch, functools.partial(
+            F.scaled_dot_product_attention, qs, ks, vs, is_causal=True),
+            flush),
+        bound=bound(nbytes, flops))
 
 
 def phase_tiny_parity(torch):
@@ -1213,6 +1301,36 @@ def counted(torch, fn):
     return out, {name: c.launches for name, c in counters.items()}
 
 
+class MonolithicPrefills:
+    """Counts each engine's monolithic prefills (`_prefill_into` on a dense
+    engine or a paged one that does not chunk) inside the `with`, and the
+    flash launches they must make: one an attention layer each."""
+
+    def __init__(self, engines):
+        self.engines, self.counts = engines, {}
+
+    def __enter__(self):
+        for name, eng in self.engines.items():
+            self.counts[name] = 0
+            if eng.kv_backend == "paged" and eng.prefill_chunk:
+                continue
+            inner = eng._prefill_into
+
+            def counted_prefill(*args, _name=name, _inner=inner, **kw):
+                self.counts[_name] += 1
+                return _inner(*args, **kw)
+            eng._prefill_into = counted_prefill
+        return self
+
+    def __exit__(self, *exc):
+        for eng in self.engines.values():
+            eng.__dict__.pop("_prefill_into", None)
+
+    def flash_launches(self):
+        return sum(n * attention_layers(self.engines[name].cfg)
+                   for name, n in self.counts.items())
+
+
 def profile_prompts():
     """Phase 6's batch: 4 prompts of 256 tokens."""
     return [[(7 * i + j) % 251 + 1 for j in range(256)] for i in range(4)]
@@ -1239,7 +1357,9 @@ def pin_progressive(scheduler):
 def run_pipeline(torch, engines, n_requests, label):
     """Profile the engines, build the PICE pipeline (qwen3-8b cloud) and
     answer `n_requests` corpus requests, counting kernel launches over the
-    requests. Returns (the launches, the tokens each engine generated).
+    requests: the flash kernel's must be one an attention layer for each
+    monolithic prefill. Returns (the launches, the tokens each engine
+    generated).
 
     The scheduler picks cloud_full or progressive per request from the
     engines' profiled rates, and those vary between calls (the edge's cost
@@ -1274,7 +1394,8 @@ def run_pipeline(torch, engines, n_requests, label):
         return modes
 
     t0 = time.perf_counter()
-    modes, launches = counted(torch, answer)
+    with MonolithicPrefills(engines) as mono:
+        modes, launches = counted(torch, answer)
     wall = time.perf_counter() - t0
     log(f"{label} pipeline: {len(modes)} requests in {wall:.2f} s, modes "
         f"{modes}")
@@ -1285,7 +1406,10 @@ def run_pipeline(torch, engines, n_requests, label):
         generated[name] = toks
         log(f"  {name} ({label}): {toks} tokens in {busy:.2f} s busy "
             f"({toks / max(busy, 1e-9):.1f} tok/s)")
-    log(f"  kernel launches on the {label} pipeline run: {launches}")
+    log(f"  kernel launches on the {label} pipeline run: {launches}; "
+        f"monolithic prefills {mono.counts}")
+    assert launches["flash_attention"] == mono.flash_launches(), \
+        "a monolithic prefill layer did not run the flash kernel once"
     return launches, generated
 
 
@@ -1366,11 +1490,15 @@ def phase_full_width(torch):
                            ("monolithic paged fp8 generate", mono_fp8),
                            ("zamba2 monolithic paged generate", zamba)):
             t0 = time.perf_counter()
-            _, paths[label] = counted(
-                torch, lambda: eng.generate(profile_prompts(), max_new=32))
+            with MonolithicPrefills({label: eng}) as mono:
+                _, paths[label] = counted(
+                    torch, lambda: eng.generate(profile_prompts(), max_new=32))
             log(f"{label} {eng.cfg.name}: 4 x 256-token prompts, 32 new "
                 f"tokens each, in {time.perf_counter() - t0:.2f} s; "
-                f"launches {paths[label]}")
+                f"{mono.counts[label]} monolithic prefills; launches "
+                f"{paths[label]}")
+            assert paths[label]["flash_attention"] == mono.flash_launches(), \
+                f"{label}: one flash launch an attention layer a prefill"
         kv_read_ratio(torch, quant["qwen3-8b"], engines["qwen3-8b"])
         seq = [(13 * i) % 251 + 1 for i in range(1024)]
         for name, eng in dense.items():
@@ -1408,7 +1536,12 @@ def phase_full_width(torch):
             ("zamba2 monolithic paged generate", "ssm_scan"),
             ("zamba2 monolithic paged generate", "paged_decode_attention"),
             ("score zamba2-2.7b", "ssm_scan"),
-            ("score zamba2-2.7b", "flash_attention")):
+            ("score zamba2-2.7b", "flash_attention"),
+            ("dense pipeline", "flash_attention"),
+            ("monolithic paged generate", "flash_attention"),
+            ("monolithic paged fp8 generate", "flash_attention"),
+            ("zamba2 monolithic paged generate", "flash_attention")) + tuple(
+                (path, "rmsnorm") for path in paths):
         assert paths[path][kernel] > 0, f"{kernel} never ran on the {path}"
     return paths, {"qwen3-8b": engines["qwen3-8b"],
                    "qwen3-8b-int8": quant["qwen3-8b"],
@@ -1449,9 +1582,11 @@ def kv_read_ratio(torch, quant, ref):
 
 
 MATMUL_KERNELS = ("nvjet", "gemm", "gemv", "cutlass", "xmma")
-# the device functions of csrc/*.cu, as the profiler names them
-PORT_KERNELS = ("decode_partial", "decode_merge", "paged_prefill_kernel",
-                "flash_kernel", "ssd_kernel", "rmsnorm_kernel")
+# the device functions of csrc/*.cu, as the profiler names them (a name
+# also matches the keys of the functions it is a prefix of)
+PORT_KERNELS = ("decode_partial", "decode_merge", "paged_prefill_kernel_mma",
+                "paged_prefill_kernel", "flash_kernel_wgmma", "flash_kernel",
+                "ssd_kernel", "rmsnorm_kernel")
 
 
 def port_kernel_times(kernels):
@@ -1508,8 +1643,8 @@ def phase_profile(torch, engines):
     device time / unprofiled wall time (one stream, so kernels do not
     overlap). The matmuls' bound is their weight bytes, read once per model
     call, over the HBM rate; model calls = attention-kernel launches of the
-    profiled run / attention layers, plus one call per prompt where the
-    prefill is monolithic (it runs no attention kernel of the port). A
+    profiled run / attention layers (a monolithic prefill launches the
+    flash kernel once a layer). A
     recurrent engine's decode also reads and writes every slot's SSD state
     each step, logged beside its row."""
     from torch.profiler import ProfilerActivity, profile
@@ -1535,8 +1670,7 @@ def phase_profile(torch, engines):
         t2 = time.perf_counter()
         averages = prof.key_averages()
         attn = sum(counters[k].launches for k in ATTENTION_KERNELS)
-        calls = attn / attention_layers(eng.cfg) + (
-            0 if eng.prefill_chunk else len(prompts))
+        calls = attn / attention_layers(eng.cfg)
         # device-side events only (kernels, copies, memsets): the host ops
         # that launched them repeat the same device time
         kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -1627,14 +1761,16 @@ MAIN_PATH = {"paged_decode_attention": "chunked paged pipeline",
                  "int8 chunked paged pipeline",
              "paged_prefill_attention_quant": "int8 chunked paged pipeline",
              "decode_attention": "dense pipeline",
-             "flash_attention": "score qwen3-8b",
+             "flash_attention": "dense pipeline",
              "ssm_scan": "chunked paged pipeline",
-             # no model path calls it, in the JAX package or the port
-             "rmsnorm": None}
+             "rmsnorm": "chunked paged pipeline"}
 # the timing rows of each kernel (phase 3): the first at the top level of
-# its JSON entry, the second under its own name
+# its JSON entry, the others under their own names
 TIMING_ROWS = {"ssm_scan": ("zamba2-2.7b", "zamba2-2.7b S=256"),
-               "rmsnorm": ("qwen3-8b", "zamba2-2.7b")}
+               "flash_attention": ("qwen3-8b", "qwen2-1.5b",
+                                   "qwen3-8b B=4 S=256"),
+               "rmsnorm": ("qwen3-8b", "zamba2-2.7b", "qwen3-8b decode",
+                           "qwen3-8b q-norm")}
 
 
 def main() -> int:
@@ -1659,18 +1795,14 @@ def main() -> int:
     for name, (source, replaces) in SOURCES.items():
         path = MAIN_PATH[name]
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "main_path": path}
-        if path is None:
-            # on no main path: its launches summed over every phase-5 path
-            entry["launches"] = sum(p[name] for p in paths.values())
-            entry["launches_from"] = "all phase-5 paths"
-        else:
-            entry["launches"] = paths[path][name]
+                 "replaces": replaces, "main_path": path,
+                 "launches": paths[path][name]}
         # the top-level numbers are the first timing row's (the cloud
         # model's, qwen3-8b, for attention; zamba2's prefill for the SSD
-        # scan); the second row's follow under its own name
-        first, second = TIMING_ROWS.get(name, ("qwen3-8b", "qwen2-1.5b"))
-        for model in (first, second):
+        # scan); the other rows' follow under their own names
+        labels = TIMING_ROWS.get(name, ("qwen3-8b", "qwen2-1.5b"))
+        first = labels[0]
+        for model in labels:
             r = timing[(name, model)]
             nums = {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
                     "tolerance": SCAN_TOL if name == "ssm_scan" else BF16_TOL,

@@ -16,29 +16,53 @@
 // What bounds it on the H100: its flops, 4 * hd per (query, key) pair the
 // mask keeps, over the card's peak rate (989 TFLOP/s on the bf16 tensor
 // cores); its bytes (q, k, v read once, out written once) are smaller at
-// every serving shape.
+// every serving shape: at S = 1024, causal, qwen3-8b's heads, 8.6 GFLOP
+// (8.7 us) against 21.0 MB (6.3 us).
 //
-// What the design does: one block of 128 threads (4 warps) per (batch, kv
-// head, tile of 64 query rows). The block's query rows are every query
-// head of the kv head's group at BP = 64 / q_per_kv positions, so each K/V
-// tile it loads serves all q_per_kv heads. The TPU's sequential KV grid
-// axis with carried VMEM scratch becomes a loop over KV tiles inside the
-// block, with the softmax state (max, sum) and the (rows, hd) accumulator
-// in registers, all float32. K/V tiles are read in 8-byte pieces,
-// kLoadBatch of K and of V in flight per thread before any is stored.
-//  - bfloat16 (flash_kernel_mma): both products on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate), FlashAttention-2 style:
-//    each warp owns 16 query rows; Q stays in registers as A fragments
-//    for the whole block; K and V tiles are staged row-major in shared
-//    memory with rows padded so that fragment loads hit distinct banks,
-//    and V's B fragments come through ldmatrix.trans; the score
-//    accumulators become the P.V product's A fragments in registers,
-//    rounded to bf16 as the plain version rounds its probabilities to v's
-//    dtype.
+// Two kernels, chosen by type in the C entry point:
+//  - bfloat16 (flash_kernel_wgmma), the serving path (monolithic prefill and
+//    score()): both products as Hopper warpgroup products (wgmma
+//    m64n64k16, bf16 in, f32 accumulate), asynchronous on the tensor cores.
+//     * S = Q K^T reads Q and K from shared memory: tiles of 128-byte
+//       swizzled atoms (64 head_dim columns, 8-row groups 1024 bytes apart,
+//       K-major descriptors; head_dim zero padded to 64, 128, 192 or 256).
+//       O += P V takes P from registers (the S accumulators, rounded to
+//       bf16, are the register A operand as they stand, as the plain
+//       version rounds its probabilities to v's dtype) and reads V
+//       transposed (MN-major) from the same layout, 64 output columns a
+//       product. No fragment passes through ldmatrix or staging registers.
+//     * GQA packing: a block's rows are query heads of one kv head's group
+//       at rows / heads positions, so each K/V tile it loads serves the
+//       whole group; a group of more heads than rows is split over blocks
+//       (one position each). 128 rows (two warpgroups of 64) a block where
+//       that grid fills the 132 SMs, so that each K/V tile read from L2
+//       serves 128 rows (at qwen3-8b, S 1024: 2,176 tiles of 32 KB, where
+//       64-row blocks would read 4,352). Where it does not (qwen2-1.5b's 12
+//       over 2 heads: 98 blocks), 64 rows with two key groups, each walking
+//       every other key tile with its own stages and merged through shared
+//       memory at the end: half the chain of dependent tiles per block.
+//       Position tiles run heaviest first across every head.
+//     * K/V tiles of 64 keys arrive through a ring of three cp.async stages
+//       (two where three do not fit), copied two tiles ahead (16-byte
+//       copies where rows and pointers allow, else 8; keys past S zero
+//       filled by the copy's src-size, so nothing past S reaches P.V), at
+//       one wait, one proxy fence and one barrier a tile.
+//     * Base-2 online softmax with scale * log2(e) folded into one FMA a
+//       score and 2^x as one ex2.approx (p = 2^(s * c - m)), each thread's
+//       share of a row sum kept until the end; the mask runs only on tiles
+//       that S, the causal diagonal or the window's edge cuts, and the
+//       softcap's tanh only with a softcap.
+//     * The output leaves through the warpgroup's Q tile (swizzled, so the
+//       accumulators' 4-byte writes are conflict free) as whole 16-byte
+//       pieces of each output row.
 //  - float32 (flash_kernel): scalar FMAs from shared memory, register-
 //    tiled (a thread computes a 4 x 4 block of scores and a 4 x (hd / 8)
 //    block of the output), which keeps the float32 path exact to the plain
 //    version's rounding (tolerance 2e-5) at a fraction of the card's rate.
+//    One block of 128 threads per (batch, kv head, tile of 64 query rows),
+//    the rows every query head of the group at 64 / q_per_kv positions
+//    (q_per_kv up to 64); K/V tiles read in 8-byte pieces, kLoadBatch of K
+//    and of V in flight per thread before any is stored.
 //
 // Layouts (all contiguous): q, out (B, S, Hq, hd); k, v (B, S, Hkv, hd);
 // head_dim a multiple of 4 up to 256; query head j reads kv head
@@ -253,236 +277,518 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores
+// bfloat16 on the tensor cores: warpgroup products (wgmma)
 // ---------------------------------------------------------------------------
 
-constexpr int kBKm = 64;  // keys per KV tile of the mma kernel
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kKeys = 64;               // keys per K/V tile
+constexpr int kTileBytes = 64 * 128;  // 64 rows x one 128-byte atom
 
-// K and V tile rows hold KT * 16 bf16 plus 8 of padding: KT * 8 + 4 words.
-// That stride is 4 mod 8 words, so the 8 x 4 lanes of a K fragment load
-// land on 32 distinct banks and the 8 rows of an ldmatrix (16 bytes each,
-// an odd number of 16-byte units apart) on distinct bank groups.
-size_t mma_smem_bytes(int kt) {
-  return sizeof(uint32_t) * 2 * (size_t)kBKm * (kt * 8 + 4);
+// 2^x in one instruction (2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Warp w owns block rows 16 w + g and 16 w + g + 8 (g = lane / 4); a
-// thread holds, per 8-wide column tile, columns 2 t and 2 t + 1 (t =
-// lane % 4) of both rows: the m16n8k16 accumulator layout. KT = 16-wide
-// head_dim steps of Q.K^T (head_dim zero padded), NT = 8-wide output tiles.
-template <int KT, int NT>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, int S, int Hq, int Hkv,
-                 int hd, int BP, int causal, int window, float softcap,
-                 float scale) {
-  using V = Vec<__nv_bfloat16>;
-  using Raw = typename V::Raw;
-  constexpr int VEC = V::kN;
-  constexpr int KS = KT * 8 + 4;  // row stride in words (mma_smem_bytes)
-  constexpr int NJ = kBKm / 8;  // 8-wide key tiles of a KV tile
-  const int rep = Hq / Hkv;
-  const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+// A wgmma shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// cp.async-written (generic proxy) shared memory made visible to wgmma's
+// reads (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+#define WG_D32(d)                                                          \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),              \
+      "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),          \
+      "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),          \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),          \
+      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),          \
+      "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),          \
+      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),          \
+      "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+#define WG_DREGS                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31}"
+
+// d (64 x 64, f32; thread layout of the m16n8 accumulators, tile j = d[j])
+// = (scale_d ? d : 0) + A . B, A (64 x 16) and B (16 x 64) bf16 in shared
+// memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_DREGS
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d += A . B, A (64 x 16) bf16 in registers (the m16n8k16 A-fragment
+// layout, warp w rows 16 w ..), B (16 x 64) bf16 in shared memory,
+// MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_DREGS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Byte offset of element column c (bf16) of row r in a tile of `rows`
+// rows stored as 128-byte-swizzled atoms of 64 columns: atom c / 64 holds
+// rows x 128 bytes, row r's 16-byte chunk i at (i ^ r % 8) * 16.
+__device__ __forceinline__ uint32_t sw128_offset(int r, int c, int rows) {
+  return (uint32_t)((c >> 6) * rows * 128 + r * 128 +
+                    ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2);
+}
+
+// A block has RW x KG warpgroups of 4 warps. Row warpgroup wg owns
+// block rows 64 wg .. 64 wg + 63, warp u of it rows 16 u .. 16 u + 15 of
+// those: a thread holds rows g and g + 8 (g = lane / 4) and, per 8-wide
+// column tile, columns 2 t and 2 t + 1 (t = lane % 4), the layout of the
+// wgmma accumulators and of its register A operand. The block takes HB
+// heads of kv head h's group from head h0 on, at BP = rows / HB positions
+// from p0: block row i is query head h * rep + h0 + i / np at position p0
+// + i % np. Key group kg walks the block's key tiles kg, kg + KG, ... with
+// its own stages; with two groups their partial softmax states are merged
+// through shared memory at the end. A = 64-wide head_dim atoms (head_dim
+// zero padded); ST = stages a key group's K/V tiles cycle through.
+// K/V stages of a key group: three where they fit in shared memory
+template <int A, int KG>
+__host__ __device__ constexpr int wgmma_stages() {
+  return A == 4 || (A == 3 && KG == 2) ? 2 : 3;
+}
+
+template <int A, int RW, int KG>
+__global__ void __launch_bounds__(128 * RW * KG)
+flash_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ out, int S, int Hq, int Hkv,
+                   int hd, int HB, int causal, int window, float softcap,
+                   float scale_log2, int copy_bytes) {
+  constexpr int NJ = 8;  // 8-wide key tiles of a K/V tile, and output
+                         // tiles of a 64-column atom
+  constexpr int key_groups = KG, rows = 64 * RW, threads = 128 * RW * KG;
+  constexpr int n_stages = wgmma_stages<A, KG>();
+  const int rep = Hq / Hkv, BP = rows / HB;
+  const int n_split = (rep + HB - 1) / HB;
+  // position tiles on grid y, heaviest first: the card takes blocks in x
+  // order first, so every head's heaviest tiles start in the first wave
+  const int tile = gridDim.y - 1 - blockIdx.y;
+  const int h = blockIdx.x / n_split, b = blockIdx.z;
+  const int h0 = (blockIdx.x % n_split) * HB;
   const int p0 = tile * BP;
   const int np = min(BP, S - p0);
-  const int nrows = np * rep;
+  const int nrows = np * min(HB, rep - h0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  // warpgroup: row slot wg, key group kg
+  const int wg = (warp >> 2) % RW;
+  const int kg = KG == 1 ? 0 : (warp >> 2) / RW;
+  const int wu = warp & 3;
+  constexpr int gthreads = 128 * RW;
+  const int gtid = tid - kg * gthreads;
 
-  extern __shared__ uint32_t smem_w[];
-  uint32_t* ks = smem_w;                            // (kBKm, KS) words
-  uint32_t* vs = ks + kBKm * KS;                    // (kBKm, KS) words
+  // shared memory from a 1024-byte boundary (the swizzle's period): Q
+  // (rows x A atoms), then each key group's n_stages stages of K and V
+  // (64 keys x A atoms each)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  uint8_t* smem = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
+  const uint32_t smem_addr = raw_addr + (uint32_t)(smem - smem_raw);
+  const int q_bytes = rows * A * 128;
+  const int kv_bytes = A * kTileBytes;  // one K or V tile
+  uint8_t* qs = smem;
+  // key group kg's stages: (n_stages, K/V, A, kKeys, 128 B)
+  const int group_bytes = 2 * n_stages * kv_bytes;
+  uint8_t* stages = smem + q_bytes + kg * group_bytes;
 
-  // padding (head_dim past hd) reads as zeros in every tile
-  for (int e = tid; e < 2 * kBKm * KS; e += kThreads) smem_w[e] = 0u;
-
-  int row[2], pos[2];
-  bool row_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    row[i] = 16 * warp + g + 8 * i;
-    row_ok[i] = row[i] < nrows;
-    pos[i] = row_ok[i] ? p0 + row[i] % np : 0;
+  // head_dim past hd reads as zeros: the copies never write it (Q rows
+  // past nrows and keys past S are zero filled by the copies)
+  if (hd % 64) {
+    const int total = q_bytes + key_groups * group_bytes;
+    for (int e = tid * 16; e < total; e += threads * 16)
+      *reinterpret_cast<uint4*>(smem + e) = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
   }
-  auto q_off = [&](int r) {
-    return (((size_t)b * S + p0 + r % np) * Hq + (size_t)h * rep + r / np) *
-           hd;
+
+  const int cpr = hd * 2 / copy_bytes;  // copies a row takes
+  const int per = copy_bytes / 2;       // values a copy moves
+  auto copy_to = [&](uint8_t* tile_base, int r, int rows_in, int piece,
+                     const __nv_bfloat16* src, bool fill) {
+    uint8_t* dst = tile_base + sw128_offset(r, piece * per, rows_in);
+    if (copy_bytes == 16)
+      cp_async_16(dst, src + piece * per, fill);
+    else
+      cp_async_8(dst, src + piece * per, fill);
   };
-  // Q as A fragments: a[kk] = rows (g, g + 8) x dims 16 kk + {2t, 2t + 8}
-  uint32_t qa[KT][4];
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = j & 1, d = 16 * kk + 2 * t + 8 * (j >> 1);
-      qa[kk][j] = 0u;
-      if (row_ok[i] && d < hd)
-        qa[kk][j] = *reinterpret_cast<const uint32_t*>(q + q_off(row[i]) + d);
-    }
+  for (int e = tid; e < rows * cpr; e += threads) {
+    const int i = e / cpr, piece = e % cpr;
+    const bool fill = i < nrows;
+    const int ii = fill ? i : 0;
+    const size_t src = (((size_t)b * S + p0 + ii % np) * Hq +
+                        (size_t)h * rep + h0 + ii / np) * hd;
+    // warpgroup w's rows are its own 64-row tile
+    copy_to(qs + (i >> 6) * A * kTileBytes, i & 63, 64, piece, q + src,
+            fill);
+  }
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[NT][4];
+  int pos[2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[n][j] = 0.f;
+  for (int i = 0; i < 2; ++i)
+    pos[i] = p0 + (64 * wg + 16 * wu + g + 8 * i) % np;
 
-  const int k_end = causal ? min(S, p0 + np) : S;
+  const int pos_hi = p0 + np - 1;
+  const int k_end = causal ? pos_hi + 1 : S;
   const int k_begin = window ? max(0, p0 - window + 1) : 0;
+  const int t_begin = k_begin / kKeys;
+  const int n_tiles = (k_end + kKeys - 1) / kKeys - t_begin;
+  // the key group's tiles: t_begin + kg + j * key_groups
+  const int n_mine = max(0, (n_tiles - kg + key_groups - 1) / key_groups);
+
   const size_t kv_row = (size_t)Hkv * hd;
   const size_t kv_base = (size_t)b * S * kv_row + (size_t)h * hd;
-  const int vec_per_row = hd / VEC;
-  const int n_vec = kBKm * vec_per_row;
-
-  for (int k0 = (k_begin / kBKm) * kBKm; k0 < k_end; k0 += kBKm) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int e0 = 0; e0 < n_vec; e0 += kThreads * kLoadBatch) {
-      Raw kr[kLoadBatch], vr[kLoadBatch];
-#pragma unroll
-      for (int j = 0; j < kLoadBatch; ++j) {
-        const int e = e0 + j * kThreads + tid;
-        const int key = e / vec_per_row;
-        kr[j] = vr[j] = Raw{};  // keys past S stay zero: no NaN in P.V
-        if (e < n_vec && k0 + key < S) {
-          const size_t off = kv_base + (size_t)(k0 + key) * kv_row +
-                             (size_t)(e % vec_per_row) * VEC;
-          kr[j] = *reinterpret_cast<const Raw*>(k + off);
-          vr[j] = *reinterpret_cast<const Raw*>(v + off);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kLoadBatch; ++j) {
-        const int e = e0 + j * kThreads + tid;
-        if (e >= n_vec) continue;
-        const int key = e / vec_per_row, d = (e % vec_per_row) * VEC;
-        *reinterpret_cast<Raw*>(ks + key * KS + d / 2) = kr[j];
-        *reinterpret_cast<Raw*>(vs + key * KS + d / 2) = vr[j];
-      }
+  auto start_copies = [&](int j) {
+    const int k0 = (t_begin + kg + j * key_groups) * kKeys;
+    uint8_t* ks = stages + (j % n_stages) * 2 * kv_bytes;
+    uint8_t* vs = ks + kv_bytes;
+    for (int e = gtid; e < kKeys * cpr; e += gthreads) {
+      const int key = e / cpr, piece = e % cpr;
+      const bool fill = k0 + key < S;  // keys past S land as zeros
+      const size_t src = kv_base + (size_t)min(k0 + key, S - 1) * kv_row;
+      copy_to(ks, key, 64, piece, k + src, fill);
+      copy_to(vs, key, 64, piece, v + src, fill);
     }
-    __syncthreads();
+  };
 
-    // scores of the warp's 16 rows x kBKm keys
+  const float cap_in = softcap > 0.f ? scale_log2 / (kLog2e * softcap) : 0.f;
+  const float cap_out = softcap > 0.f ? kLog2e * softcap / scale_log2 : 0.f;
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[A][NJ][4];
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int n = 0; n < NJ; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[a][n][c] = 0.f;
+
+  // Q and the group's first tile in one copy group, then (three stages)
+  // its second in the next: tiles are copied n_stages - 1 ahead. The whole
+  // block waits for Q.
+  constexpr int ahead = n_stages - 1;
+  if (n_mine > 0) start_copies(0);
+  cp_async_commit();
+  if constexpr (ahead == 2) {
+    if (n_mine > 1) start_copies(1);
+    cp_async_commit();
+    cp_async_wait_group<1>();
+  } else {
+    cp_async_wait_group<0>();
+  }
+  fence_proxy_async();
+  __syncthreads();
+  const uint32_t q_addr = smem_addr + (uint32_t)(wg * A * kTileBytes);
+  const uint32_t group_addr =
+      smem_addr + (uint32_t)(q_bytes + kg * group_bytes);
+  for (int j = 0; j < n_mine; ++j) {
+    const int k0 = (t_begin + kg + j * key_groups) * kKeys;
+    if (j > 0) {
+      if constexpr (ahead == 2)
+        cp_async_wait_group<1>();
+      else
+        cp_async_wait_group<0>();
+      fence_proxy_async();
+      // tile j has landed for the key group, and every warpgroup of it is
+      // done with tile j - 1, whose stage takes tile j + ahead
+      if constexpr (KG == 1)
+        __syncthreads();
+      else if (kg == 0)
+        asm volatile("bar.sync 1, %0;\n" ::"n"(gthreads) : "memory");
+      else
+        asm volatile("bar.sync 2, %0;\n" ::"n"(gthreads) : "memory");
+    }
+    if (j + ahead < n_mine) start_copies(j + ahead);
+    cp_async_commit();  // (empty past the last tile: the count stays even)
+    const uint32_t k_addr =
+        group_addr + (uint32_t)((j % n_stages) * 2 * kv_bytes);
+    const uint32_t v_addr = k_addr + (uint32_t)kv_bytes;
+
+    // S = Q K^T over head_dim in 16-wide steps: step kk reads 32 bytes
+    // into atom kk / 4 of both (K-major, 8-row groups 1024 bytes apart)
     float s[NJ][4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+      for (int c = 0; c < 4; ++c) s[jj][c] = 0.f;
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const uint32_t* kr = ks + (8 * j + g) * KS + 8 * kk + t;
-        mma_bf16(s[j], qa[kk], kr[0], kr[4]);
-      }
+    for (int kk = 0; kk < 4 * A; ++kk) {
+      const uint32_t in_atom = (uint32_t)((kk & 3) * 32);
+      wgmma_ss(s,
+               sw128_desc(q_addr + (kk >> 2) * kTileBytes + in_atom, 16,
+                          1024),
+               sw128_desc(k_addr + (kk >> 2) * kTileBytes + in_atom, 16, 1024),
+               kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
 
-    // online softmax: each row's 4 owners are lanes 4 g .. 4 g + 3
-    float mx[2] = {kNegInf, kNegInf};
+    if (softcap > 0.f) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+      for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = c >> 1, kpos = k0 + 8 * j + 2 * t + (c & 1);
-        float x = s[j][c] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        const bool keep = row_ok[i] && kpos < S &&
-                          (!causal || kpos <= pos[i]) &&
-                          (!window || kpos > pos[i] - window);
-        s[j][c] = keep ? x : -INFINITY;
-        mx[i] = fmaxf(mx[i], s[j][c]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
+        for (int c = 0; c < 4; ++c)
+          s[jj][c] = tanhf(s[jj][c] * cap_in) * cap_out;
+    }
+    const bool edge = k0 + kKeys > S || (causal && k0 + kKeys - 1 > p0) ||
+                      (window && k0 <= pos_hi - window);
+    if (edge) {
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int p = pos[c >> 1], kpos = k0 + 8 * jj + 2 * t + (c & 1);
+          const bool keep = kpos < S && (!causal || kpos <= p) &&
+                            (!window || kpos > p - window);
+          if (!keep) s[jj][c] = -INFINITY;
+        }
+    }
+
+    // online softmax in base 2 with the scale folded in
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[jj][0], s[jj][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[jj][2], s[jj][3]));
+    }
+    float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = expf(m[i] - m_new);
+      const float m_new = fmaxf(m[i], mx[i] * scale_log2);
+      alpha[i] = exp2_approx(m[i] - m_new);
       m[i] = m_new;
+      neg_m[i] = -m_new;
     }
+    uint32_t pa[kKeys / 16][4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int jj = 0; jj < NJ; ++jj) {
+      float p[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int i = c >> 1;
-        const float p = s[j][c] == -INFINITY ? 0.f : expf(s[j][c] - m[i]);
-        s[j][c] = p;
-        sum[i] += p;
+        p[c] = exp2_approx(fmaf(s[jj][c], scale_log2, neg_m[c >> 1]));
+        sum[c >> 1] += p[c];
       }
+      // P's A fragment of keys 16 kk ..: (row g, keys 2t), (row g + 8,
+      // keys 2t), (row g, keys 2t + 8), (row g + 8, keys 2t + 8)
+      pa[jj >> 1][2 * (jj & 1)] = pack_bf16(p[0], p[1]);
+      pa[jj >> 1][2 * (jj & 1) + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+#pragma unroll
+    for (int a = 0; a < A; ++a)
+#pragma unroll
+      for (int n = 0; n < NJ; ++n) {
+        o[a][n][0] *= alpha[0];
+        o[a][n][1] *= alpha[0];
+        o[a][n][2] *= alpha[1];
+        o[a][n][3] *= alpha[1];
+      }
+
+    // O += P V, 64 output columns (one V atom) at a time; V is read
+    // MN-major: keys 16 kk .. are two 8-row groups 1024 bytes apart
+    wgmma_fence();
+#pragma unroll
+    for (int a = 0; a < A; ++a)
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wgmma_rs(o[a], pa[kk],
+                 sw128_desc(v_addr + (uint32_t)(a * kTileBytes + kk * 2048),
+                            kTileBytes, 1024));
+    wgmma_commit();
+    wgmma_wait0();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+
+  if constexpr (KG == 2) {
+    // key group 1 hands its rows' (m, l, o) to group 0 through group 0's
+    // stages
+    float* mo = reinterpret_cast<float*>(smem + q_bytes);  // (rows, LD)
+    const int LD = 64 * A + 2;
+    cp_async_wait_group<0>();
+    __syncthreads();
+    if (kg == 1) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float* dst = mo + (64 * wg + 16 * wu + g + 8 * i) * LD;
+#pragma unroll
+        for (int a = 0; a < A; ++a)
+#pragma unroll
+          for (int n = 0; n < NJ; ++n) {
+            dst[64 * a + 8 * n + 2 * t] = o[a][n][2 * i];
+            dst[64 * a + 8 * n + 2 * t + 1] = o[a][n][2 * i + 1];
+          }
+        if (t == 0) {
+          dst[64 * A] = m[i];
+          dst[64 * A + 1] = l[i];
+        }
+      }
+    }
+    __syncthreads();
+    if (kg == 1) return;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      l[i] = l[i] * alpha[i] + sum[i];
-    }
+      const float* src = mo + (64 * wg + 16 * wu + g + 8 * i) * LD;
+      const float m1 = src[64 * A], l1 = src[64 * A + 1];
+      const float m_new = fmaxf(m[i], m1);
+      const float a0 = exp2_approx(m[i] - m_new);
+      const float a1 = exp2_approx(m1 - m_new);
+      l[i] = l[i] * a0 + l1 * a1;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // o += P V: the score accumulators are P's A fragments, in bf16; V's
-    // B fragments for output tiles (n, n + 1) come from one ldmatrix.trans
-    // of keys 16 kk .. 16 kk + 15 (lane L reads row 16 kk + L % 16 at
-    // dims 8 (n + L / 16))
+      for (int a = 0; a < A; ++a)
 #pragma unroll
-    for (int kk = 0; kk < kBKm / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vs + (16 * kk + (lane & 15)) * KS +
-                                  4 * (n + (lane >> 4)));
-        mma_bf16(o[n], pa, vb[0], vb[1]);
-        mma_bf16(o[n + 1], pa, vb[2], vb[3]);
-      }
+        for (int n = 0; n < NJ; ++n) {
+          const int c = 64 * a + 8 * n + 2 * t;
+          o[a][n][2 * i] = o[a][n][2 * i] * a0 + src[c] * a1;
+          o[a][n][2 * i + 1] = o[a][n][2 * i + 1] * a0 + src[c + 1] * a1;
+        }
     }
   }
 
+  // the warpgroup's 64 output rows through its Q tile (swizzled, as Q
+  // was: conflict-free 4-byte writes), then out in copy_bytes pieces, each
+  // row's contiguous in memory
+  uint8_t* os = smem + wg * A * kTileBytes;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (!row_ok[i]) continue;
-    const size_t off = q_off(row[i]);
+    const int r = 16 * wu + g + 8 * i;
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int d = 8 * n + 2 * t;
-      if (d < hd)
-        *reinterpret_cast<uint32_t*>(out + off + d) =
-            pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
-    }
+    for (int a = 0; a < A; ++a)
+#pragma unroll
+      for (int n = 0; n < NJ; ++n)
+        *reinterpret_cast<uint32_t*>(os + sw128_offset(r, 64 * a + 8 * n +
+                                                              2 * t, 64)) =
+            pack_bf16(o[a][n][2 * i] * inv, o[a][n][2 * i + 1] * inv);
+  }
+  if (wg == 0)
+    asm volatile("bar.sync 3, 128;\n" ::: "memory");
+  else
+    asm volatile("bar.sync 4, 128;\n" ::: "memory");
+  for (int e = tid & 127; e < 64 * cpr; e += 128) {
+    const int r = e / cpr, piece = e % cpr, i = 64 * wg + r;
+    if (i >= nrows) continue;
+    const size_t off = (((size_t)b * S + p0 + i % np) * Hq +
+                        (size_t)h * rep + h0 + i / np) * hd + piece * per;
+    const uint8_t* src = os + sw128_offset(r, piece * per, 64);
+    if (copy_bytes == 16)
+      *reinterpret_cast<uint4*>(out + off) =
+          *reinterpret_cast<const uint4*>(src);
+    else
+      *reinterpret_cast<uint2*>(out + off) =
+          *reinterpret_cast<const uint2*>(src);
   }
 }
 
-template <int KT, int NT>
-int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-               const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S,
-               int Hq, int Hkv, int hd, int causal, int window, float softcap,
-               cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(KT);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = flash_kernel_mma<KT, NT>;
-  if (smem > (size_t)kDefaultSmem) {
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// One launch shape of flash_kernel_wgmma: RW row warpgroups, KG key groups.
+template <int A, int RW, int KG>
+int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                 const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S,
+                 int Hq, int Hkv, int hd, int causal, int window,
+                 float softcap, cudaStream_t stream) {
+  constexpr int rows = 64 * RW;
+  constexpr size_t smem =
+      (size_t)rows * A * 128 +
+      (size_t)KG * wgmma_stages<A, KG>() * 2 * A * kTileBytes + 1024;
+  static_assert(smem <= (size_t)kMaxSmem, "stages past shared memory");
+  const int rep = Hq / Hkv;
+  const int HB = min(rep, rows), BP = rows / HB;
+  const dim3 grid(Hkv * ((rep + HB - 1) / HB), (S + BP - 1) / BP, B);
+  if (grid.y > 65535u || grid.z > 65535u) return (int)cudaErrorInvalidValue;
+  auto kernel = flash_kernel_wgmma<A, RW, KG>;
+  static bool smem_set = false;  // the kernel's dynamic limit
+  if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
+    smem_set = true;
   }
-  const int BP = kRows / (Hq / Hkv);
-  const dim3 grid((S + BP - 1) / BP, Hkv, B);
-  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, S, Hq, Hkv, hd, BP,
-                                           causal, window, softcap,
-                                           1.0f / sqrtf((float)hd));
+  const bool c16 =
+      hd % 8 == 0 &&
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+              16 ==
+          0;
+  kernel<<<grid, 128 * RW * KG, smem, stream>>>(
+      q, k, v, out, S, Hq, Hkv, hd, HB, causal, window, softcap,
+      kLog2e / sqrtf((float)hd), c16 ? 16 : 8);
   return (int)cudaGetLastError();
 }
 
-// head_dim in steps of 32 up to 256: KT 16-wide steps, NT = 2 KT tiles
+// The launch shape: 128 rows a block (two row warpgroups) where that grid
+// fills the card; else 64 rows with two key groups where their stages fit
+// (head_dim up to 192), else one.
+template <int A>
+int launch_wgmma_shape(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                       const __nv_bfloat16* v, __nv_bfloat16* out, int B,
+                       int S, int Hq, int Hkv, int hd, int causal, int window,
+                       float softcap, cudaStream_t stream) {
+  const int rep = Hq / Hkv, hb = min(rep, 128), bp = 128 / hb;
+  const long blocks128 =
+      (long)B * Hkv * ((rep + hb - 1) / hb) * ((S + bp - 1) / bp);
+#define FLASH_ARGS q, k, v, out, B, S, Hq, Hkv, hd, causal, window, softcap
+  if (blocks128 >= sm_count())
+    return launch_wgmma<A, 2, 1>(FLASH_ARGS, stream);
+  if constexpr (A <= 3)
+    return launch_wgmma<A, 1, 2>(FLASH_ARGS, stream);
+  else
+    return launch_wgmma<A, 1, 1>(FLASH_ARGS, stream);
+#undef FLASH_ARGS
+}
+
+// head_dim up to 256 in 64-wide atoms (zero padded)
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int B, int S, int Hq, int Hkv, int hd, int causal, int window,
                 float softcap, cudaStream_t stream) {
@@ -490,16 +796,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const auto* kt = static_cast<const __nv_bfloat16*>(k);
   const auto* vt = static_cast<const __nv_bfloat16*>(v);
   auto* ot = static_cast<__nv_bfloat16*>(out);
-#define FLASH_MMA(KT)                                                       \
-  return launch_mma<KT, 2 * KT>(qt, kt, vt, ot, B, S, Hq, Hkv, hd, causal, \
-                                window, softcap, stream)
-  if (hd <= 32) FLASH_MMA(2);
-  if (hd <= 64) FLASH_MMA(4);
-  if (hd <= 96) FLASH_MMA(6);
-  if (hd <= 128) FLASH_MMA(8);
-  if (hd <= 192) FLASH_MMA(12);
-  if (hd <= 256) FLASH_MMA(16);
-#undef FLASH_MMA
+#define FLASH_WG(A)                                                      \
+  return launch_wgmma_shape<A>(qt, kt, vt, ot, B, S, Hq, Hkv, hd, causal, \
+                               window, softcap, stream)
+  if (hd <= 64) FLASH_WG(1);
+  if (hd <= 128) FLASH_WG(2);
+  if (hd <= 192) FLASH_WG(3);
+  if (hd <= 256) FLASH_WG(4);
+#undef FLASH_WG
   return (int)cudaErrorInvalidValue;
 }
 
@@ -549,8 +853,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 extern "C" {
 
-// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel);
-// q, k, v and out share it. causal: 0
+// dtype: 0 = float32 (scalar kernel, q_per_kv up to 64), 1 = bfloat16
+// (tensor-core kernel, any q_per_kv); q, k, v and out share it. causal: 0
 // or 1; window: 0 = none; softcap: 0 = none. Returns cudaGetLastError()
 // after the launch, 0 on success.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
@@ -563,8 +867,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
     return launch<float>(q, k, v, out, B, S, Hq, Hkv, hd, causal, window,
                          softcap, s);
   if (dtype == 1) {
-    if (hd % 4 || Hkv < 1 || Hq % Hkv || Hq / Hkv > kRows)
-      return (int)cudaErrorInvalidValue;
+    if (hd % 4 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
     return launch_bf16(q, k, v, out, B, S, Hq, Hkv, hd, causal, window,
                        softcap, s);
   }

@@ -1,9 +1,9 @@
-// Tensor-core and asynchronous-copy helpers shared by the attention kernels
-// that run their products on mma.sync (flash_attention.cu's bf16 path and
-// paged_prefill_attention.cu's mma kernel): the m16n8k16 bf16 product, the
-// ldmatrix loads that feed K's and (transposed) V's B fragments, bf16
-// packing, and the cp.async copies (with zero fill) that stage K/V tiles in
-// shared memory.
+// Tensor-core and asynchronous-copy helpers of the attention kernels that
+// stage K/V tiles in shared memory: the m16n8k16 bf16 product and the
+// ldmatrix loads that feed K's and (transposed) V's B fragments
+// (paged_prefill_attention.cu's mma kernel), bf16 packing, and the cp.async
+// copies (with zero fill) that stage the tiles (that kernel and
+// flash_attention.cu's wgmma kernel).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -13,7 +13,8 @@ from repro_torch.models.config import HEAD_DIM_MULTIPLE, MAX_HEAD_DIM
 NAME = "flash_attention"
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_int] + [ctypes.c_void_p])
-# the kernel's query rows per block: q_per_kv may not exceed it
+# the float32 kernel's query rows per block: its q_per_kv may not exceed
+# it (the bfloat16 kernel splits a larger GQA group over blocks)
 MAX_Q_PER_KV = 64
 
 
@@ -28,7 +29,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
                          softcap: float = 0.0):
     """q: (B,S,Hq,hd); k/v: (B,S,Hkv,hd), same dtype as q (float32 or
     bfloat16). All contiguous on one CUDA device; head_dim a multiple of 4
-    up to 256. -> (B,S,Hq,hd)."""
+    up to 256; q_per_kv up to MAX_Q_PER_KV for float32, any for bfloat16.
+    -> (B,S,Hq,hd)."""
     floats = (torch.float32, torch.bfloat16)
     runtime.check_tensor("q", q, 4, floats)
     runtime.check_tensor("k", k, 4, (q.dtype,))
@@ -38,8 +40,9 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
     if k.shape != (B, S, Hkv, hd) or v.shape != k.shape or Hq % Hkv:
         raise ValueError(f"k/v shape {tuple(k.shape)} does not fit q "
                          f"{tuple(q.shape)}")
-    if Hq // Hkv > MAX_Q_PER_KV:
-        raise ValueError(f"q_per_kv {Hq // Hkv} exceeds {MAX_Q_PER_KV}")
+    if q.dtype == torch.float32 and Hq // Hkv > MAX_Q_PER_KV:
+        raise ValueError(f"q_per_kv {Hq // Hkv} exceeds {MAX_Q_PER_KV} "
+                         f"(float32)")
     if not 0 < hd <= MAX_HEAD_DIM or hd % HEAD_DIM_MULTIPLE:
         raise ValueError(f"head_dim {hd} is not a multiple of "
                          f"{HEAD_DIM_MULTIPLE} in 1..{MAX_HEAD_DIM}")

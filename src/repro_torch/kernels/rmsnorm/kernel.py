@@ -10,6 +10,8 @@ import torch
 from repro_torch.kernels import runtime
 
 NAME = "rmsnorm"
+# 16-byte pieces a row may have: 256 threads of a block, 8 pieces each
+MAX_PIECES = 256 * 8
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float]
              + [ctypes.c_int] + [ctypes.c_void_p])
 
@@ -24,7 +26,8 @@ def _lib():
 def rmsnorm_cuda(x, scale, eps: float = 1e-6):
     """x: (..., D) float32 or bfloat16, contiguous; scale: (D,) float32.
     Rows are read 16 bytes at a time: D a multiple of 4 (float32) or 8
-    (bfloat16), both tensors 16-byte aligned. -> out like x."""
+    (bfloat16), at most MAX_PIECES pieces (8192 / 16384), both tensors
+    16-byte aligned. -> out like x."""
     if x.dtype not in runtime.Q_DTYPES:
         raise ValueError(f"rmsnorm takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous() or x.dim() < 1:
@@ -32,9 +35,11 @@ def rmsnorm_cuda(x, scale, eps: float = 1e-6):
     runtime.check_tensor("scale", scale, 1, (torch.float32,))
     D = x.shape[-1]
     per_piece = 16 // x.element_size()
-    if D < 1 or D % per_piece or scale.shape != (D,):
-        raise ValueError(f"D {D} must be a multiple of {per_piece} and match "
-                         f"scale {tuple(scale.shape)}")
+    if (D < 1 or D % per_piece or D // per_piece > MAX_PIECES
+            or scale.shape != (D,)):
+        raise ValueError(f"D {D} must be a multiple of {per_piece} up to "
+                         f"{per_piece * MAX_PIECES} and match scale "
+                         f"{tuple(scale.shape)}")
     if x.data_ptr() % 16 or scale.data_ptr() % 16:
         raise ValueError("x and scale must start on 16-byte boundaries")
     out = torch.empty_like(x)

@@ -4,8 +4,10 @@ A CUDA tensor launches the hand-written kernel (`kernel.py`,
 `csrc/rmsnorm.cu`) or raises; a CPU tensor runs the plain version
 (`ref.py`). `rmsnorm.launches` counts kernel launches, and only those.
 
-No model path calls it: the JAX package's models normalise through plain
-jnp (`layers.rmsnorm`), and so do the port's.
+Every norm of the port's models calls it through `models.layers.rmsnorm`
+(norm1, norm2, the final norm, q_norm / k_norm, Mamba2's gated norm). The
+JAX package's models normalise through plain jnp, which the plain version
+repeats step for step.
 """
 from __future__ import annotations
 

@@ -6,14 +6,14 @@ head) scales).
 The kernel reads go through wrappers in `repro_torch.kernels`, which pick by
 the tensor's device alone: a CUDA tensor launches the hand-written CUDA
 kernel, a CPU tensor runs the kernel's plain PyTorch version.
-`cfg.use_pallas` selects nothing here. The full sequence reads through the
-flash-attention wrapper, one dense-cache decode token through the
-decode-attention wrapper, and every paged read through a paged-attention
-wrapper (on the CPU: gather the block table into the contiguous layout,
-dequantizing a quantized pool on the way, then masked softmax). Monolithic
-prefill and multi-token dense decode stay plain PyTorch, as they are plain
-jnp in the JAX package. K/V writes update the cache and the pools in
-place.
+`cfg.use_pallas` selects nothing here. The full sequence and, on the card,
+monolithic prefill (`prefill_attention`) read through the flash-attention
+wrapper, one dense-cache decode token through the decode-attention
+wrapper, and every paged read through a paged-attention wrapper (on the
+CPU: gather the block table into the contiguous layout, dequantizing a
+quantized pool on the way, then masked softmax). Monolithic prefill on the
+CPU and multi-token dense decode stay plain PyTorch, as they are plain jnp
+in the JAX package. K/V writes update the cache and the pools in place.
 
 Projection weights are 2-D: wq (d, Hq*hd), wk/wv (d, Hkv*hd), wo (Hq*hd, d);
 biases are flat (H*hd,). `repro_torch.convert` reshapes the JAX package's
@@ -194,6 +194,32 @@ def full_or_chunked_sdpa(q, k, v, *, causal: bool, window: int = 0,
         mask = mask & (torch.arange(Sk, device=q.device)[None, None, None, :]
                        < kv_lengths[:, None, None, None])
     return _sdpa(q, k, v, mask, softcap)
+
+
+def prefill_attention(cfg: ModelConfig, q, k, v,
+                      prompt_lengths: torch.Tensor) -> torch.Tensor:
+    """Causal attention of monolithic prefill over right-padded prompts.
+    q: (B,S,Hq,hd); k/v: (B,S,Hkv,hd), not head-repeated; prompt_lengths
+    (B,) int32.
+
+    On a CUDA tensor: the flash-attention wrapper (window and softcap from
+    cfg), which takes no lengths. Causal masking alone keeps every row below
+    its prompt's length from the padding (its keys all lie at or before it),
+    so those rows are the function the CPU path computes; the pad rows
+    attend to pad keys. Nothing reads them: the paged writer sends their K/V
+    to the scratch page, the dense writer's rows at and past each length
+    are overwritten by decode before any read, and the logits are taken at
+    each prompt's last valid row. On a CPU tensor: the JAX package's plain
+    attention over head-repeated K/V with the padding masked by
+    `prompt_lengths`, the arithmetic of its `prefill`."""
+    if q.device.type != "cpu":
+        return fa_ops.flash_attention(q, k, v, causal=True,
+                                      window=cfg.sliding_window,
+                                      softcap=cfg.attn_logit_softcap)
+    return full_or_chunked_sdpa(
+        q, _repeat_kv(k, cfg.q_per_kv), _repeat_kv(v, cfg.q_per_kv),
+        causal=True, window=cfg.sliding_window, kv_lengths=prompt_lengths,
+        softcap=cfg.attn_logit_softcap)
 
 
 def causal_mask(Tq: int, Tk: int, q_offset: int = 0, window: int = 0,

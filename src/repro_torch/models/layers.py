@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models.config import ModelConfig
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -48,11 +49,12 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32,
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
-    dtype = x.dtype
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(dtype)
+    """Every norm of the served stacks (norm1, norm2, the final norm,
+    q_norm / k_norm, Mamba2's gated norm) goes through the RMSNorm
+    wrapper: one kernel launch on a CUDA tensor; on a CPU tensor its plain
+    version, the JAX package's jnp arithmetic step for step (the mean of
+    squares in float32, the output in x's dtype)."""
+    return rms_ops.rmsnorm(x, scale, eps)
 
 
 def norm(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -295,22 +295,20 @@ KVWriter = Callable[[torch.Tensor, torch.Tensor], None]
 def _prefill_block(cfg: ModelConfig, layer: dict, x: torch.Tensor, rope,
                    prompt_lengths: torch.Tensor, kv_writer: KVWriter
                    ) -> torch.Tensor:
-    """One layer over a whole right-padded prompt, causal with the padding
-    masked by `prompt_lengths` (plain attention, as in the JAX package).
-    `kv_writer(k, v)` stores the layer's K/V (B, S, n_kv, hd): the dense
-    writer into the cache rows, the paged one through the block table; the
-    compute is shared, so dense and paged prefill give the same
-    activations."""
+    """One layer over a whole right-padded prompt, causal
+    (`attention.prefill_attention`: the flash kernel on the card; on the
+    CPU plain attention with the padding masked by `prompt_lengths`, as in
+    the JAX package). Rows below each prompt length are the same function
+    on both; pad rows differ and nothing reads them. `kv_writer(k, v)`
+    stores the layer's K/V (B, S, n_kv, hd): the dense writer into the
+    cache rows, the paged one through the block table; the compute is
+    shared, so dense and paged prefill give the same activations."""
     xin = norm(cfg, layer["norm1"], x)
     q, k, v = attn_lib._project_qkv(cfg, layer["attn"], xin)
     if rope is not None:
         q = apply_rope(q, tables=rope)
         k = apply_rope(k, tables=rope)
-    h = attn_lib.full_or_chunked_sdpa(
-        q, attn_lib._repeat_kv(k, cfg.q_per_kv),
-        attn_lib._repeat_kv(v, cfg.q_per_kv), causal=True,
-        window=cfg.sliding_window, kv_lengths=prompt_lengths,
-        softcap=cfg.attn_logit_softcap)
+    h = attn_lib.prefill_attention(cfg, q, k, v, prompt_lengths)
     x = x + attn_lib._out_proj(layer["attn"], h)
     kv_writer(k, v)
     return _mlp_residual(cfg, layer, x)

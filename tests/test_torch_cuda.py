@@ -183,6 +183,39 @@ def test_flash_kernel_matches_plain(gen, dtype, B, S, Hq, Hkv, hd, causal,
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+# (causal, window, softcap) of the tensor-core flash kernel's cases
+FLASH_MASKS = [(True, 0, 0.0), (True, 64, 0.0), (True, 0, 30.0),
+               (False, 0, 0.0), (False, 64, 30.0), (True, 64, 30.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 8, 64), (32, 8, 128),
+                                       (12, 2, 128), (32, 2, 256),
+                                       (72, 1, 80), (32, 32, 80)])
+@pytest.mark.parametrize("S", [1, 37, 200, 1000])
+@pytest.mark.parametrize("causal,window,softcap", FLASH_MASKS)
+def test_flash_tensor_core_kernel_matches_plain(gen, Hq, Hkv, hd, S, causal,
+                                                window, softcap):
+    """The bf16 (wgmma) flash kernel at q_per_kv 1 / 4 / 6 / 16 / 72 (a GQA
+    group split over blocks), head_dim 64 / 80 / 128 / 256, S 1 to 1000,
+    and every launch shape (128-row blocks; 64 rows with two key groups
+    and with one), against its plain version at rtol = atol = 2e-2."""
+    B = 2 if S == 37 else 1
+    dt = torch.bfloat16
+    q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = faops.flash_attention.launches
+    got = faops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert faops.flash_attention.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got.float(), faref.flash_attention_ref(q, k, v, **kw).float(),
+        **TOL[dt])
+
+
 def _quant_pool(gen, n_pages, page, Hkv, hd, kv_dtype):
     """A random pool quantized per (page, kv head), with its scales."""
     from repro_torch.models import paged_cache as pc
@@ -359,6 +392,71 @@ def test_rmsnorm_kernel_matches_plain(gen, dtype, R, D):
     torch.testing.assert_close(got.float(),
                                rref.rmsnorm_ref(x, scale, 1e-6).float(),
                                **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 8, 256, 1027])
+@pytest.mark.parametrize("D", [128, 1536, 2560, 4096, 5120])
+def test_rmsnorm_kernel_at_serving_widths(gen, dtype, R, D):
+    """The served widths (q/k-norm 128, qwen2-1.5b 1536, zamba2 2560 and
+    its gated norm 5120, qwen3-8b 4096) at decode, q/k-norm and prefill
+    row counts, and row counts no block divides."""
+    x = torch.randn(R, D, generator=gen, device="cuda").to(dtype)
+    scale = torch.randn(D, generator=gen, device="cuda")
+    got = rops.rmsnorm(x, scale, 1e-6)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               rref.rmsnorm_ref(x, scale, 1e-6).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_monolithic_prefill_card_vs_cpu(gen, backend):
+    """Monolithic prefill of right-padded prompts (lengths 5 / 17 / 32 in S
+    32) at qwen3-8b's heads (32 over 8, head_dim 128, qk-norm), float32:
+    on the card through the flash and RMSNorm kernels, on the CPU through
+    the plain masked attention; logits and the K/V below each length agree
+    within rtol 1e-4, atol 1e-5 (the card sums in another order)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(name="tiny-q3", family="dense", n_layers=2,
+                      d_model=256, n_heads=32, n_kv_heads=8, head_dim=128,
+                      qk_norm=True, d_ff=256, vocab_size=128,
+                      max_seq_len=512, dtype="float32", remat=False)
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (3, 32),
+                         generator=torch.Generator().manual_seed(1))
+    lens = torch.tensor([5, 17, 32], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _to(params, "cuda")
+        t, ln = toks.to(dev), lens.to(dev)
+        if backend == "dense":
+            cache = transformer.init_cache(cfg, 3, 40, device=dev)
+            logits, cache = transformer.prefill(cfg, p, t, cache, ln)
+            kv = [torch.stack([seg["k"], seg["v"]]).cpu()
+                  for seg in cache["segments"]]
+        else:
+            cache = transformer.init_paged_cache(cfg, 3, 12, 8, 4,
+                                                 device=dev)
+            cache["block_table"].copy_(torch.arange(
+                12, dtype=torch.int32, device=dev).reshape(3, 4))
+            logits = torch.cat([transformer.prefill_paged(
+                cfg, p, t[b:b + 1], cache, b, int(lens[b]))[0]
+                for b in range(3)])
+            kv = [torch.stack([seg["k_pages"], seg["v_pages"]])[:, :, :-1]
+                  .cpu() for seg in cache["segments"]]
+        out[dev] = (logits.cpu(), kv)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-5)
+    below = (torch.arange(40)[None, :] < lens[:, None].long())
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        if backend == "dense":
+            # (K/V, layers, B, S, Hkv, hd): rows below each length
+            got, want = got[:, :, below], want[:, :, below]
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -25,6 +25,23 @@ def test_rmsnorm():
                  jl.rmsnorm(jnp.asarray(x), jnp.asarray(s), 1e-6))
 
 
+@pytest.mark.parametrize("shape", [(3, 5, 64), (2, 3, 4, 32)])
+def test_rmsnorm_goes_through_the_wrapper(shape, monkeypatch):
+    """`layers.rmsnorm` is one call of the RMSNorm wrapper (a norm row, or a
+    q/k-norm head row), and still the JAX package's `layers.rmsnorm`."""
+    x, s = _x(*shape), _x(shape[-1])
+    calls = []
+    wrapped = tl.rms_ops.rmsnorm
+
+    def spy(*args):
+        calls.append(args)
+        return wrapped(*args)
+    monkeypatch.setattr(tl.rms_ops, "rmsnorm", spy)
+    got = tl.rmsnorm(torch.from_numpy(x), torch.from_numpy(s), 1e-6)
+    assert len(calls) == 1 and calls[0][2] == 1e-6
+    assert_close(got, jl.rmsnorm(jnp.asarray(x), jnp.asarray(s), 1e-6))
+
+
 @pytest.mark.parametrize("hd", [24, 32, 128])
 def test_rope(hd):
     x = _x(2, 7, 3, hd)
