@@ -9,7 +9,12 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
   1. environment: the card, its power limit, torch/CUDA versions, build time;
      TF32 is switched off for float32 matmuls and convolutions;
   2. every kernel wrapper against its plain PyTorch version on the card, on
-     the case families of the JAX package's kernel tests: for the paged
+     the case families of the JAX package's kernel tests; the tensor-core
+     decode kernel (a bf16 query over bf16, int8 and fp8 pools, and a bf16
+     dense cache) at q_per_kv 1/2/4/6/16/24, head_dim 16/24/36/80/128/256,
+     pages 8/12/32/64, splits of 1 and at the cluster cap, a slot of 4,096
+     keys, NaN or 127 past each length, -1 pages, a zero-length slot,
+     COW-shared pages, a dense cache slice of S = 200; for the paged
      kernels ragged lengths with 0, unmapped -1 tail pages, COW-shared
      pages, padding ingest rows (head_dim 24/32/128, q_per_kv 1/2/4/6, page
      8/16/32, chunk 16/48/64/128); the same over int8 and fp8 pools (the
@@ -33,11 +38,14 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      rtol=atol=1e-4; RMSNorm in float32 and bfloat16 at D 96 to 5120 (the
      served widths among them) and 1 to 1027 rows;
   3. each kernel's time at the serving shapes of qwen3-8b and qwen2-1.5b
-     (CUDA events, median of 21 runs, L2 flushed before each), beside its
-     bound, its plain version's time and scaled_dot_product_attention as a
-     yardstick (over the gathered KV for the paged kernels, dequantized for
-     the `_quant` ones over an int8 pool, with a length mask over the cache
-     for the dense decode, causal for flash); the SSD scan at zamba2's
+     (CUDA events, median of 21 runs, L2 flushed before each by reading a
+     256 MB buffer), beside its bound, its plain version's time and
+     scaled_dot_product_attention as a yardstick (over the gathered KV for
+     the paged kernels, dequantized for the `_quant` ones over an int8 pool,
+     with a length mask over the cache for the dense decode, causal for
+     flash); the three decode kernels at B 8 x 512 keys, at phase 6's
+     decode batch (4 of 8 slots live at 272 keys) and at B 8 x 1,024 keys,
+     each also under the older write flush; the SSD scan at zamba2's
      prefill shapes (1 x 256 and 1 x 1024 tokens; no single PyTorch call
      computes it) and RMSNorm over 1024 rows of qwen3-8b's and zamba2's
      widths, qwen3-8b's decode (8 x 4096) and q-norm (8192 x 128) rows
@@ -283,6 +291,102 @@ def prefill_mma_cases(torch, gen):
     return n
 
 
+def decode_mma_cases(torch, gen):
+    """The tensor-core decode kernel (a bfloat16 query over bf16, int8 and
+    fp8 pools, #1 / #4; over a bf16 dense cache, #8) at its edges, through
+    the wrappers, against the plain versions at BF16_TOL: q_per_kv 1, 2, 4,
+    6, 16 and 24 (two 16-head row tiles), head_dim 16 / 24 / 36 (8-byte
+    copies of bf16 rows) / 80 / 128 / 256, pages of 8, 12, 32 and 64,
+    splits of 1 and at the cluster cap, one slot of 4,096 keys (more tiles
+    than the ring holds), a zero-length slot, -1 tail pages, NaN (bf16,
+    fp8) or 127 (int8) stored past each length, COW-shared pages; the dense
+    kernel over a slice of a larger cache with S no tile divides and over
+    4,096 rows."""
+    from repro_torch.kernels.decode_attention import kernel as ddk
+    from repro_torch.kernels.decode_attention import ops as ddops
+    from repro_torch.kernels.decode_attention import ref as ddref
+    from repro_torch.kernels.paged_decode_attention import kernel as dk
+    from repro_torch.kernels.paged_decode_attention import ops as dops
+    from repro_torch.kernels.paged_decode_attention import ref as dref
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits_seen = set()
+    n = 0
+    # (B, Hq, Hkv, hd, page, P): q_per_kv 1, 2, 4, 6, 16, 24, 4, 1
+    shapes = [(3, 4, 4, 24, 8, 6), (2, 4, 2, 16, 12, 9),
+              (66, 32, 8, 128, 32, 3), (4, 12, 2, 80, 64, 3),
+              (2, 16, 1, 256, 16, 8), (2, 24, 1, 36, 12, 10),
+              (1, 32, 8, 128, 64, 64), (8, 32, 32, 80, 32, 6)]
+    for kv_dtype in ("bf16", "int8", "fp8"):
+        quant = kv_dtype != "bf16"
+        for B, Hq, Hkv, hd, page, P in shapes:
+            if quant and hd % 8:
+                continue            # int8 / fp8 rows are read in 8 bytes
+            lens = [P * page] if B == 1 else None    # 4,096 keys at B = 1
+            q, kp, vp, tbl, ln = decode_case(torch, gen, B, Hq, Hkv, hd,
+                                             page, P, bf16, lens=lens)
+            kv = (quant_pools(torch, gen, kp.shape[0], page, Hkv, hd,
+                              kv_dtype) if quant else (kp, vp))
+            poison_past(torch, kv[:2], tbl.cpu(), ln.cpu(), page)
+            fn = (dops.paged_decode_attention_quant if quant
+                  else dops.paged_decode_attention)
+            plain = (dref.paged_decode_attention_quant_ref if quant
+                     else dref.paged_decode_attention_ref)
+            got = fn(q, *kv, tbl, ln)
+            torch.cuda.synchronize()
+            want = plain(q, *kv, tbl, ln)
+            assert torch.isfinite(got).all(), "NaN past a length reached out"
+            if B > 1:
+                assert torch.all(got[0] == 0), "a zero-length slot gives 0"
+            torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+            splits_seen.add(dk.split_pages(B, Hkv, P, sms)[0])
+            n += 1
+        # COW fan-out: rows share prefix pages (pages of 12)
+        q = torch.randn(2, 1, 12, 32, generator=gen, device="cuda").to(bf16)
+        kv = (quant_pools(torch, gen, 12, 12, 2, 32, kv_dtype) if quant
+              else pools(torch, gen, 12, 12, 2, 32, bf16))
+        tbl = torch.tensor([[0, 1, 2, -1], [0, 1, 3, 4]], dtype=torch.int32,
+                           device="cuda")
+        ln = torch.tensor([30, 45], dtype=torch.int32, device="cuda")
+        fn = (dops.paged_decode_attention_quant if quant
+              else dops.paged_decode_attention)
+        plain = (dref.paged_decode_attention_quant_ref if quant
+                 else dref.paged_decode_attention_ref)
+        got = fn(q, *kv, tbl, ln)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(),
+                                   plain(q, *kv, tbl, ln).float(),
+                                   **BF16_TOL)
+        n += 1
+    assert {1, dk.MAX_SPLITS} <= splits_seen, splits_seen
+    # the dense kernel over a slice of a larger cache (row offset 3, S =
+    # 200), and over 4,096 rows; NaN past each length
+    for (B, S, Hq, Hkv, hd), view in (((4, 400, 12, 2, 128), True),
+                                      ((1, 4096, 32, 8, 128), False)):
+        lens = torch.randint(1, 201, (B,), generator=gen,
+                             device="cuda").to(torch.int32)
+        if view:
+            lens[0] = 0
+        else:
+            lens[:] = S
+        k, v = poisoned_cache(torch, gen, B, S, Hkv, hd, bf16,
+                              lens + (3 if view else 0))
+        q = torch.randn(B, 1, Hq, hd, generator=gen, device="cuda").to(bf16)
+        if view:
+            k, v = k[:, 3:203], v[:, 3:203]
+        got = ddops.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), "NaN past a length reached out"
+        torch.testing.assert_close(
+            got.float(), ddref.decode_attention_ref(q, k, v, lens).float(),
+            **BF16_TOL)
+        splits_seen.add(ddk.split_rows(B, Hkv, k.shape[1], sms)[0])
+        n += 1
+    log(f"tensor-core decode cases by splits a (slot, kv head): "
+        f"{sorted(splits_seen)}")
+    return n
+
+
 def quant_kernel_cases(torch, gen, dtype, tol):
     """#4-#6 against their plain versions over int8 and fp8 pools: the
     paged kernels' case families, head_dim 16/24/32/128, q_per_kv
@@ -427,9 +531,13 @@ def phase_environment(torch):
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     log(f"kernel build: {build_s:.1f} s for {', '.join(runtime.KERNELS)}")
     for name, out in runtime.build_log.items():
+        fn = ""   # the (mangled) kernel ptxas reports on
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+            elif "registers" in line or "spill" in line:
+                log(f"  {name}: {fn[:72]}: {line.strip()}")
     log(f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     return smi
@@ -501,6 +609,11 @@ def phase_kernels_vs_plain(torch):
                                        valid_rows(torch, want, lens), **tol)
             n += 1
         if dtype == torch.bfloat16:
+            nd = decode_mma_cases(torch, gen)
+            log(f"{nd} cases of the tensor-core decode kernel (bf16 query "
+                f"over bf16, int8 and fp8 pools and a bf16 dense cache) "
+                f"passed")
+            n += nd
             nm = prefill_mma_cases(torch, gen)
             log(f"{nm} cases of the tensor-core prefill kernel (bf16 query "
                 f"over bf16, int8 and fp8 pools) passed")
@@ -705,16 +818,22 @@ def dense_kernel_cases(torch, gen, dtype, tol):
     return n
 
 
-def device_ms(torch, fn, flush, runs=21):
+def device_ms(torch, fn, flush, runs=21, write_flush=False):
     """Median device time of fn() over `runs` runs: each run starts on a
     flushed L2 (the serving path reads another layer's pages in between)
     behind a device sleep long enough for the host to enqueue the whole
-    call, so the host's launch overhead is not counted."""
+    call, so the host's launch overhead is not counted. The flush reads a
+    256 MB buffer (a reduction into one element), which leaves L2 full of
+    clean lines; `write_flush` zeroes it instead (the older flush), whose
+    dirty lines a memory-bound kernel then pays to write back."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
-        flush.zero_()
+        if write_flush:
+            flush.zero_()
+        else:
+            flush.sum()
         torch.cuda._sleep(20_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -735,8 +854,6 @@ def bound(nbytes, flops, peak=BF16_FLOPS_PER_S):
 def phase_timing(torch):
     """Kernel, plain and library times at the serving shapes (bf16)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_decode_attention import ops as dops
-    from repro_torch.kernels.paged_decode_attention import ref as dref
     from repro_torch.kernels.paged_prefill_attention import ops as pops
     from repro_torch.kernels.paged_prefill_attention import ref as pref
     from repro_torch.models.paged_cache import gather_sequence
@@ -749,38 +866,9 @@ def phase_timing(torch):
     rows = {}
     models = {"qwen3-8b": (32, 8), "qwen2-1.5b": (12, 2)}
     page, n_pages, hd = 32, 256, 128   # the engines' page size and pool
+    time_decode_kernels(torch, gen, flush, models, rows)
     for model, (Hq, Hkv) in models.items():
         rep = Hq // Hkv
-        # decode: 8 slots at context 512
-        B, ctx = 8, 512
-        q, kp, vp, tbl, lens = decode_case(torch, gen, B, Hq, Hkv, hd, page,
-                                           ctx // page, dt, lens=[ctx] * B,
-                                           n_pages=n_pages)
-        got = dops.paged_decode_attention(q, kp, vp, tbl, lens)
-        want = dref.paged_decode_attention_ref(q, kp, vp, tbl, lens)
-        err = (got.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
-        gk = gather_sequence(kp, tbl).repeat_interleave(rep, 2)
-        gv = gather_sequence(vp, tbl).repeat_interleave(rep, 2)
-        qs, ks, vs = (q.transpose(1, 2), gk.transpose(1, 2).contiguous(),
-                      gv.transpose(1, 2).contiguous())
-        mask = (torch.arange(gk.shape[1], device="cuda")[None, :]
-                < lens[:, None])[:, None, None]
-        kv_elems = int(lens.sum()) * Hkv * hd * 2
-        nbytes = (q.numel() * 2 + kv_elems) * esz + (tbl.numel()
-                                                     + B) * 4
-        flops = 4 * hd * Hq * int(lens.sum())
-        rows[("paged_decode_attention", model)] = dict(
-            shape=f"B={B} ctx={ctx} Hq={Hq} Hkv={Hkv} hd={hd} page={page}",
-            max_abs_err=err,
-            ms=device_ms(torch, functools.partial(
-                dops.paged_decode_attention, q, kp, vp, tbl, lens), flush),
-            plain_ms=device_ms(torch, functools.partial(
-                dref.paged_decode_attention_ref, q, kp, vp, tbl, lens), flush),
-            library_ms=device_ms(torch, functools.partial(
-                F.scaled_dot_product_attention, qs, ks, vs, attn_mask=mask),
-                flush),
-            bound=bound(nbytes, flops))
         # ragged ingest: R = 4 rows of C = 128 at offsets 0..384
         C = 128
         offs, lns = [0, 128, 256, 384], [C] * 4
@@ -837,9 +925,11 @@ def phase_timing(torch):
         b_ms, b_by = r["bound"]
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        log(f"{name} [{model}: {r['shape']}] kernel {r['ms']:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, library "
-            f"{lib}, max_abs_err {r['max_abs_err']:.3g}")
+        old = ("" if "write_flush_ms" not in r else
+               f" (write flush {r['write_flush_ms']:.4f} ms)")
+        log(f"{name} [{model}: {r['shape']}] kernel {r['ms']:.4f} ms{old}, "
+            f"bound {b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, "
+            f"library {lib}, max_abs_err {r['max_abs_err']:.3g}")
     return rows
 
 
@@ -908,60 +998,19 @@ def time_ssm_rms_kernels(torch, gen, flush, rows):
 
 
 def time_quant_kernels(torch, gen, flush, models, rows):
-    """#4-#6 at the float kernels' serving shapes over an int8 pool (the
-    int8 pipeline's), a bf16 query: kernel, plain (dequantize-gather, then
-    attention) and SDPA over the dequantized gather in bf16. The bound
+    """#5 and #6 at the float kernels' serving shapes over an int8 pool
+    (the int8 pipeline's), a bf16 query: kernel, plain (dequantize-gather,
+    then attention) and SDPA over the dequantized gather in bf16. The bound
     counts 1 byte per K/V element, 8 bytes of scales per page and kv head
     read, q and out, and the int32 indices. The fp8 pool's kernel time is
     logged beside it."""
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_decode_attention import ops as dops
-    from repro_torch.kernels.paged_decode_attention import ref as dref
     from repro_torch.kernels.paged_prefill_attention import ops as pops
     from repro_torch.kernels.paged_prefill_attention import ref as pref
     from repro_torch.models.paged_cache import gather_sequence_dequant
     dt, page, n_pages, hd = torch.bfloat16, 32, 256, 128
     for model, (Hq, Hkv) in models.items():
         rep = Hq // Hkv
-        B, ctx = 8, 512
-        q, _, _, tbl, lens = decode_case(torch, gen, B, Hq, Hkv, hd, page,
-                                         ctx // page, dt, lens=[ctx] * B,
-                                         n_pages=1)
-        fp8_ms = None
-        for kv_dtype in ("fp8", "int8"):
-            pools = quant_pools(torch, gen, n_pages, page, Hkv, hd, kv_dtype)
-            run = functools.partial(dops.paged_decode_attention_quant, q,
-                                    *pools, tbl, lens)
-            if kv_dtype == "fp8":
-                fp8_ms = device_ms(torch, run, flush)
-        plain = functools.partial(dref.paged_decode_attention_quant_ref, q,
-                                  *pools, tbl, lens)
-        got, want = run(), plain()
-        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
-        gk = gather_sequence_dequant(pools[0], pools[2], tbl).to(dt)
-        gv = gather_sequence_dequant(pools[1], pools[3], tbl).to(dt)
-        gk, gv = gk.repeat_interleave(rep, 2), gv.repeat_interleave(rep, 2)
-        mask = (torch.arange(gk.shape[1], device="cuda")[None, :]
-                < lens[:, None])[:, None, None]
-        n_tok = int(lens.sum())
-        pages_read = B * (ctx // page)
-        nbytes = (n_tok * Hkv * hd * 2 + pages_read * Hkv * 2 * 4
-                  + 2 * q.numel() * 2 + (tbl.numel() + B) * 4)
-        log(f"paged_decode_attention_quant bound inputs [{model}]: K/V "
-            f"{n_tok * Hkv * hd * 2} B + scales {pages_read * Hkv * 8} B + "
-            f"q/out {2 * q.numel() * 2} B + indices "
-            f"{(tbl.numel() + B) * 4} B; fp8 pool kernel {fp8_ms:.4f} ms")
-        rows[("paged_decode_attention_quant", model)] = dict(
-            shape=f"B={B} ctx={ctx} Hq={Hq} Hkv={Hkv} hd={hd} page={page} "
-                  f"int8 pool",
-            max_abs_err=(got.float() - want.float()).abs().max().item(),
-            ms=device_ms(torch, run, flush),
-            plain_ms=device_ms(torch, plain, flush),
-            library_ms=device_ms(torch, functools.partial(
-                F.scaled_dot_product_attention, q.transpose(1, 2),
-                gk.transpose(1, 2).contiguous(),
-                gv.transpose(1, 2).contiguous(), attn_mask=mask), flush),
-            bound=bound(nbytes, 4 * hd * Hq * n_tok))
         C = 128
         for name, o, ln in (
                 ("paged_prefill_attention_ragged_quant", [0, 128, 256, 384],
@@ -1027,60 +1076,121 @@ def time_quant_kernels(torch, gen, flush, models, rows):
 
 
 def time_dense_kernels(torch, gen, flush, models, rows):
-    """The dense decode kernel at B = 8 slots of a max_len = 1024 cache
-    filled to 512, read as the engine reads it (a view of the live rows),
-    and the flash kernel at B = 1, S = 1024, causal (bf16, head_dim 128),
-    and at phase 6's monolithic prefill (qwen3-8b, B = 4, S = 256).
-    Bound inputs are logged beside each time. The decode kernel is also
-    timed at phase 6's fill (288), over the live view and over the whole
-    cache."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import ops as ddops
-    from repro_torch.kernels.decode_attention import ref as ddref
-    dt, esz, hd = torch.bfloat16, 2, 128
+    """The flash kernel at B = 1, S = 1024, causal (bf16, head_dim 128),
+    and at phase 6's monolithic prefill (qwen3-8b, B = 4, S = 256). Bound
+    inputs are logged beside each time."""
+    hd = 128
     for model, (Hq, Hkv) in models.items():
-        rep = Hq // Hkv
-        B, S = 8, 1024
-        q = torch.randn(B, 1, Hq, hd, generator=gen, device="cuda").to(dt)
-        for ctx, live in ((512, 512), (288, 288), (288, S)):
-            lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
-            k, v = poisoned_cache(torch, gen, B, S, Hkv, hd, dt, lens)
-            k, v = k[:, :live], v[:, :live]
-            got = ddops.decode_attention(q, k, v, lens)
-            want = ddref.decode_attention_ref(q, k, v, lens)
-            torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
-            run = functools.partial(ddops.decode_attention, q, k, v, lens)
-            if ctx != 512:
-                log(f"decode_attention [{model}: B={B} S={S} lengths={ctx} "
-                    f"read over {live} rows] kernel "
-                    f"{device_ms(torch, run, flush):.4f} ms")
-                continue
-            kv_bytes = int(lens.sum()) * Hkv * hd * 2 * esz
-            nbytes = kv_bytes + 2 * q.numel() * esz + B * 4
-            log(f"decode_attention bound inputs [{model}]: K/V {kv_bytes} B + "
-                f"q/out {2 * q.numel() * esz} B + lengths {B * 4} B; "
-                f"{4 * hd * Hq * int(lens.sum())} flops")
-            kc = k.nan_to_num(0.0).repeat_interleave(rep, 2).transpose(1, 2)
-            vc = v.nan_to_num(0.0).repeat_interleave(rep, 2).transpose(1, 2)
-            mask = (torch.arange(live, device="cuda")[None, :]
-                    < lens[:, None])[:, None, None]
-            rows[("decode_attention", model)] = dict(
-                shape=f"B={B} S={S} lengths={ctx} read over {live} rows "
-                      f"Hq={Hq} Hkv={Hkv} hd={hd}",
-                max_abs_err=(got.float() - want.float()).abs().max().item(),
-                ms=device_ms(torch, run, flush),
-                plain_ms=device_ms(torch, functools.partial(
-                    ddref.decode_attention_ref, q, k, v, lens), flush),
-                library_ms=device_ms(torch, functools.partial(
-                    F.scaled_dot_product_attention, q.transpose(1, 2),
-                    kc.contiguous(), vc.contiguous(), attn_mask=mask), flush),
-                bound=bound(nbytes, 4 * hd * Hq * int(lens.sum())))
         rows[("flash_attention", model)] = flash_row(
             torch, gen, flush, model, 1, 1024, Hq, Hkv, hd)
     # monolithic prefill of phase 6's batch: 4 prompts of 256 tokens
     rows[("flash_attention", "qwen3-8b B=4 S=256")] = flash_row(
         torch, gen, flush, "qwen3-8b B=4 S=256", 4, 256,
         *models["qwen3-8b"], hd)
+
+
+# The decode kernels' timed shapes (B = 8 slots): label suffix, each slot's
+# length. The first is the shape the older rows were timed at (context
+# 512); then phase 6's decode batch (4 of the 8 slots live at about 272
+# keys, the rest inactive) and the engines' max_len (1,024).
+DECODE_SHAPES = (("", [512] * 8), (" 4 of 8 live at 272", [272] * 4 + [0] * 4),
+                 (" ctx=1024", [1024] * 8))
+
+
+def time_decode_kernels(torch, gen, flush, models, rows):
+    """#1, #4 (over an int8 pool; the fp8 pool's time logged beside it) and
+    #8 at each DECODE_SHAPES shape, bf16 query, head_dim 128, page 32 (the
+    block table trimmed to the live pages, as the engines trim it), the
+    dense cache a 1,024-row cache read over its live rows as the engine
+    reads it, NaN past each length: kernel, plain and SDPA (over the
+    gathered, head-repeated K/V with a length mask; dequantized for #4),
+    each under the read flush, and the kernel also under the write flush
+    the older rows were timed under. The bound counts each live K/V byte
+    once (1 a value for int8, plus 8 bytes of scales per page and kv
+    head), q and out, and the int32 indices."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as ddops
+    from repro_torch.kernels.decode_attention import ref as ddref
+    from repro_torch.kernels.paged_decode_attention import ops as dops
+    from repro_torch.kernels.paged_decode_attention import ref as dref
+    from repro_torch.models.paged_cache import (gather_sequence,
+                                                gather_sequence_dequant)
+    dt, page, hd, S = torch.bfloat16, 32, 128, 1024
+    for model, (Hq, Hkv) in models.items():
+        rep = Hq // Hkv
+        for suffix, lens in DECODE_SHAPES:
+            label = model + suffix
+            B, live = len(lens), max(lens)
+            P = -(-live // page)
+            n_pages = B * P + 2
+            q, kp, vp, tbl, ln = decode_case(torch, gen, B, Hq, Hkv, hd,
+                                             page, P, dt, lens=lens,
+                                             n_pages=n_pages)
+            n_tok = int(ln.sum())
+            pages_read = sum(-(-x // page) for x in lens)
+            qs = q.transpose(1, 2)
+
+            def sdpa(k, v):
+                """SDPA over (B, S, Hkv, hd) K/V, heads repeated, with a
+                length mask."""
+                mask = (torch.arange(k.shape[1], device="cuda")[None, :]
+                        < ln[:, None])[:, None, None]
+                return functools.partial(
+                    F.scaled_dot_product_attention, qs,
+                    k.repeat_interleave(rep, 2).transpose(1, 2).contiguous(),
+                    v.repeat_interleave(rep, 2).transpose(1, 2).contiguous(),
+                    attn_mask=mask)
+            flops = 4 * hd * Hq * n_tok
+            io = 2 * q.numel() * 2 + (tbl.numel() + B) * 4
+            shape = (f"B={B} lengths={sorted(set(lens), reverse=True)} "
+                     f"Hq={Hq} Hkv={Hkv} hd={hd} page={page}")
+
+            def row(name, run, plain, library, nbytes, extra=""):
+                got, want = run(), plain()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           **BF16_TOL)
+                r = dict(shape=shape + extra,
+                         max_abs_err=(got.float()
+                                      - want.float()).abs().max().item(),
+                         ms=device_ms(torch, run, flush),
+                         plain_ms=device_ms(torch, plain, flush),
+                         library_ms=device_ms(torch, library, flush),
+                         bound=bound(nbytes, flops))
+                r["write_flush_ms"] = device_ms(torch, run, flush,
+                                                write_flush=True)
+                rows[(name, label)] = r
+                log(f"{name} bound inputs [{label}]: {nbytes} B, {flops} "
+                    f"flops; kernel under the write flush "
+                    f"{r['write_flush_ms']:.4f} ms")
+
+            row("paged_decode_attention",
+                functools.partial(dops.paged_decode_attention, q, kp, vp,
+                                  tbl, ln),
+                functools.partial(dref.paged_decode_attention_ref, q, kp, vp,
+                                  tbl, ln),
+                sdpa(gather_sequence(kp, tbl), gather_sequence(vp, tbl)),
+                n_tok * Hkv * hd * 2 * 2 + io)
+            fp8 = quant_pools(torch, gen, n_pages, page, Hkv, hd, "fp8")
+            fp8_ms = device_ms(torch, functools.partial(
+                dops.paged_decode_attention_quant, q, *fp8, tbl, ln), flush)
+            kv = quant_pools(torch, gen, n_pages, page, Hkv, hd, "int8")
+            row("paged_decode_attention_quant",
+                functools.partial(dops.paged_decode_attention_quant, q, *kv,
+                                  tbl, ln),
+                functools.partial(dref.paged_decode_attention_quant_ref, q,
+                                  *kv, tbl, ln),
+                sdpa(gather_sequence_dequant(kv[0], kv[2], tbl).to(dt),
+                     gather_sequence_dequant(kv[1], kv[3], tbl).to(dt)),
+                n_tok * Hkv * hd * 2 + pages_read * Hkv * 8 + io,
+                f" int8 pool (fp8 pool: kernel {fp8_ms:.4f} ms)")
+            k, v = poisoned_cache(torch, gen, B, S, Hkv, hd, dt, ln)
+            k, v = k[:, :live], v[:, :live]
+            row("decode_attention",
+                functools.partial(ddops.decode_attention, q, k, v, ln),
+                functools.partial(ddref.decode_attention_ref, q, k, v, ln),
+                sdpa(k.nan_to_num(0.0), v.nan_to_num(0.0)),
+                n_tok * Hkv * hd * 2 * 2 + 2 * q.numel() * 2 + B * 4,
+                f" dense cache of {S} rows read over {live}")
 
 
 def flash_row(torch, gen, flush, label, B, S, Hq, Hkv, hd):
@@ -1584,9 +1694,10 @@ def kv_read_ratio(torch, quant, ref):
 MATMUL_KERNELS = ("nvjet", "gemm", "gemv", "cutlass", "xmma")
 # the device functions of csrc/*.cu, as the profiler names them (a name
 # also matches the keys of the functions it is a prefix of)
-PORT_KERNELS = ("decode_partial", "decode_merge", "paged_prefill_kernel_mma",
-                "paged_prefill_kernel", "flash_kernel_wgmma", "flash_kernel",
-                "ssd_kernel", "rmsnorm_kernel")
+PORT_KERNELS = ("decode_kernel_mma", "decode_kernel",
+                "paged_prefill_kernel_mma", "paged_prefill_kernel",
+                "flash_kernel_wgmma", "flash_kernel", "ssd_kernel",
+                "rmsnorm_kernel")
 
 
 def port_kernel_times(kernels):
@@ -1713,8 +1824,14 @@ def phase_profile(torch, engines):
         log(f"  host ops: {host_ms:.1f} ms self CPU time in "
             f"{sum(n for *_, n in host)} calls under the profiler")
         launches = sum(n for key, _, n in host if key == "cudaLaunchKernel")
+        # the decode kernel's cluster launches go through
+        # cudaLaunchKernelEx, the library matmuls' through cuLaunchKernelEx
+        every = sum(n for key, _, n in host if key.startswith(
+            ("cudaLaunchKernel", "cuLaunchKernel")))
         log(f"  cudaLaunchKernel: {launches} calls, "
-            f"{launches / calls:.0f} a model call")
+            f"{launches / calls:.0f} a model call; every launch call "
+            f"(cudaLaunchKernel*, cuLaunchKernel*): {every}, "
+            f"{every / calls:.0f} a model call")
         for key, ms, n in sorted(host, key=lambda k: -k[1])[:6]:
             log(f"  {ms:9.3f} ms {100 * ms / host_ms:5.1f} % x{n:<6d} "
                 f"{key[:90]}")
@@ -1766,7 +1883,12 @@ MAIN_PATH = {"paged_decode_attention": "chunked paged pipeline",
              "rmsnorm": "chunked paged pipeline"}
 # the timing rows of each kernel (phase 3): the first at the top level of
 # its JSON entry, the others under their own names
-TIMING_ROWS = {"ssm_scan": ("zamba2-2.7b", "zamba2-2.7b S=256"),
+DECODE_ROWS = tuple(model + suffix for suffix, _ in DECODE_SHAPES
+                    for model in ("qwen3-8b", "qwen2-1.5b"))
+TIMING_ROWS = {"paged_decode_attention": DECODE_ROWS,
+               "paged_decode_attention_quant": DECODE_ROWS,
+               "decode_attention": DECODE_ROWS,
+               "ssm_scan": ("zamba2-2.7b", "zamba2-2.7b S=256"),
                "flash_attention": ("qwen3-8b", "qwen2-1.5b",
                                    "qwen3-8b B=4 S=256"),
                "rmsnorm": ("qwen3-8b", "zamba2-2.7b", "qwen3-8b decode",
@@ -1809,6 +1931,8 @@ def main() -> int:
                     "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                     "library_ms": r["library_ms"]}
+            if "write_flush_ms" in r:
+                nums["write_flush_ms"] = r["write_flush_ms"]
             if model == first:
                 entry.update(nums)
             else:

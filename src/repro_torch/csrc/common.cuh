@@ -1,7 +1,7 @@
 // Helpers shared by the paged-attention kernels: conversions between the
 // query types (float32, bfloat16) and float32, eight-byte row pieces of
-// every pool storage type (float32, bfloat16, int8, float8 e4m3), and a
-// warp sum.
+// every pool storage type (float32, bfloat16, int8, float8 e4m3; the
+// quantized ones also as bf16 pairs), and a warp sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -72,6 +72,25 @@ struct Vec<int8_t> {
       f[4 + i] = (float)((int)(r.y << (24 - 8 * i)) >> 24);
     }
   }
+  // the eight values as four bf16 pairs, exact (|x| <= 128), without the
+  // quarter-rate int-to-float conversion: byte x, flipped to x + 128, is
+  // placed as the low byte of the float 2^23 + x + 128 and one add takes
+  // the offset away
+  __device__ __forceinline__ static void to_bf16(Raw r, uint32_t (&w)[4]) {
+    const uint32_t u[2] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t x = u[i / 2], lo = 2 * (i % 2);
+      const float a =
+          __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u | lo)) -
+          8388736.f;
+      const float b =
+          __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u | (lo + 1))) -
+          8388736.f;
+      __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      w[i] = *reinterpret_cast<uint32_t*>(&h);
+    }
+  }
 };
 // float8 e4m3: eight values, two at a time through the e4m3x2 -> half2
 // conversion sm_90 does in hardware (every e4m3 value, NaN included, is
@@ -91,6 +110,17 @@ struct Vec<__nv_fp8_e4m3> {
       const float2 p = __half22float2(h);
       f[2 * i] = p.x;
       f[2 * i + 1] = p.y;
+    }
+  }
+  // the eight values as four bf16 pairs (every finite e4m3 value is a bf16
+  // value)
+  __device__ __forceinline__ static void to_bf16(Raw r, uint32_t (&w)[4]) {
+    float f[8];
+    unpack(r, f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<uint32_t*>(&h);
     }
   }
 };

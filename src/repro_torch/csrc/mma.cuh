@@ -1,9 +1,9 @@
 // Tensor-core and asynchronous-copy helpers of the attention kernels that
 // stage K/V tiles in shared memory: the m16n8k16 bf16 product and the
 // ldmatrix loads that feed K's and (transposed) V's B fragments
-// (paged_prefill_attention.cu's mma kernel), bf16 packing, and the cp.async
-// copies (with zero fill) that stage the tiles (that kernel and
-// flash_attention.cu's wgmma kernel).
+// (paged_prefill_attention.cu's and flash_decode.cuh's mma kernels), bf16
+// packing, and the cp.async copies (with zero fill) that stage the tiles
+// (those kernels and flash_attention.cu's wgmma kernel).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -56,10 +56,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// cp.async of 16 or 8 bytes from global into shared memory. With `fill`
+// cp.async of 16, 8 or 4 bytes from global into shared memory. With `fill`
 // false nothing is read and the destination is written with zeros (the
 // src-size operand 0), so a masked row lands as zeros in the same stage.
-// 16-byte copies bypass L1 (.cg); 8-byte copies can only go through it.
+// 16-byte copies bypass L1 (.cg); 8- and 4-byte copies can only go through
+// it.
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
                                             bool fill) {
   const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -72,6 +73,12 @@ __device__ __forceinline__ void cp_async_8(void* smem, const void* gmem,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
                "l"(gmem), "r"(fill ? 8 : 0));
 }
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem,
+                                           bool fill) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(fill ? 4 : 0));
+}
 // Close the copies started since the last commit into one group.
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -82,6 +89,16 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// The same for a count known only at run time, 0 to 3 (the instruction
+// takes an immediate).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait_group<0>(); break;
+    case 1: cp_async_wait_group<1>(); break;
+    case 2: cp_async_wait_group<2>(); break;
+    default: cp_async_wait_group<3>(); break;
+  }
 }
 
 }  // namespace paged

@@ -14,20 +14,22 @@
 // inside.
 //
 // The split-KV design (flash_decode.cuh) cuts each (slot, kv head) into
-// `splits` runs of `pages_per_split` pages, one thread block each; the
-// block's page ids, and for a quantized pool the pages' K and V scales of
-// its kv head, are read once into shared memory, so a row's address and
-// scale never wait on a global load, and a row's page is stepped per row
-// without a division. A quantized pool moves 1 byte per element (plus 8
-// bytes of scales per page and kv head) where bf16 moves 2, so its bound
-// is about half the bf16 kernel's.
+// `splits` runs of `pages_per_split` pages, one thread block each, and
+// merges the runs inside the thread-block cluster they form. A bfloat16
+// query over a bfloat16, int8 or fp8 pool runs decode_kernel_mma (bf16
+// tensor cores, 64-key tiles gathered through the block table into a
+// cp.async ring, so a tile spans pages of 8, 12 or 16 keys and a 64-key
+// page fills one); a float32 query or pool runs the scalar decode_kernel,
+// whose block reads its split's page ids (and a quantized pool's scales of
+// its kv head) once into shared memory. A quantized pool moves 1 byte per
+// element (plus 8 bytes of scales per page and kv head) where bf16 moves 2,
+// so its bound is about half the bf16 kernel's.
 //
 // Layouts (all contiguous): q, out (B, 1, Hq, hd); k/v pages (n_pages, page,
-// Hkv, hd), head_dim a multiple of the values in 8 bytes of the pool type;
-// k/v scales (n_pages, Hkv) float32 (quantized pools only); block_table
-// (B, P) int32; lengths (B,) int32. Head h of the output is kv head
-// h / q_per_kv. Scratch from the caller: part_o (B, Hkv, splits, q_per_kv,
-// hd) float32 and part_ml (B, Hkv, splits, q_per_kv, 2) float32.
+// Hkv, hd), head_dim a multiple of 4 and of the values in 8 bytes of the
+// pool type; k/v scales (n_pages, Hkv) float32 (quantized pools only);
+// block_table (B, P) int32; lengths (B,) int32. Head h of the output is kv
+// head h / q_per_kv.
 
 #include "flash_decode.cuh"
 
@@ -36,9 +38,10 @@ namespace {
 using namespace paged;
 
 // Rows of a paged pool: token t of slot b lies on page
-// block_table[b, t / ps] at row t % ps. Shared memory holds the split's
-// page ids, then, for a quantized pool, its pages' K scales and their V
-// scales (0 for an unmapped page, whose rows are never read).
+// block_table[b, t / ps] at row t % ps. The scalar kernel's shared memory
+// holds the split's page ids, then, for a quantized pool, its pages' K
+// scales and their V scales (0 for an unmapped page, whose rows are never
+// read).
 struct PagedRows {
   const int* block_table;
   const float* k_scales;  // (n_pages, Hkv); null for a float pool
@@ -54,6 +57,22 @@ struct PagedRows {
     return (sizeof(int) + 2 * sizeof(float)) * (size_t)pages_per_split;
   }
 
+  // the tensor-core kernel's interface
+  __device__ __forceinline__ void span(int split, int* t0,
+                                       int* t_end) const {
+    const int p = split * pages_per_split;
+    *t0 = p * ps;
+    *t_end = min(p + pages_per_split, P) * ps;
+  }
+  __device__ __forceinline__ long long locate(int b, int t, int* page) const {
+    const int pi = t / ps;
+    const int pg = block_table[(size_t)b * P + pi];
+    *page = pg;
+    if (pg < 0 || pg >= n_pages) return -1;
+    return ((long long)pg * ps + (t - pi * ps)) * (long long)row_stride;
+  }
+
+  // the scalar kernel's interface
   struct Cursor {
     const int* pages;
     int pc, pr, ps, last, n_pages;
@@ -107,25 +126,23 @@ struct PagedRows {
 };
 
 template <typename TQ>
-int launch_q(const void* q, const void* k, const void* v, PagedRows rows,
-             const int* lens, float* po, float* pml, void* out, int B,
-             int Hq, int Hkv, int hd, int splits, size_t smem, int kv_dtype,
-             cudaStream_t s) {
+int launch_scalar(const void* q, const void* k, const void* v,
+                  PagedRows rows, const int* lens, void* out, int B, int Hq,
+                  int Hkv, int hd, int splits, size_t smem, int kv_dtype,
+                  cudaStream_t s) {
   switch (kv_dtype) {
     case 0:
-      return decode_launch<TQ, float>(q, k, v, rows, lens, po, pml, out, B,
-                                      Hq, Hkv, hd, splits, smem, s);
+      return decode_launch<TQ, float>(q, k, v, rows, lens, out, B, Hq, Hkv,
+                                      hd, splits, smem, s);
     case 1:
-      return decode_launch<TQ, __nv_bfloat16>(q, k, v, rows, lens, po, pml,
-                                              out, B, Hq, Hkv, hd, splits,
-                                              smem, s);
+      return decode_launch<TQ, __nv_bfloat16>(q, k, v, rows, lens, out, B, Hq,
+                                              Hkv, hd, splits, smem, s);
     case 2:
-      return decode_launch<TQ, int8_t>(q, k, v, rows, lens, po, pml, out, B,
-                                       Hq, Hkv, hd, splits, smem, s);
+      return decode_launch<TQ, int8_t>(q, k, v, rows, lens, out, B, Hq, Hkv,
+                                       hd, splits, smem, s);
     case 3:
-      return decode_launch<TQ, __nv_fp8_e4m3>(q, k, v, rows, lens, po, pml,
-                                              out, B, Hq, Hkv, hd, splits,
-                                              smem, s);
+      return decode_launch<TQ, __nv_fp8_e4m3>(q, k, v, rows, lens, out, B, Hq,
+                                              Hkv, hd, splits, smem, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -136,21 +153,24 @@ extern "C" {
 
 // q_dtype (q and out): 0 = float32, 1 = bfloat16. kv_dtype (pools): 0 =
 // float32, 1 = bfloat16, 2 = int8, 3 = float8 e4m3; the scales are given
-// for 2 and 3 and null otherwise. splits * pages_per_split must cover P.
-// Returns cudaGetLastError() after the launches, 0 on success.
+// for 2 and 3 and null otherwise. splits (at most the cluster size, 8) *
+// pages_per_split must cover P. Routing by type: a bfloat16 query over a
+// bfloat16, int8 or fp8 pool runs on the tensor cores; a float32 query, or
+// a float32 pool, on the scalar kernel. Returns cudaGetLastError() after
+// the launch, 0 on success.
 int paged_decode_attention(const void* q, const void* k_pages,
                            const void* v_pages, const void* k_scales,
                            const void* v_scales, const void* block_table,
-                           const void* lengths, void* part_o, void* part_ml,
-                           void* out, int B, int Hq, int Hkv, int hd, int ps,
-                           int P, int n_pages, int splits,
-                           int pages_per_split, int q_dtype, int kv_dtype,
-                           void* stream) {
+                           const void* lengths, void* out, int B, int Hq,
+                           int Hkv, int hd, int ps, int P, int n_pages,
+                           int splits, int pages_per_split, int q_dtype,
+                           int kv_dtype, void* stream) {
   if (B == 0) return 0;
   const bool quant = kv_dtype >= 2;
-  if (splits < 1 || pages_per_split < 1 ||
-      (long long)splits * pages_per_split < P ||
-      quant != (k_scales != nullptr) || quant != (v_scales != nullptr))
+  if (splits < 1 || splits > kDecodeMaxSplits || pages_per_split < 1 ||
+      (long long)splits * pages_per_split < P || ps < 1 || Hkv < 1 ||
+      Hq % Hkv || quant != (k_scales != nullptr) ||
+      quant != (v_scales != nullptr))
     return (int)cudaErrorInvalidValue;
   PagedRows rows{};
   rows.block_table = static_cast<const int*>(block_table);
@@ -163,17 +183,34 @@ int paged_decode_attention(const void* q, const void* k_pages,
   rows.pages_per_split = pages_per_split;
   rows.row_stride = (size_t)Hkv * hd;
   const int* lens = static_cast<const int*>(lengths);
-  float* po = static_cast<float*>(part_o);
-  float* pml = static_cast<float*>(part_ml);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 1 && kv_dtype != 0) {
+    const bool a16 = (reinterpret_cast<uintptr_t>(k_pages) |
+                      reinterpret_cast<uintptr_t>(v_pages)) % 16 == 0;
+    const int keys = pages_per_split * ps;
+    switch (kv_dtype) {
+      case 1:
+        return decode_mma_launch<__nv_bfloat16>(q, k_pages, v_pages, rows,
+                                                lens, out, B, Hq, Hkv, hd,
+                                                splits, keys, a16, s);
+      case 2:
+        return decode_mma_launch<int8_t>(q, k_pages, v_pages, rows, lens, out,
+                                         B, Hq, Hkv, hd, splits, keys, a16, s);
+      case 3:
+        return decode_mma_launch<__nv_fp8_e4m3>(q, k_pages, v_pages, rows,
+                                                lens, out, B, Hq, Hkv, hd,
+                                                splits, keys, a16, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   const size_t smem = PagedRows::smem_bytes(pages_per_split);
   if (q_dtype == 0)
-    return launch_q<float>(q, k_pages, v_pages, rows, lens, po, pml, out, B,
-                           Hq, Hkv, hd, splits, smem, kv_dtype, s);
+    return launch_scalar<float>(q, k_pages, v_pages, rows, lens, out, B, Hq,
+                                Hkv, hd, splits, smem, kv_dtype, s);
   if (q_dtype == 1)
-    return launch_q<__nv_bfloat16>(q, k_pages, v_pages, rows, lens, po, pml,
-                                   out, B, Hq, Hkv, hd, splits, smem,
-                                   kv_dtype, s);
+    return launch_scalar<__nv_bfloat16>(q, k_pages, v_pages, rows, lens, out,
+                                        B, Hq, Hkv, hd, splits, smem,
+                                        kv_dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

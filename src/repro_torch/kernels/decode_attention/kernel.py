@@ -1,7 +1,7 @@
 """ctypes launch of the dense-cache decode CUDA kernel
 (`csrc/decode_attention.cu`): argument checks, the split of each slot's
-cache rows over thread blocks, output and scratch allocation, launch on the
-current stream, and the launch's error check."""
+cache rows over the thread blocks of one cluster, output allocation, launch
+on the current stream, and the launch's error check."""
 from __future__ import annotations
 
 import ctypes
@@ -13,11 +13,11 @@ from repro_torch.kernels.paged_decode_attention.kernel import split_pages
 from repro_torch.models.config import HEAD_DIM_MULTIPLE, MAX_HEAD_DIM
 
 NAME = "decode_attention"
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
 # rows per unit of the split: a split is a whole number of units, each a
-# multiple of every kUnroll the kernel picks (16 / NI)
+# multiple of every kUnroll the scalar kernel picks (16 / NI)
 SPLIT_UNIT = 16
 
 
@@ -72,18 +72,12 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
         raise ValueError(f"head_dim {hd} is not a multiple of "
                          f"{HEAD_DIM_MULTIPLE} in 1..{MAX_HEAD_DIM}")
     splits, per = split_rows(B, Hkv, S, runtime.sm_count(q.device))
-    rep = Hq // Hkv
-    part_o = torch.empty((B, Hkv, splits, rep, hd), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((B, Hkv, splits, rep, 2), dtype=torch.float32,
-                          device=q.device)
     out = torch.empty_like(q)
     lib = _lib()
     code = lib.decode_attention(
         runtime.ptr(q), runtime.ptr(k_cache), runtime.ptr(v_cache),
-        runtime.ptr(lengths), runtime.ptr(part_o), runtime.ptr(part_ml),
-        runtime.ptr(out), B, Hq, Hkv, hd, S, k_cache.stride(0),
-        k_cache.stride(1), splits, per, runtime.dtype_code(q.dtype),
-        runtime.stream_ptr())
+        runtime.ptr(lengths), runtime.ptr(out), B, Hq, Hkv, hd, S,
+        k_cache.stride(0), k_cache.stride(1), splits, per,
+        runtime.dtype_code(q.dtype), runtime.stream_ptr())
     runtime.check(lib, NAME, code)
     return out

@@ -1,7 +1,7 @@
 """ctypes launch of the paged decode CUDA kernel
 (`csrc/paged_decode_attention.cu`): argument checks, the split of each
-slot's pages over thread blocks, output and scratch allocation, launch on
-the current stream, and the launch's error check."""
+slot's pages over the thread blocks of one cluster, output allocation,
+launch on the current stream, and the launch's error check."""
 from __future__ import annotations
 
 import ctypes
@@ -11,10 +11,16 @@ import torch
 from repro_torch.kernels import runtime
 
 NAME = "paged_decode_attention"
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 # thread blocks to aim for on each SM: split-KV cuts every (slot, kv head)
-# into runs of pages until the grid holds about this many per SM
-BLOCKS_PER_SM = 4
+# into runs of pages until the grid holds about this many per SM (on an
+# H100, 2 against 1, 4 and 8 was the fastest at qwen3-8b's decode shapes
+# and even at qwen2-1.5b's: PERF.md)
+BLOCKS_PER_SM = 2
+# the runs of one (slot, kv head) form one thread-block cluster, which the
+# kernel merges in distributed shared memory: at most the portable cluster
+# size (kDecodeMaxSplits in csrc/flash_decode.cuh)
+MAX_SPLITS = 8
 
 
 def _lib():
@@ -27,10 +33,11 @@ def _lib():
 def split_pages(B: int, Hkv: int, P: int, n_sm: int):
     """(splits, units_per_split): the fewest equal runs of P units (here
     block-table columns; the dense decode kernel's row units) that give the
-    grid about BLOCKS_PER_SM blocks per SM."""
+    grid about BLOCKS_PER_SM blocks per SM, at most MAX_SPLITS runs (one
+    cluster). Every unit has a run and no run is empty."""
     if P == 0:
         return 1, 1
-    want = min(P, -(-BLOCKS_PER_SM * n_sm // max(B * Hkv, 1)))
+    want = min(P, MAX_SPLITS, -(-BLOCKS_PER_SM * n_sm // max(B * Hkv, 1)))
     per = -(-P // want)
     return -(-P // per), per
 
@@ -59,11 +66,6 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_table, lengths,
         raise ValueError("block_table and lengths need one row per slot")
     runtime.check_limits(ps, hd, k_pages.dtype)
     splits, per = split_pages(B, Hkv, P, runtime.sm_count(q.device))
-    rep = Hq // Hkv
-    part_o = torch.empty((B, Hkv, splits, rep, hd), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((B, Hkv, splits, rep, 2), dtype=torch.float32,
-                          device=q.device)
     out = torch.empty_like(q)
     null = ctypes.c_void_p(None)
     lib = _lib()
@@ -71,9 +73,9 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_table, lengths,
         runtime.ptr(q), runtime.ptr(k_pages), runtime.ptr(v_pages),
         null if k_scales is None else runtime.ptr(k_scales),
         null if v_scales is None else runtime.ptr(v_scales),
-        runtime.ptr(block_table), runtime.ptr(lengths), runtime.ptr(part_o),
-        runtime.ptr(part_ml), runtime.ptr(out), B, Hq, Hkv, hd, ps, P,
-        n_pages, splits, per, runtime.dtype_code(q.dtype),
-        runtime.kv_dtype_code(k_pages.dtype), runtime.stream_ptr())
+        runtime.ptr(block_table), runtime.ptr(lengths), runtime.ptr(out),
+        B, Hq, Hkv, hd, ps, P, n_pages, splits, per,
+        runtime.dtype_code(q.dtype), runtime.kv_dtype_code(k_pages.dtype),
+        runtime.stream_ptr())
     runtime.check(lib, NAME, code)
     return out

@@ -248,6 +248,115 @@ def test_quant_decode_kernel_matches_plain(gen, kv_dtype, dtype, Hq, Hkv,
             q, kp, vp, ks, vs, tbl, ln).float(), **TOL[dtype])
 
 
+def _poison_past(pool, tbl, lens, page):
+    """NaN (bf16, fp8) or 127 (int8) at every position of each slot's last
+    mapped page past its length."""
+    raw = pool.view(torch.uint8)
+    for b, n in enumerate(lens):
+        if n % page:
+            pg = int(tbl[b, n // page])
+            if pool.dtype == torch.bfloat16:
+                pool[pg, n % page:] = float("nan")
+            else:
+                raw[pg, n % page:] = 0x7F
+
+
+_DECODE_SHAPES = [(3, 4, 4, 24, 8, 6), (2, 4, 2, 16, 12, 9),
+                  (66, 32, 8, 128, 32, 3), (4, 12, 2, 80, 64, 3),
+                  (2, 16, 1, 256, 16, 8), (2, 24, 1, 36, 12, 10),
+                  (1, 32, 8, 128, 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype,B,Hq,Hkv,hd,page,P", [
+    (kv, *shape) for kv in ("bf16", "int8", "fp8") for shape in _DECODE_SHAPES
+    if kv == "bf16" or shape[3] % 8 == 0])     # int8 / fp8: hd of 8s
+def test_tensor_core_decode_kernel_matches_plain(gen, kv_dtype, B, Hq, Hkv,
+                                                 hd, page, P):
+    """A bfloat16 query on the tensor-core decode kernel over bf16, int8 and
+    fp8 pools: q_per_kv 1 to 24 (two 16-head row tiles), head_dim 16 to 256
+    (36: 8-byte copies), pages of 8, 12, 64 and 32, splits of 1 (66 slots
+    fill the card) up to the cluster cap, one slot of 4,096 keys; a
+    zero-length slot, -1 tail pages, NaN or 127 past each length."""
+    bf16 = torch.bfloat16
+    lens = ([P * page] if B == 1 else
+            [0] + [(7 * b) % (P * page) + 1 for b in range(1, B)])
+    tbl = _table(lens, page, P)
+    n_pages = max(int(tbl.max()) + 2, 2)
+    q = torch.randn(B, 1, Hq, hd, generator=gen, device="cuda").to(bf16)
+    if kv_dtype == "bf16":
+        kp = torch.randn(n_pages, page, Hkv, hd, generator=gen,
+                         device="cuda").to(bf16)
+        vp = torch.randn_like(kp)
+        kv = (kp, vp)
+        fn, plain = dops.paged_decode_attention, dref.paged_decode_attention_ref
+    else:
+        kp, ks = _quant_pool(gen, n_pages, page, Hkv, hd, kv_dtype)
+        vp, vs = _quant_pool(gen, n_pages, page, Hkv, hd, kv_dtype)
+        kv = (kp, vp, ks, vs)
+        fn = dops.paged_decode_attention_quant
+        plain = dref.paged_decode_attention_quant_ref
+    for pool in kv[:2]:
+        _poison_past(pool, tbl.cpu(), lens, page)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = fn.launches
+    got = fn(q, *kv, tbl, ln)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.isfinite(got).all()
+    if B > 1:
+        assert torch.all(got[0] == 0), "a zero-length slot gives zeros"
+    torch.testing.assert_close(got.float(), plain(q, *kv, tbl, ln).float(),
+                               **TOL[bf16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_tensor_core_decode_kernel_cow_pages(gen, kv_dtype):
+    """Slots that share prefix pages (a COW fan-out), pages of 12."""
+    bf16 = torch.bfloat16
+    q = torch.randn(2, 1, 12, 32, generator=gen, device="cuda").to(bf16)
+    if kv_dtype == "bf16":
+        kp = torch.randn(12, 12, 2, 32, generator=gen, device="cuda").to(bf16)
+        kv = (kp, torch.randn_like(kp))
+        fn, plain = dops.paged_decode_attention, dref.paged_decode_attention_ref
+    else:
+        kp, ks = _quant_pool(gen, 12, 12, 2, 32, kv_dtype)
+        vp, vs = _quant_pool(gen, 12, 12, 2, 32, kv_dtype)
+        kv = (kp, vp, ks, vs)
+        fn = dops.paged_decode_attention_quant
+        plain = dref.paged_decode_attention_quant_ref
+    tbl = torch.tensor([[0, 1, 2, -1], [0, 1, 3, 4]], dtype=torch.int32,
+                       device="cuda")
+    ln = torch.tensor([30, 45], dtype=torch.int32, device="cuda")
+    got = fn(q, *kv, tbl, ln)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), plain(q, *kv, tbl, ln).float(),
+                               **TOL[bf16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,view", [(400, True), (4096, False)])
+def test_tensor_core_dense_decode_kernel(gen, S, view):
+    """The bf16 dense cache on the tensor-core decode kernel: a slice of a
+    larger cache (row offset 3, S = 200, no multiple of a tile) with NaN
+    past each length and a zero-length slot, and 4,096 rows of one slot."""
+    bf16 = torch.bfloat16
+    B = 4 if view else 1
+    lens = (torch.tensor([0, 1, 77, 200]) if view
+            else torch.tensor([S])).to(torch.int32).cuda()
+    k, v = _poisoned_cache(gen, B, S, 8, 128, bf16, lens + (3 if view else 0))
+    if view:
+        k, v = k[:, 3:203], v[:, 3:203]
+    q = torch.randn(B, 1, 32, 128, generator=gen, device="cuda").to(bf16)
+    got = ddops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got.float(), ddref.decode_attention_ref(q, k, v, lens).float(),
+        **TOL[bf16])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

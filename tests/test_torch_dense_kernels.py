@@ -210,8 +210,12 @@ def test_flash_kernel_wrapper_checks_arguments(bad):
 
 
 @pytest.mark.parametrize("B,Hkv,S", [(8, 8, 1024), (8, 2, 1024), (1, 1, 300),
-                                     (64, 8, 17), (2, 2, 0)])
+                                     (64, 8, 17), (2, 2, 0), (1, 2, 512),
+                                     (1, 8, 4096)])
 def test_decode_split_covers_the_cache(B, Hkv, S):
+    """Every cache row has a block, no block is empty, and the splits of
+    one (slot, kv head) fit in one thread-block cluster."""
+    from repro_torch.kernels.paged_decode_attention.kernel import MAX_SPLITS
     splits, per = dkernel.split_rows(B, Hkv, S, 132)
-    assert per % dkernel.SPLIT_UNIT == 0 and splits >= 1
+    assert per % dkernel.SPLIT_UNIT == 0 and 1 <= splits <= MAX_SPLITS
     assert splits * per >= S and (splits - 1) * per < max(S, 1)

@@ -142,16 +142,20 @@ def test_wrappers_refuse_mixed_devices():
 
 @pytest.mark.parametrize("B,Hkv,P", [(8, 8, 16), (8, 2, 16), (1, 8, 32),
                                      (3, 2, 6), (66, 8, 3), (2, 2, 1),
-                                     (4, 2, 0)])
+                                     (4, 2, 0), (1, 2, 32), (1, 8, 256)])
 def test_decode_splits_cover_the_table(B, Hkv, P):
+    """The split planner: every block-table column has a block, no block is
+    empty, and the splits of one (slot, kv head), which merge inside one
+    thread-block cluster, are at most the cluster size."""
     from repro_torch.kernels.paged_decode_attention.kernel import (
-        BLOCKS_PER_SM, split_pages)
+        BLOCKS_PER_SM, MAX_SPLITS, split_pages)
     n_sm = 132
     splits, per = split_pages(B, Hkv, P, n_sm)
     assert splits >= 1 and per >= 1
     assert splits * per >= P                    # every column has a block
     assert (splits - 1) * per < max(P, 1)       # and no block is empty
-    if B * Hkv * P <= BLOCKS_PER_SM * n_sm:
+    assert splits <= MAX_SPLITS                 # one cluster
+    if B * Hkv * P <= BLOCKS_PER_SM * n_sm and P <= MAX_SPLITS:
         assert per == 1                         # small grids: page per block
     if B * Hkv >= BLOCKS_PER_SM * n_sm:
         assert splits == 1                      # the slots alone fill it
