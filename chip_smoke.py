@@ -34,9 +34,13 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      kernels; a float32 query at rtol=atol=2e-5 and bfloat16 at
      rtol=atol=2e-2; the
      SSD scan on the JAX kernel test's cases, ragged S (37, 1000),
-     TINY_EDGE_C's and zamba2's heads and an initial state at
-     rtol=atol=1e-4; RMSNorm in float32 and bfloat16 at D 96 to 5120 (the
-     served widths among them) and 1 to 1027 rows;
+     TINY_EDGE_C's and zamba2's heads and an initial state, and the edges
+     of its cluster split (S 1/63/65/129, P 4 with N 8, an initial state
+     crossing ranks, strong decays, one rank over a batch that fills the
+     card, segments longer than a super-chunk at S 1,500 and 2,048; the
+     planner's R logged for each) at rtol=atol=1e-4; RMSNorm in float32
+     and bfloat16 at D 96 to 5120 (the served widths among them) and 1 to
+     1027 rows;
   3. each kernel's time at the serving shapes of qwen3-8b and qwen2-1.5b
      (CUDA events, median of 21 runs, L2 flushed before each by reading a
      256 MB buffer), beside its bound, its plain version's time and
@@ -47,8 +51,11 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      decode batch (4 of 8 slots live at 272 keys) and at B 8 x 1,024 keys,
      each also under the older write flush; the SSD scan at zamba2's
      prefill shapes (1 x 256 and 1 x 1024 tokens; no single PyTorch call
-     computes it) and RMSNorm over 1024 rows of qwen3-8b's and zamba2's
-     widths, qwen3-8b's decode (8 x 4096) and q-norm (8192 x 128) rows
+     computes it; bound by bytes or by flops at the 3xTF32 rate, the
+     scalar float32 bound logged beside it; the same call at R = 1, 2, 4
+     and 8 cluster ranks) and RMSNorm over 1024 rows of qwen3-8b's and
+     zamba2's widths, qwen3-8b's decode (8 x 4096) and q-norm (8192 x 128)
+     rows
      beside `torch.nn.functional.rms_norm`; the flash kernel also at phase
      6's monolithic prefill (qwen3-8b, B 4, S 256);
   4. the TINY test config through the port's dense, monolithic paged and
@@ -106,6 +113,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+# float32-accurate products on the TF32 tensor cores: 3xTF32 issues three
+# TF32 MMAs (hi.hi, hi.lo, lo.hi) for each product, so a third of the
+# 495 TFLOP/s dense TF32 rate (the SSD scan kernel, csrc/ssm_scan.cu)
+TF32X3_FLOPS_PER_S = 495e12 / 3
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 SCAN_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_kernels.py, SSD scan
@@ -637,13 +648,18 @@ def phase_kernels_vs_plain(torch):
         f"RMSNorm (float32 at 2e-5, bfloat16 at 2e-2)")
 
 
-def scan_inputs(torch, gen, Bb, S, H, P, N, initial=False):
+def scan_inputs(torch, gen, Bb, S, H, P, N, initial=False, strong=False):
     """tests/test_kernels.py's law: dt = softplus(randn) * 0.1, A =
-    -exp(randn), B and C at 0.3 scale; float32 on the card."""
+    -exp(randn), B and C at 0.3 scale; float32 on the card. `strong`:
+    strong decays instead, A uniform in [-80, -1] and dt in [0, 1]."""
     kw = dict(generator=gen, device="cuda")
     x = torch.randn(Bb, S, H, P, **kw)
-    dt = torch.nn.functional.softplus(torch.randn(Bb, S, H, **kw)) * 0.1
-    A = -torch.exp(torch.randn(H, **kw))
+    if strong:
+        dt = torch.rand(Bb, S, H, **kw)
+        A = -(1 + 79 * torch.rand(H, **kw))
+    else:
+        dt = torch.nn.functional.softplus(torch.randn(Bb, S, H, **kw)) * 0.1
+        A = -torch.exp(torch.randn(H, **kw))
     B = torch.randn(Bb, S, N, **kw) * 0.3
     C = torch.randn(Bb, S, N, **kw) * 0.3
     h0 = torch.randn(Bb, H, P, N, **kw) if initial else None
@@ -654,17 +670,43 @@ def ssm_scan_cases(torch, gen):
     """#9 against its plain chunked version: the JAX kernel test's cases,
     ragged S (37, 1000; the plain chunk halves to 37 and to 8 rows),
     TINY_EDGE_C's heads (H 4, P 64, N 16, chunk 64), zamba2's (H 80, P 64,
-    N 64, chunk 256) at S 1024, and initial states."""
+    N 64, chunk 256) at S 1024, and initial states; then the edges of the
+    cluster split (tests/test_torch_ssm_numerics.py's cases): S of 1, 63,
+    65 and 129 (segment and chunk edges mid-tile), P 4 with N 8, an initial
+    state crossing ranks, strong decays (A down to -80, dt up to 1; the
+    plain version at 64-row chunks, as the kernel walks, since an exp of a
+    difference of longer cumulative sums loses digits), a batch of 4 x 80
+    heads that fills the card (R = 1, a segment of two super-chunks), and
+    S of 1,500 and 2,048 (R = 8 with segments longer than a super-chunk:
+    the walk for the segment's state, then the walk with the running
+    state). Logs the planner's R for each case."""
+    from repro_torch.kernels.ssm_scan import kernel as skernel
     from repro_torch.kernels.ssm_scan import ops as sops
     from repro_torch.kernels.ssm_scan import ref as sref
-    n = 0
-    for Bb, S, H, P, N, chunk, initial in [
-            (2, 64, 3, 8, 16, 16, False), (1, 128, 2, 16, 32, 32, False),
-            (2, 96, 1, 4, 8, 32, False), (2, 37, 4, 64, 16, 64, False),
-            (1, 1000, 4, 64, 16, 64, False), (3, 200, 4, 64, 16, 64, False),
-            (1, 1024, 80, 64, 64, 256, False),
-            (1, 256, 80, 64, 64, 256, True), (2, 100, 3, 8, 16, 32, True)]:
-        x, dt, A, B, C, h0 = scan_inputs(torch, gen, Bb, S, H, P, N, initial)
+    blocks = skernel.card_blocks(torch.device("cuda"))
+    n, splits = 0, []
+    for Bb, S, H, P, N, chunk, initial, strong in [
+            (2, 64, 3, 8, 16, 16, False, False),
+            (1, 128, 2, 16, 32, 32, False, False),
+            (2, 96, 1, 4, 8, 32, False, False),
+            (2, 37, 4, 64, 16, 64, False, False),
+            (1, 1000, 4, 64, 16, 64, False, False),
+            (3, 200, 4, 64, 16, 64, False, False),
+            (1, 1024, 80, 64, 64, 256, False, False),
+            (1, 256, 80, 64, 64, 256, True, False),
+            (2, 100, 3, 8, 16, 32, True, False),
+            (2, 1, 3, 16, 32, 64, False, False),
+            (2, 63, 3, 16, 32, 64, False, False),
+            (2, 65, 3, 16, 32, 64, False, False),
+            (2, 129, 3, 16, 32, 64, False, False),
+            (2, 300, 3, 4, 8, 64, False, False),
+            (2, 300, 4, 16, 16, 64, True, False),
+            (1, 512, 4, 32, 32, 64, True, True),
+            (4, 256, 80, 64, 64, 256, True, False),
+            (1, 1500, 8, 64, 64, 64, True, False),
+            (1, 2048, 80, 64, 64, 256, True, False)]:
+        x, dt, A, B, C, h0 = scan_inputs(torch, gen, Bb, S, H, P, N, initial,
+                                         strong)
         y, h = sops.ssm_scan(x, dt, A, B, C, chunk=chunk, initial_state=h0)
         torch.cuda.synchronize()
         yr, hr = sref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk,
@@ -672,7 +714,16 @@ def ssm_scan_cases(torch, gen):
         assert torch.isfinite(y).all() and torch.isfinite(h).all()
         torch.testing.assert_close(y, yr, **SCAN_TOL)
         torch.testing.assert_close(h, hr, **SCAN_TOL)
+        ranks, per = skernel.split_sequence(Bb, H, S, blocks)
+        splits.append((ranks, per))
+        err = max((y - yr).abs().max().item(), (h - hr).abs().max().item())
+        log(f"  ssm_scan Bb={Bb} S={S} H={H} P={P} N={N} "
+            f"{'h0 ' if initial else ''}{'strong ' if strong else ''}"
+            f"R={ranks} chunks/rank={per}: max_abs_err {err:.3g}")
         n += 1
+    assert (1, 4) in splits and any(r > 1 and per > skernel.KEEP_CHUNKS
+                                    for r, per in splits), splits
+    log(f"  the card holds {blocks} scan blocks at once")
     return n
 
 
@@ -944,15 +995,19 @@ def scan_flops(Bb, S, H, P, N):
 def time_ssm_rms_kernels(torch, gen, flush, rows):
     """#9 at zamba2's prefill (1 x 1024 and 1 x 256 tokens, 80 heads of P
     64, N 64, float32 as the model feeds it; no single PyTorch call
-    computes the scan), bound by its float32 operations at the card's rate
-    outside the tensor cores, and #10 over 1024 bf16 rows of qwen3-8b's
-    width (4096) and of zamba2's gated norm (5120), over qwen3-8b's decode
+    computes the scan), bound by the larger of its bytes and its operations
+    at the 3xTF32 rate (a float32-accurate kernel on the tensor cores; the
+    older bound at the scalar float32 rate is logged beside it) and timed
+    at every cluster size the sequence allows, and #10 over 1024 bf16 rows
+    of qwen3-8b's width (4096) and of zamba2's gated norm (5120), over
+    qwen3-8b's decode
     rows (8 x 4096) and its q-norm rows (8 x 32 heads x 32 positions of
     128), beside `torch.nn.functional.rms_norm` (weight cast to bf16
     beforehand)."""
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import ops as rops
     from repro_torch.kernels.rmsnorm import ref as rref
+    from repro_torch.kernels.ssm_scan import kernel as skernel
     from repro_torch.kernels.ssm_scan import ops as sops
     from repro_torch.kernels.ssm_scan import ref as sref
     H, P, N, chunk = 80, 64, 64, 256
@@ -970,13 +1025,25 @@ def time_ssm_rms_kernels(torch, gen, flush, rows):
                  "state": h.numel()}
         nbytes = 4 * sum(sizes.values())
         flops = scan_flops(1, S, H, P, N)
+        scalar_ms, scalar_by = bound(nbytes, flops, F32_FLOPS_PER_S)
         log(f"ssm_scan bound inputs [{label}]: float32 elements {sizes}, "
-            f"{nbytes} B; {flops} flops (4.P.N a token and head)")
+            f"{nbytes} B; {flops} flops (4.P.N a token and head); bound at "
+            f"scalar float32 (67 TFLOP/s) {scalar_ms:.4f} ms ({scalar_by})")
         rows[("ssm_scan", label)] = dict(
             shape=f"Bb=1 S={S} H={H} P={P} N={N} chunk={chunk} float32",
             max_abs_err=err, ms=device_ms(torch, run, flush),
             plain_ms=device_ms(torch, plain, flush), library_ms=None,
-            bound=bound(nbytes, flops, F32_FLOPS_PER_S))
+            bound=bound(nbytes, flops, TF32X3_FLOPS_PER_S))
+        # the split's probe: the same call at other cluster sizes (R = 1:
+        # one block walks the whole sequence)
+        plan = skernel.split_sequence(1, H, S, skernel.card_blocks(x.device))
+        for r in (1, 2, 4, 8):
+            if r > -(-S // skernel.CHUNK):
+                continue
+            ms = device_ms(torch, functools.partial(
+                skernel.ssm_scan_cuda, x, dt, A, B, C, None, r), flush)
+            log(f"ssm_scan [{label}] at R={r}: {ms:.4f} ms (planner: "
+                f"R={plan[0]})")
     for label, R, D in (("qwen3-8b", 1024, 4096), ("zamba2-2.7b", 1024, 5120),
                         ("qwen3-8b decode", 8, 4096),
                         ("qwen3-8b q-norm", 8192, 128)):
@@ -1696,7 +1763,7 @@ MATMUL_KERNELS = ("nvjet", "gemm", "gemv", "cutlass", "xmma")
 # also matches the keys of the functions it is a prefix of)
 PORT_KERNELS = ("decode_kernel_mma", "decode_kernel",
                 "paged_prefill_kernel_mma", "paged_prefill_kernel",
-                "flash_kernel_wgmma", "flash_kernel", "ssd_kernel",
+                "flash_kernel_wgmma", "flash_kernel", "ssd_kernel_mma",
                 "rmsnorm_kernel")
 
 

@@ -1,9 +1,10 @@
-// Tensor-core and asynchronous-copy helpers of the attention kernels that
-// stage K/V tiles in shared memory: the m16n8k16 bf16 product and the
-// ldmatrix loads that feed K's and (transposed) V's B fragments
-// (paged_prefill_attention.cu's and flash_decode.cuh's mma kernels), bf16
-// packing, and the cp.async copies (with zero fill) that stage the tiles
-// (those kernels and flash_attention.cu's wgmma kernel).
+// Tensor-core and asynchronous-copy helpers of the kernels that stage tiles
+// in shared memory: the m16n8k16 bf16 product and the ldmatrix loads that
+// feed K's and (transposed) V's B fragments (paged_prefill_attention.cu's
+// and flash_decode.cuh's mma kernels), bf16 packing, the m16n8k8 TF32
+// product and its split (3xTF32) form (ssm_scan.cu), and the cp.async
+// copies (with zero fill) that stage the tiles (those kernels and
+// flash_attention.cu's wgmma kernel).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,6 +50,43 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// d += a . b on the tensor cores in TF32: a 16 x 8 A fragment (rows g and
+// g + 8, columns t and t + 4, with g = lane / 4 and t = lane % 4: a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)), an 8 x 8 B fragment
+// (b0: row t of column g; b1: row t + 4), f32 accumulators laid out as
+// mma_bf16's. Operands are float32 bit patterns already rounded to TF32.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v = hi + lo + (a residual below 2^-21 |v|): hi is v rounded to TF32 (10
+// mantissa bits, to nearest, ties away, as cvt.rna rounds: an integer add of
+// half the dropped bits, then a mask), lo = v - hi exactly, which the tensor
+// core reads as TF32 by dropping its low 13 bits. Three integer and float
+// instructions, fewer than two cvt.rna and a subtraction.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d += a . b in split precision (3xTF32): lo.hi + hi.lo + hi.hi, the small
+// terms first; only lo.lo (about 2^-22 of the product) is dropped. Near
+// float32 accuracy at a third of the TF32 rate.
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           const uint32_t (&bhi)[2],
+                                           const uint32_t (&blo)[2]) {
+  mma_tf32(d, alo, bhi[0], bhi[1]);
+  mma_tf32(d, ahi, blo[0], blo[1]);
+  mma_tf32(d, ahi, bhi[0], bhi[1]);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

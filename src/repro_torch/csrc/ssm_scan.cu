@@ -1,294 +1,649 @@
-// The Mamba2 SSD chunked scan for Hopper (sm_90a), float32 throughout.
+// The Mamba2 SSD chunked scan for Hopper (sm_90a), float32 in and out, its
+// products on the TF32 tensor cores in split (3xTF32) precision.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/ssm_scan/kernel.py
 //   ssd_pallas (_ssd_kernel)
-// and computes what it computes, from its math, per (batch b, head h):
-//   ca_t  = cumsum of dt_s * A_h over the chunk, inclusive
-//   y_t   = sum_{s <= t} exp(ca_t - ca_s) dt_s (C_t . B_s) x_s
-//           + exp(ca_t) C_t . h_prev
-//   h_new = exp(ca_end) h_prev + sum_s exp(ca_end - ca_s) dt_s x_s (outer) B_s
+// and computes what it computes, per (batch b, head h), with the JAX
+// wrapper's initial-state fold (src/repro/kernels/ssm_scan/ops.py) taken as
+// a starting state h0:
+//   h_t = exp(dt_t A_h) h_{t-1} + dt_t x_t (outer) B_t,   y_t = h_t . C_t
 // with x (S, P) the head's rows, B and C (S, N) shared by every head
-// (n_groups = 1), and the (P, N) state h carried from chunk to chunk. The
-// function does not depend on the chunk length: a longer chunk only moves
-// work from the state term to the intra-chunk term. This kernel walks
-// 64-row chunks (kL) whatever chunk the caller names, and starts from the
-// caller's initial state where one is given (the TPU kernel starts from
-// zero and its wrapper folds the initial state in afterwards).
+// (n_groups = 1), h a (P, N) state. Over a chunk of rows, with ca_t the
+// inclusive cumulative sum of dt_s A_h from the chunk's start:
+//   y_t   = sum_{s <= t} exp(ca_t - ca_s) dt_s (C_t . B_s) x_s
+//           + exp(ca_t) C_t . h_start
+//   h_end = exp(ca_end) h_start + G,  G = sum_s exp(ca_end - ca_s) dt_s x_s B_s
+// The function does not depend on the chunk length; the kernel walks 64-row
+// chunks whatever chunk the caller names.
 //
-// Design. The TPU kernel runs the chunks as the sequential minor axis of its
-// grid and keeps the state in a VMEM scratch. Blocks of a CUDA grid run in
-// no order, so here one thread block owns one (b, h) and loops over the
-// chunks itself, with the state in shared memory. 256 threads work as a
-// 16 x 16 grid, each on a 4 x 4 tile of whichever 64 x 64 product the step
-// computes, reading its operands as float4 from shared memory:
-//   1. load the chunk's x rows, B (row-major and transposed) and C
-//      (transposed) and dt; rows past S are zeros, so they add nothing (dt
-//      = 0) and leave ca flat;
-//   2. one warp scans dt * A into ca;
-//   3. W[t][s] = (C_t . B_s) exp(ca_t - ca_s) dt_s for the 4 x 4 tiles on or
-//      below the diagonal only: exp(ca_t - ca_s) is never formed for s > t,
-//      where it could overflow (the TPU kernel computes it and then selects);
-//   4. y = W x + exp(ca_t) C h, written to device memory;
-//   5. h = exp(ca_end) h + (u x)^T B with u_s = exp(ca_end - ca_s) dt_s.
-// B and C are read once per (b, h) block from device memory, not repeated
-// H-fold as the TPU wrapper does; at the serving shapes they stay in L2.
+// What bounds it on the H100: its bytes. At zamba2's prefill (1 x 1,024
+// tokens, 80 heads, P = N = 64) it must move 44,106,048 bytes (x and y
+// dominate), 0.0132 ms at 3.35 TB/s, and do 4.P.N flops a token and head
+// (1.34 GFLOP), 0.0081 ms at the 165 TFLOP/s of 3xTF32 (a third of the
+// 495 TFLOP/s TF32 rate); at 1 x 256, 12,009,792 bytes, 0.0036 ms, against
+// 0.0020 ms of flops. In scalar float32 (67 TFLOP/s) the flops would bound
+// it instead (0.0200 / 0.0050 ms), which is why the products run on the
+// tensor cores.
 //
-// What bounds it on the H100: its operations. At zamba2's prefill (1 x 1024
-// tokens, 80 heads, P = N = 64) it moves 44 MB (x and y dominate) but does
-// about 2 GFLOP of float32 multiply-adds, about 0.030 ms at the 67 TFLOP/s
-// the card has outside its tensor cores, against 0.013 ms for the bytes.
-// This first version runs scalar float32 FMAs from shared memory; the
-// tensor cores (TF32) and a chunk-parallel three-pass form (chunk states in
-// parallel, a scan over chunks, then the state term), which would also fill
-// the 132 SMs at batch 1 (80 blocks here), are later work.
+// Why 3xTF32 and not TF32: the scan is held at rtol = atol = 1e-4 (the JAX
+// package's tolerance for this kernel). Operands rounded once to TF32 miss
+// that at zamba2's width (y more than 3e-4 off the per-token scan); split
+// into a TF32 high part and the exact residual, with lo.hi + hi.lo +
+// hi.hi, they land below 1e-5 (tests/test_torch_ssm_numerics.py emulates
+// both on the CPU and asserts both). The split rounds hi to nearest by an integer
+// add and a mask and takes lo = v - hi, which the tensor core reads
+// truncated to TF32: three instructions a value, where two cvt.rna and a
+// subtraction took measurably longer.
 //
-// Shared memory: 102,144 bytes a block (x, B twice, C, W, the state, ca and
-// u), two blocks an SM.
+// Design.
+// - The sequence of one (b, h) is cut into R segments of whole 64-row
+//   chunks, one segment a thread block, the R blocks one thread-block
+//   cluster (R <= 8, the portable size). The host's planner
+//   (kernels/ssm_scan/kernel.py split_sequence) takes R = 1 where Bb.H
+//   already fills the card (Bb.H at least the blocks it holds at once,
+//   cudaOccupancyMaxActiveClusters: 264 on an H100); else the fewest ranks
+//   that leave every segment at most two chunks, at most 8. zamba2's
+//   batch-1 prefill: R = 8 at S = 1,024 (640 blocks), R = 2 at S = 256;
+//   its 4 x 256 batch: R = 1.
+// - A block walks its segment in super-chunks of 128 rows, two chunks side
+//   by side: warps 0-3 take chunk 0 and warps 4-7 chunk 1, each half with
+//   its own named barrier, each staging its own chunk's x, B, C and dt rows
+//   with cp.async (zero filled past the segment and past P / N, so padding
+//   adds nothing: dt = 0 leaves ca flat, and every product runs on whole
+//   64-wide tiles with static loop bounds). From a zero state each half
+//   computes C.B^T on and below the diagonal (warp tile i: 16 rows, the
+//   16 (i + 1) columns at or left of them; half 1 takes its tiles in
+//   mirrored order, so that each scheduler holds a long and a short one),
+//   turns it into W in registers (exp(ca_t - ca_s) is never formed for
+//   s > t, where it could overflow), y = W.x with W as the A operand
+//   straight from the accumulators (the k order of a fragment is free, so
+//   column 2t / 2t + 1 of the accumulator pairs with rows 2t / 2t + 1 of
+//   x), and its chunk's state G = (u x)^T B, u_s = exp(ca_end - ca_s) dt_s.
+// - The halves' states combine in shared memory: G_T = exp(la_1) G_0 + G_1,
+//   la the chunks' log decays. At one cluster barrier every rank reads the
+//   (G, la) of every earlier rank through distributed shared memory and
+//   forms its own starting state, h_in = D_{r-1}(...(D_0 h0 + G_0)...) +
+//   G_{r-1}: no serial chain of ranks. Each half then adds exp(ca_t) C_t .
+//   h_c to its rows (h_0 = h_in, h_1 = exp(la_0) h_in + G_0), a fourth
+//   product, and writes y once. The last rank writes the final state.
+// - Where a segment is one super-chunk (every served shape: S <= 1,024 at
+//   R <= 8), y waits in registers across the barrier. A longer segment
+//   walks twice: once for (G, la) alone (only when R > 1), then, after the
+//   exchange, super-chunk by super-chunk with the running state, which then
+//   lives in registers (four float4 a thread) while the next one is staged.
+// - Every product is mma.sync m16n8k8 TF32, split 3xTF32 (csrc/mma.cuh).
+//   Shared rows are padded to 68 floats, so every fragment load is free of
+//   bank conflicts. x, B, C and y stay float32 in device memory; exp is
+//   expf (decays at zamba2's A reach the underflow range).
+//
+// Where its time goes (ablation probes on the card, PERF.md section 6):
+// the causal C.B^T and W.x, whose longest warp tile does four times the
+// shortest's work; the 3xTF32 products and splits; at R = 8 the exchange,
+// whose reads grow as R^2 (28 G tiles a cluster); per-launch and staging
+// costs. It stays several times its byte bound.
+//
+// Shared memory: 106,000 bytes a block (x, B and C rows of a super-chunk,
+// padded; dt, ca and u; the log decays), two blocks an SM. The chunks' G
+// land in B's rows once both halves are done with them, the starting states
+// in x's. Registers: 128 a thread, no spills (ptxas; chip_smoke.py phase 1
+// logs it), the cap of the launch bounds for two blocks of 256 threads an
+// SM.
 //
 // Layouts (all contiguous float32): x, y (Bb, S, H, P); dt (Bb, S, H); A
 // (H,); B, C (Bb, S, N); h0 (optional), state (Bb, H, P, N). P and N are
-// multiples of 4 up to 64.
+// multiples of 4 up to 64; x, B, C and h0 start on 16 bytes (the wrapper
+// copies one that does not).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kL = 64;          // rows a chunk
-constexpr int kMax = 64;        // largest P and N
-constexpr int kLP = kL + 4;     // row of a transposed tile (float4-aligned)
-constexpr int kThreads = 256;   // 16 x 16, a 4 x 4 tile each
+namespace cg = cooperative_groups;
+using paged::cp_async_16;
+using paged::cp_async_4;
+using paged::cp_async_commit;
+using paged::cp_async_wait_group;
+using paged::mma_tf32x3;
+using paged::split_tf32;
 
-constexpr int kSmemFloats = kL * kMax        // xs: x rows (s, p)
-                            + kL * kMax      // bs: B rows (s, n)
-                            + kMax * kLP     // bt: B transposed (n, s)
-                            + kMax * kLP     // ct: C transposed (n, t)
-                            + kL * kLP       // wt: W transposed (s, t)
-                            + kMax * kMax    // ht: state transposed (n, p)
-                            + 3 * kL;        // ca, u, dt
+constexpr int kL = 64;             // rows a chunk
+constexpr int kRows = 2 * kL;      // rows a super-chunk: a chunk a half
+constexpr int kMax = 64;           // largest P and N
+constexpr int kLd = kMax + 4;      // padded shared row: no bank conflicts
+constexpr int kThreads = 256;      // 8 warps, 4 a half
+constexpr int kHalf = kThreads / 2;
+constexpr int kMaxRanks = 8;       // the portable cluster size
+constexpr int kPieces = kMax * kMax / 4 / kThreads;  // state float4s
+constexpr int kTile = kRows * kLd;  // floats of x, B or C rows
+
+// x rows, B rows, C rows; dt, ca, u of each row; la[0], la[1] (the
+// chunks' log decays), la[2] (the segment's, read by later ranks)
+constexpr int kSmemFloats = 3 * kTile + 3 * kRows + 4;
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
-__device__ __forceinline__ float4 ld4(const float* p) {
+struct Args {
+  const float* x;
+  const float* dt;
+  const float* A;
+  const float* B;
+  const float* C;
+  const float* h0;  // may be null: a zero initial state
+  float* y;
+  float* state;
+  int S, H, P, N;
+  int ranks;  // blocks of a cluster: segments of one (b, h)
+  int per;    // chunks a segment
+};
+
+// Per-thread view of the launch: who it is and where its block works.
+struct Ctx {
+  int tid, lane, g, t4;
+  int c;   // half: the chunk of a super-chunk it walks
+  int i;   // warp in the half: the 16-row tile of its chunk
+  int b, h, bh, rank;
+  int r0, r1;  // the segment's rows of the sequence
+  float a;     // A_h
+};
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Barrier of one half's 128 threads (named barrier 1 or 2; ids are
+// immediates).
+__device__ __forceinline__ void half_sync(int c) {
+  if (c == 0)
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+
+// The state piece m of this thread: row p, columns n .. n + 3 of a (64, 64)
+// state tile; at p.kLd + n in shared memory.
+__device__ __forceinline__ int piece_p(const Ctx& k, int m) {
+  return (k.tid >> 4) + 16 * m;
+}
+__device__ __forceinline__ int piece_n(const Ctx& k) {
+  return 4 * (k.tid & 15);
+}
+__device__ __forceinline__ int piece_at(const Ctx& k, int m) {
+  return piece_p(k, m) * kLd + piece_n(k);
+}
+__device__ __forceinline__ float4& f4(float* p) {
+  return *reinterpret_cast<float4*>(p);
+}
+__device__ __forceinline__ const float4& f4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-
-__device__ __forceinline__ void unpack(float4 v, float* f) {
-  f[0] = v.x;
-  f[1] = v.y;
-  f[2] = v.z;
-  f[3] = v.w;
+// d x + y, piecewise
+__device__ __forceinline__ float4 axpy(float d, float4 x, float4 y) {
+  return make_float4(fmaf(d, x.x, y.x), fmaf(d, x.y, y.y), fmaf(d, x.z, y.z),
+                     fmaf(d, x.w, y.w));
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ A, const float* __restrict__ Bm,
-               const float* __restrict__ Cm, const float* __restrict__ h0,
-               float* __restrict__ y, float* __restrict__ state, int S, int H,
-               int P, int N) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* bs = xs + kL * kMax;
-  float* bt = bs + kL * kMax;
-  float* ct = bt + kMax * kLP;
-  float* wt = ct + kMax * kLP;
-  float* ht = wt + kL * kLP;
-  float* ca = ht + kMax * kMax;
-  float* us = ca + kL;
-  float* dts = us + kL;
+__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split_tf32(v[q], hi[q], lo[q]);
+}
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t (&hi)[2],
+                                       uint32_t (&lo)[2]) {
+  split_tf32(v0, hi[0], lo[0]);
+  split_tf32(v1, hi[1], lo[1]);
+}
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const float a = A[h];
-
-  for (int e = tid; e < P * N; e += kThreads) {
-    const int p = e / N, n = e % N;
-    ht[n * kMax + p] = h0 ? h0[((size_t)bh * P + p) * N + n] : 0.f;
+// Stage this half's chunk, sequence rows [t0, t0 + rows) (rows <= 64), into
+// its shared rows: x, B and C rows of 64 columns, and dt; rows past `rows`
+// and columns past P / N are zeros, so every product runs on whole 64-wide
+// tiles with no bound known only at run time.
+__device__ __forceinline__ void stage(const Args& a, const Ctx& k, float* sm,
+                                      int t0, int rows) {
+  float* xs = sm + k.c * kL * kLd;
+  float* bs = sm + kTile + k.c * kL * kLd;
+  float* cs = sm + 2 * kTile + k.c * kL * kLd;
+  float* dts = sm + 3 * kTile + k.c * kL;
+  const int ht = k.tid & (kHalf - 1);
+  constexpr int kGroups = kMax / 4;  // 16-byte groups a row
+#pragma unroll 2
+  for (int e = ht; e < kL * kGroups; e += kHalf) {
+    const int s = e / kGroups, q = e % kGroups;
+    const bool okx = s < rows && 4 * q < a.P;
+    cp_async_16(xs + s * kLd + 4 * q,
+                okx ? a.x + (((size_t)k.b * a.S + t0 + s) * a.H + k.h) * a.P +
+                          4 * q
+                    : a.x,
+                okx);
+    const bool okn = s < rows && 4 * q < a.N;
+    const size_t off = okn ? ((size_t)k.b * a.S + t0 + s) * a.N + 4 * q : 0;
+    cp_async_16(bs + s * kLd + 4 * q, a.B + off, okn);
+    cp_async_16(cs + s * kLd + 4 * q, a.C + off, okn);
   }
+  if (ht < kL) {
+    const bool ok = ht < rows;
+    cp_async_4(dts + ht,
+               ok ? a.dt + ((size_t)k.b * a.S + t0 + ht) * a.H + k.h : a.dt,
+               ok);
+  }
+  cp_async_commit();
+}
 
-  for (int t0 = 0; t0 < S; t0 += kL) {
-    const int rows = min(kL, S - t0);
-    __syncthreads();  // the previous chunk's readers are done
-    // 1. the chunk's rows; rows past S are zeros
-    for (int e = tid; e < kL * P; e += kThreads) {
-      const int s = e / P, p = e % P;
-      xs[s * kMax + p] =
-          s < rows ? x[(((size_t)b * S + t0 + s) * H + h) * P + p] : 0.f;
+// One warp's inclusive scan of dt A over its half's 64 rows: ca, u_s =
+// exp(ca_end - ca_s) dt_s, and the chunk's log decay la[c] = ca_end.
+__device__ __forceinline__ void scan_chunk(const Ctx& k, float* sm) {
+  float* dts = sm + 3 * kTile + k.c * kL;
+  float* ca = dts + kRows;
+  float* us = ca + kRows;
+  float* la = sm + 3 * kTile + 3 * kRows;
+  const int l = k.lane;
+  float v0 = dts[l] * k.a, v1 = dts[l + 32] * k.a;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u0 = __shfl_up_sync(0xffffffffu, v0, o);
+    const float u1 = __shfl_up_sync(0xffffffffu, v1, o);
+    if (l >= o) {
+      v0 += u0;
+      v1 += u1;
     }
-    for (int e = tid; e < kL * N; e += kThreads) {
-      const int s = e / N, n = e % N;
-      const size_t g = ((size_t)b * S + t0 + s) * N + n;
-      const float bv = s < rows ? Bm[g] : 0.f;
-      bs[s * kMax + n] = bv;
-      bt[n * kLP + s] = bv;
-      ct[n * kLP + s] = s < rows ? Cm[g] : 0.f;
-    }
-    if (tid < kL)
-      dts[tid] = tid < rows ? dt[((size_t)b * S + t0 + tid) * H + h] : 0.f;
-    __syncthreads();
+  }
+  v1 += __shfl_sync(0xffffffffu, v0, 31);
+  const float end = __shfl_sync(0xffffffffu, v1, 31);
+  ca[l] = v0;
+  ca[l + 32] = v1;
+  us[l] = expf(end - v0) * dts[l];
+  us[l + 32] = expf(end - v1) * dts[l + 32];
+  if (l == 0) la[k.c] = end;
+}
 
-    // 2. ca = inclusive cumsum of dt * A; u_s = exp(ca_end - ca_s) dt_s
-    if (tid < 32) {
-      float v0 = dts[tid] * a, v1 = dts[tid + 32] * a;
+// C.B^T and y = W.x of warp tile I (rows 16 I .. 16 I + 15 of its half's
+// chunk): C.B^T over the 2 I + 2 column tiles at or left of the rows, W =
+// (C.B^T) exp(ca_t - ca_s) dt_s on and below the diagonal in registers, and
+// W as the A operand of W.x straight from the accumulators (its k slot t is
+// column 8j + 2t, slot t + 4 column 8j + 2t + 1, and x's rows follow suit).
+// The tile count is a template parameter, so every loop that indexes
+// registers is unrolled with no bound known only at run time.
+template <int I>
+__device__ __forceinline__ void cb_wx(const Ctx& k, const float* xs,
+                                      const float* bs, const float* cs,
+                                      const float* dts, const float* ca,
+                                      float (&yacc)[8][4]) {
+  constexpr int kJ = 2 * I + 2;
+  constexpr int tb = 16 * I;
+  const int g = k.g, t4 = k.t4;
+  float cb[kJ][4];
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u0 = __shfl_up_sync(0xffffffffu, v0, o);
-        const float u1 = __shfl_up_sync(0xffffffffu, v1, o);
-        if (tid >= o) {
-          v0 += u0;
-          v1 += u1;
-        }
-      }
-      v1 += __shfl_sync(0xffffffffu, v0, 31);
-      const float end = __shfl_sync(0xffffffffu, v1, 31);
-      ca[tid] = v0;
-      ca[tid + 32] = v1;
-      us[tid] = expf(end - v0) * dts[tid];
-      us[tid + 32] = expf(end - v1) * dts[tid + 32];
+  for (int j = 0; j < kJ; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) cb[j][q] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < kMax / 8; ++kk) {
+    const float* cr = cs + (tb + g) * kLd + 8 * kk + t4;
+    const float av[4] = {cr[0], cr[8 * kLd], cr[4], cr[8 * kLd + 4]};
+    uint32_t ahi[4], alo[4];
+    split4(av, ahi, alo);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const float* br = bs + (8 * j + g) * kLd + 8 * kk + t4;
+      uint32_t bhi[2], blo[2];
+      split2(br[0], br[4], bhi, blo);
+      mma_tf32x3(cb[j], ahi, alo, bhi, blo);
     }
-    __syncthreads();
-
-    // 3. W on and below the diagonal, stored transposed: wt[s][t]
-    {
-      const int tb = ty * 4, sb = tx * 4;
-      if (sb <= tb) {
-        float acc[4][4] = {};
-        for (int n = 0; n < N; ++n) {
-          float c[4], bv[4];
-          unpack(ld4(ct + n * kLP + tb), c);
-          unpack(ld4(bt + n * kLP + sb), bv);
+  }
+  const int ta = tb + g, tc = tb + g + 8;
+  const float cat = ca[ta], cac = ca[tc];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < kJ; ++j) {
+    const int s0 = 8 * j + 2 * t4, s1 = s0 + 1;
+    const float cs0 = ca[s0], cs1 = ca[s1];
+    const float d0 = dts[s0], d1 = dts[s1];
+    const float w[4] = {s0 <= ta ? cb[j][0] * expf(cat - cs0) * d0 : 0.f,
+                        s0 <= tc ? cb[j][2] * expf(cac - cs0) * d0 : 0.f,
+                        s1 <= ta ? cb[j][1] * expf(cat - cs1) * d1 : 0.f,
+                        s1 <= tc ? cb[j][3] * expf(cac - cs1) * d1 : 0.f};
+    uint32_t ahi[4], alo[4];
+    split4(w, ahi, alo);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] += c[i] * bv[j];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int s = sb + j;
-          float w[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int t = tb + i;
-            w[i] = s <= t ? acc[i][j] * expf(ca[t] - ca[s]) * dts[s] : 0.f;
-          }
-          *reinterpret_cast<float4*>(wt + s * kLP + tb) =
-              make_float4(w[0], w[1], w[2], w[3]);
-        }
-      }
+    for (int pj = 0; pj < kMax / 8; ++pj) {
+      const float* xr = xs + s0 * kLd + 8 * pj + g;
+      uint32_t bhi[2], blo[2];
+      split2(xr[0], xr[kLd], bhi, blo);
+      mma_tf32x3(yacc[pj], ahi, alo, bhi, blo);
     }
-    __syncthreads();
+  }
+}
 
-    // 4. y = W x + exp(ca_t) C h_prev
-    {
-      const int tb = ty * 4, pb = tx * 4;
-      if (pb < P) {
-        float acc[4][4] = {};
-        for (int s = 0; s <= tb + 3; ++s) {
-          float w[4], xv[4];
-          unpack(ld4(wt + s * kLP + tb), w);
-          unpack(ld4(xs + s * kMax + pb), xv);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] += w[i] * xv[j];
-        }
-        float st[4][4] = {};
-        for (int n = 0; n < N; ++n) {
-          float c[4], hv[4];
-          unpack(ld4(ct + n * kLP + tb), c);
-          unpack(ld4(ht + n * kMax + pb), hv);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) st[i][j] += c[i] * hv[j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int t = tb + i;
-          if (t < rows) {
-            const float e = expf(ca[t]);
-            float* out = y + (((size_t)b * S + t0 + t) * H + h) * P + pb;
-            *reinterpret_cast<float4*>(out) =
-                make_float4(acc[i][0] + e * st[i][0], acc[i][1] + e * st[i][1],
-                            acc[i][2] + e * st[i][2],
-                            acc[i][3] + e * st[i][3]);
-          }
-        }
-      }
-    }
-    __syncthreads();
+// One super-chunk, sequence rows [t0, t0 + 128) of which the first `rows`
+// lie in the segment, from a zero state. With `with_y`, yacc holds this
+// warp's y = W.x (its 16 rows, 64 columns: accumulator layout, tile j =
+// columns 8j..8j+7). Leaves in shared memory: G_0 in B's rows 0..63 and
+// G_T = exp(la_1) G_0 + G_1 in B's rows 64..127 (both (64, 64), row p at
+// p.kLd), la[0], la[1], and each half's C rows and ca for the correction.
+__device__ __forceinline__ void local_walk(const Args& a, const Ctx& k,
+                                           float* sm, int t0, int rows,
+                                           bool with_y, float (&yacc)[8][4]) {
+  const int c = k.c, i = k.i, g = k.g, t4 = k.t4;
+  const int crows = max(0, min(kL, rows - c * kL));  // this half's rows
+  float* xs = sm + c * kL * kLd;
+  float* bs = sm + kTile + c * kL * kLd;
+  const float* cs = sm + 2 * kTile + c * kL * kLd;
+  const float* dts = sm + 3 * kTile + c * kL;
+  const float* ca = dts + kRows;
+  const float* us = ca + kRows;
+  const float* la = sm + 3 * kTile + 3 * kRows;
 
-    // 5. h = exp(ca_end) h + sum_s u_s x_s (outer) B_s, each thread its own
-    //    4 x 4 tile of h
-    {
-      const int pb = ty * 4, nb = tx * 4;
-      if (pb < P && nb < N) {
-        const float dec = expf(ca[kL - 1]);
-        float acc[4][4];
+  stage(a, k, sm, t0 + c * kL, crows);
+  cp_async_wait_group<0>();
+  half_sync(c);
+  if (i == 0) scan_chunk(k, sm);
+  half_sync(c);  // ca and u are in
+
+  if (with_y) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float hv[4];
-          unpack(ld4(ht + (nb + j) * kMax + pb), hv);
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = hv[i] * dec;
-        }
-        for (int s = 0; s < kL; ++s) {
-          const float u = us[s];
-          float xv[4], bv[4];
-          unpack(ld4(xs + s * kMax + pb), xv);
-          unpack(ld4(bs + s * kMax + nb), bv);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float ux = u * xv[i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] += ux * bv[j];
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          *reinterpret_cast<float4*>(ht + (nb + j) * kMax + pb) =
-              make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+      for (int q = 0; q < 4; ++q) yacc[j][q] = 0.f;
+    if (16 * i < crows) {  // a tile with rows of the segment
+      switch (i) {
+        case 0: cb_wx<0>(k, xs, bs, cs, dts, ca, yacc); break;
+        case 1: cb_wx<1>(k, xs, bs, cs, dts, ca, yacc); break;
+        case 2: cb_wx<2>(k, xs, bs, cs, dts, ca, yacc); break;
+        default: cb_wx<3>(k, xs, bs, cs, dts, ca, yacc); break;
       }
     }
   }
 
+  // G = (u x)^T B: rows pb..pb+15 of P, every column of N, over the rows
+  // of the chunk (k slots t / t + 4 are rows 2t / 2t + 1 of a step)
+  const int pb = 16 * i;
+  const int ks = (crows + 7) / 8;
+  float gacc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) gacc[j][q] = 0.f;
+  for (int kk = 0; kk < ks; ++kk) {
+    const int s0 = 8 * kk + 2 * t4;
+    const float u0 = us[s0], u1 = us[s0 + 1];
+    const float* xr = xs + s0 * kLd + pb + g;
+    const float av[4] = {u0 * xr[0], u0 * xr[8], u1 * xr[kLd],
+                         u1 * xr[kLd + 8]};
+    uint32_t ahi[4], alo[4];
+    split4(av, ahi, alo);
+#pragma unroll
+    for (int nj = 0; nj < kMax / 8; ++nj) {
+      const float* br = bs + s0 * kLd + 8 * nj + g;
+      uint32_t bhi[2], blo[2];
+      split2(br[0], br[kLd], bhi, blo);
+      mma_tf32x3(gacc[nj], ahi, alo, bhi, blo);
+    }
+  }
+  half_sync(c);  // the half is done with its x and B rows
+#pragma unroll
+  for (int nj = 0; nj < kMax / 8; ++nj) {
+    float* gr = bs + (pb + g) * kLd + 8 * nj + 2 * t4;
+    *reinterpret_cast<float2*>(gr) = make_float2(gacc[nj][0], gacc[nj][1]);
+    *reinterpret_cast<float2*>(gr + 8 * kLd) =
+        make_float2(gacc[nj][2], gacc[nj][3]);
+  }
   __syncthreads();
-  for (int e = tid; e < P * N; e += kThreads) {
-    const int p = e / N, n = e % N;
-    state[((size_t)bh * P + p) * N + n] = ht[n * kMax + p];
+  // G_T = exp(la_1) G_0 + G_1, in G_1's place
+  const float d1 = expf(la[1]);
+  const float* g0 = sm + kTile;
+  float* gt = sm + kTile + kL * kLd;
+#pragma unroll
+  for (int m = 0; m < kPieces; ++m) {
+    const int e = piece_at(k, m);
+    f4(gt + e) = axpy(d1, f4(g0 + e), f4(gt + e));
   }
+  __syncthreads();
+}
+
+// Finish a super-chunk walked by local_walk, from its starting state hs
+// (this thread's kPieces pieces): each half adds exp(ca_t) C_t . h_c to its
+// rows' y (h_0 = hs, h_1 = exp(la_0) hs + G_0, laid in x's rows), writes
+// them, and hs becomes the state at the super-chunk's end, exp(la_0 + la_1)
+// hs + G_T. `h_zero`: hs is zero, chunk 0 adds nothing.
+__device__ __forceinline__ void finish(const Args& a, const Ctx& k, float* sm,
+                                       int t0, int rows, bool h_zero,
+                                       float (&yacc)[8][4],
+                                       float4 (&hs)[kPieces]) {
+  const int c = k.c, i = k.i, g = k.g, t4 = k.t4;
+  const float* la = sm + 3 * kTile + 3 * kRows;
+  const float* g0 = sm + kTile;
+  const float* gt = sm + kTile + kL * kLd;
+  float* h0s = sm;             // x's rows 0..63: h_0 as (P, N)
+  float* h1s = sm + kL * kLd;  // x's rows 64..127: h_1
+  const float d0 = expf(la[0]), dT = expf(la[0] + la[1]);
+#pragma unroll
+  for (int m = 0; m < kPieces; ++m) {
+    const int e = piece_at(k, m);
+    f4(h0s + e) = hs[m];
+    f4(h1s + e) = axpy(d0, hs[m], f4(g0 + e));
+    hs[m] = axpy(dT, hs[m], f4(gt + e));
+  }
+  __syncthreads();
+
+  const int crows = max(0, min(kL, rows - c * kL));
+  const int tb = 16 * i;
+  if (tb < crows) {
+    const float* cs = sm + 2 * kTile + c * kL * kLd;
+    const float* ca = sm + 3 * kTile + kRows + c * kL;
+    if (!(c == 0 && h_zero)) {
+      // y += (exp(ca_t) C_t) . h_c^T: the row scale folded into A
+      const float* hc = c == 0 ? h0s : h1s;
+      const float ea = expf(ca[tb + g]), ec = expf(ca[tb + g + 8]);
+#pragma unroll 2
+      for (int kk = 0; kk < kMax / 8; ++kk) {
+        const float* cr = cs + (tb + g) * kLd + 8 * kk + t4;
+        const float av[4] = {ea * cr[0], ec * cr[8 * kLd], ea * cr[4],
+                             ec * cr[8 * kLd + 4]};
+        uint32_t ahi[4], alo[4];
+        split4(av, ahi, alo);
+#pragma unroll
+        for (int pj = 0; pj < kMax / 8; ++pj) {
+          const float* hr = hc + (8 * pj + g) * kLd + 8 * kk + t4;
+          uint32_t bhi[2], blo[2];
+          split2(hr[0], hr[4], bhi, blo);
+          mma_tf32x3(yacc[pj], ahi, alo, bhi, blo);
+        }
+      }
+    }
+    // y rows of this warp (columns 2 t4, 2 t4 + 1 of each tile)
+    float* y0 = a.y + (((size_t)k.b * a.S + t0 + c * kL + tb + g) * a.H + k.h) *
+                          a.P + 2 * t4;
+    const size_t down = (size_t)8 * a.H * a.P;  // eight rows on
+#pragma unroll
+    for (int pj = 0; pj < kMax / 8; ++pj) {
+      if (8 * pj + 2 * t4 < a.P) {
+        if (tb + g < crows)
+          *reinterpret_cast<float2*>(y0 + 8 * pj) =
+              make_float2(yacc[pj][0], yacc[pj][1]);
+        if (tb + g + 8 < crows)
+          *reinterpret_cast<float2*>(y0 + down + 8 * pj) =
+              make_float2(yacc[pj][2], yacc[pj][3]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads, 2) ssd_kernel_mma(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* la = sm + 3 * kTile + 3 * kRows;
+  float* gt = sm + kTile + kL * kLd;
+
+  Ctx k;
+  k.tid = threadIdx.x;
+  k.lane = k.tid & 31;
+  k.g = k.lane >> 2;
+  k.t4 = k.lane & 3;
+  k.c = k.tid >> 7;
+  // half 1 takes its tiles in mirrored order: warps w and w + 4 share a
+  // scheduler, and tile i's causal products cost i + 1 units
+  k.i = k.c == 0 ? (k.tid >> 5) & 3 : 3 - ((k.tid >> 5) & 3);
+  k.rank = blockIdx.x % a.ranks;
+  k.bh = blockIdx.x / a.ranks;
+  k.b = k.bh / a.H;
+  k.h = k.bh - k.b * a.H;
+  k.r0 = k.rank * a.per * kL;
+  k.r1 = min(a.S, k.r0 + a.per * kL);
+  k.a = a.A[k.h];
+  const int nsup = (k.r1 - k.r0 + kRows - 1) / kRows;
+  const bool keep = a.per <= 2;  // one super-chunk a segment
+
+  float yacc[8][4];
+  float4 hs[kPieces];
+  auto load_h0 = [&]() {
+#pragma unroll
+    for (int m = 0; m < kPieces; ++m) {
+      const int p = piece_p(k, m), n = piece_n(k);
+      hs[m] = a.h0 && p < a.P && n < a.N
+                  ? f4(a.h0 + ((size_t)k.bh * a.P + p) * a.N + n)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+
+  bool walked0 = false;  // super-chunk 0 walked with y already
+  if (a.ranks > 1) {
+    // the segment's (G, la) from a zero state
+    float la_seg = 0.f;
+#pragma unroll
+    for (int m = 0; m < kPieces; ++m) hs[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < nsup; ++s) {
+      const int t0 = k.r0 + s * kRows;
+      local_walk(a, k, sm, t0, k.r1 - t0, keep, yacc);
+      const float lt = la[0] + la[1], dT = expf(lt);
+      la_seg += lt;
+#pragma unroll
+      for (int m = 0; m < kPieces; ++m)
+        hs[m] = axpy(dT, hs[m], f4(gt + piece_at(k, m)));
+      __syncthreads();  // before the next staging or la
+    }
+#pragma unroll
+    for (int m = 0; m < kPieces; ++m) f4(gt + piece_at(k, m)) = hs[m];
+    if (k.tid == 0) la[2] = la_seg;
+    cluster_arrive_release();
+    cluster_wait_acquire();
+    // h_in = D_{r-1}(...(D_0 h0 + G_0)...) + G_{r-1}
+    load_h0();
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int q = 0; q < k.rank; ++q) {
+      const float* gq = cluster.map_shared_rank(gt, q);
+      const float dq = expf(*cluster.map_shared_rank(la + 2, q));
+#pragma unroll
+      for (int m = 0; m < kPieces; ++m)
+        hs[m] = axpy(dq, hs[m], f4(gq + piece_at(k, m)));
+    }
+    cluster_arrive_release();  // done with the other ranks' shared memory
+    // a longer segment restages over its G: wait until no rank reads it
+    if (!keep) cluster_wait_acquire();
+    walked0 = keep;
+  } else {
+    load_h0();
+  }
+
+  for (int s = 0; s < nsup; ++s) {
+    const int t0 = k.r0 + s * kRows;
+    if (!(walked0 && s == 0))
+      local_walk(a, k, sm, t0, k.r1 - t0, true, yacc);
+    finish(a, k, sm, t0, k.r1 - t0,
+           s == 0 && k.rank == 0 && a.h0 == nullptr, yacc, hs);
+  }
+
+  if (k.rank == a.ranks - 1) {
+#pragma unroll
+    for (int m = 0; m < kPieces; ++m) {
+      const int p = piece_p(k, m), n = piece_n(k);
+      if (p < a.P && n < a.N)
+        f4(a.state + ((size_t)k.bh * a.P + p) * a.N + n) = hs[m];
+    }
+  }
+  // no rank leaves while a later one may still read its shared memory
+  if (a.ranks > 1 && keep) cluster_wait_acquire();
+}
+
+cudaLaunchAttribute cluster_attr(int ranks) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ranks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  return attr;
+}
+
+int configure() {
+  static cudaError_t err = cudaFuncSetAttribute(
+      ssd_kernel_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes);
+  return (int)err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// h0 may be null (a zero initial state). P and N must be multiples of 4 in
-// 4..64. Returns cudaGetLastError() after the launch, 0 on success.
+// h0 may be null (a zero initial state). P and N multiples of 4 in 4..64;
+// `ranks` blocks (1..8) a (b, h), each a segment of `per` 64-row chunks,
+// the last one holding the end of the sequence (kernel.py split_sequence).
+// Returns cudaGetLastError() after the launch, 0 on success.
 int ssm_scan(const void* x, const void* dt, const void* A, const void* B,
              const void* C, const void* h0, void* y, void* state, int Bb,
-             int S, int H, int P, int N, void* stream) {
+             int S, int H, int P, int N, int ranks, int per, void* stream) {
   if (Bb < 0 || S < 0 || H < 1 || P < 4 || P > kMax || P % 4 || N < 4 ||
-      N > kMax || N % 4)
+      N > kMax || N % 4 || ranks < 1 || ranks > kMaxRanks || per < 0 ||
+      (long long)ranks * per * kL < S ||
+      (S > 0 && (long long)(ranks - 1) * per * kL >= S) ||
+      (S == 0 && ranks != 1))
     return (int)cudaErrorInvalidValue;
   if (Bb == 0) return 0;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  ssd_kernel<<<Bb * H, kThreads, kSmemBytes,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const float*>(B),
-      static_cast<const float*>(C), static_cast<const float*>(h0),
-      static_cast<float*>(y), static_cast<float*>(state), S, H, P, N);
+  const int err = configure();
+  if (err != 0) return err;
+  Args args{static_cast<const float*>(x), static_cast<const float*>(dt),
+            static_cast<const float*>(A),  static_cast<const float*>(B),
+            static_cast<const float*>(C),  static_cast<const float*>(h0),
+            static_cast<float*>(y),        static_cast<float*>(state),
+            S, H, P, N, ranks, per};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(ranks * Bb * H));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr = cluster_attr(ranks);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, ssd_kernel_mma, args);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// Clusters of `ranks` blocks the card holds at once
+// (cudaOccupancyMaxActiveClusters); with ranks = 1, the blocks. Minus the
+// CUDA error on failure.
+int ssm_scan_active_clusters(int ranks) {
+  if (ranks < 1 || ranks > kMaxRanks) return -(int)cudaErrorInvalidValue;
+  const int err = configure();
+  if (err != 0) return -err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)ranks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cudaLaunchAttribute attr = cluster_attr(ranks);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveClusters(&active, ssd_kernel_mma, &cfg);
+  if (e != cudaSuccess) return -(int)e;
+  return active;
 }
 
 const char* kernel_error_string(int code) {

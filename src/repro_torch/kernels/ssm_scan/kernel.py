@@ -1,33 +1,83 @@
 """ctypes launch of the SSD scan CUDA kernel (`csrc/ssm_scan.cu`): argument
-checks, output allocation, launch on the current stream, and the launch's
-error check."""
+checks, the split of each (batch, head)'s sequence over the thread blocks of
+one cluster, output allocation, launch on the current stream, and the
+launch's error check."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import runtime
 
 NAME = "ssm_scan"
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # the kernel's largest head_dim P and state N (its shared-memory tiles);
 # both are read as float4, so multiples of 4
 MAX_DIM = 64
+# rows a chunk, and chunks a block holds at once (a super-chunk: two
+# chunks side by side, one a half of the block); a segment of at most
+# KEEP_CHUNKS chunks keeps its y in registers across the cluster exchange
+CHUNK = 64
+KEEP_CHUNKS = 2
+# the segments of one (batch, head) form one thread-block cluster, which
+# combines their states in distributed shared memory: at most the portable
+# cluster size (kMaxRanks in csrc/ssm_scan.cu)
+MAX_RANKS = 8
 
 
 def _lib():
     lib = runtime.load(NAME)
     fn = lib.ssm_scan
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fit = lib.ssm_scan_active_clusters
+    fit.argtypes, fit.restype = [ctypes.c_int], ctypes.c_int
     return lib
 
 
-def ssm_scan_cuda(x, dt, A, B, C, initial_state=None):
+@functools.lru_cache(maxsize=None)
+def card_blocks(device: torch.device) -> int:
+    """Blocks of the kernel the card holds at once
+    (cudaOccupancyMaxActiveClusters at a cluster of one)."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        n = lib.ssm_scan_active_clusters(1)
+    if n < 0:
+        runtime.check(lib, NAME, -n)
+    if n == 0:
+        raise RuntimeError(f"{NAME}: no block of the kernel fits on the card")
+    return n
+
+
+def split_sequence(Bb: int, H: int, S: int, slots: int):
+    """(ranks, chunks_per_rank): the sequence of each (batch, head) cut
+    into `ranks` segments of whole CHUNK-row chunks, one a thread block of
+    one cluster. One segment where Bb * H already fills the card (`slots`:
+    the blocks it holds at once); else the fewest ranks, at most MAX_RANKS,
+    that leave every segment at most KEEP_CHUNKS chunks. Every rank has
+    rows, and the last holds the sequence's end."""
+    chunks = -(-S // CHUNK)
+    if chunks <= KEEP_CHUNKS or Bb * H >= slots:
+        return 1, chunks
+    want = min(MAX_RANKS, -(-chunks // KEEP_CHUNKS))
+    per = -(-chunks // want)
+    return -(-chunks // per), per
+
+
+def _aligned(t):
+    """The tensor, or a copy of it that starts on 16 bytes (the kernel
+    moves rows in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def ssm_scan_cuda(x, dt, A, B, C, initial_state=None, ranks=None):
     """x: (Bb,S,H,P), dt: (Bb,S,H), A: (H,), B/C: (Bb,S,N), initial_state
     (Bb,H,P,N) or None; all float32, contiguous, on one CUDA device. P and
     N multiples of 4 up to 64. -> (y (Bb,S,H,P), final state (Bb,H,P,N)),
-    float32."""
+    float32. `ranks`: segments a (batch, head), at most MAX_RANKS; the
+    planner's (`split_sequence`) when None, which is how the model calls it
+    (chip_smoke.py times other splits with it)."""
     f32 = (torch.float32,)
     runtime.check_tensor("x", x, 4, f32)
     runtime.check_tensor("dt", dt, 3, f32)
@@ -50,14 +100,23 @@ def ssm_scan_cuda(x, dt, A, B, C, initial_state=None):
         if initial_state.shape != (Bb, H, P, N):
             raise ValueError(f"initial_state must be {(Bb, H, P, N)}, got "
                              f"{tuple(initial_state.shape)}")
+    x, B, C = _aligned(x), _aligned(B), _aligned(C)
+    if initial_state is not None:
+        initial_state = _aligned(initial_state)
     y = torch.empty_like(x)
     state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
     h0 = (ctypes.c_void_p(None) if initial_state is None
           else runtime.ptr(initial_state))
+    if ranks is None:
+        ranks, per = split_sequence(Bb, H, S, card_blocks(x.device))
+    else:
+        chunks = -(-S // CHUNK)
+        per = -(-chunks // min(max(ranks, 1), MAX_RANKS, max(chunks, 1)))
+        ranks = -(-chunks // per) if chunks else 1
     lib = _lib()
     code = lib.ssm_scan(runtime.ptr(x), runtime.ptr(dt), runtime.ptr(A),
                         runtime.ptr(B), runtime.ptr(C), h0, runtime.ptr(y),
-                        runtime.ptr(state), Bb, S, H, P, N,
+                        runtime.ptr(state), Bb, S, H, P, N, ranks, per,
                         runtime.stream_ptr())
     runtime.check(lib, NAME, code)
     return y, state

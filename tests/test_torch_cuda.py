@@ -459,20 +459,37 @@ def test_quant_tiny_engine_card_vs_cpu(gen, kv_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Bb,S,H,P,N,chunk,initial", [
-    (2, 64, 3, 8, 16, 16, False), (1, 128, 2, 16, 32, 32, False),
-    (2, 96, 1, 4, 8, 32, False), (1, 37, 4, 64, 16, 64, False),
-    (1, 1000, 4, 64, 16, 64, False), (1, 1024, 80, 64, 64, 256, False),
-    (2, 100, 3, 64, 64, 256, True)])
-def test_ssm_scan_kernel_matches_plain(gen, Bb, S, H, P, N, chunk, initial):
+@pytest.mark.parametrize("Bb,S,H,P,N,chunk,initial,strong", [
+    (2, 64, 3, 8, 16, 16, False, False), (1, 128, 2, 16, 32, 32, False, False),
+    (2, 96, 1, 4, 8, 32, False, False), (1, 37, 4, 64, 16, 64, False, False),
+    (1, 1000, 4, 64, 16, 64, False, False),
+    (1, 1024, 80, 64, 64, 256, False, False),
+    (2, 100, 3, 64, 64, 256, True, False),
+    (2, 1, 3, 16, 32, 64, False, False), (2, 63, 3, 16, 32, 64, False, False),
+    (2, 65, 3, 16, 32, 64, False, False),
+    (2, 129, 3, 16, 32, 64, False, False),
+    (2, 300, 3, 4, 8, 64, False, False), (2, 300, 4, 16, 16, 64, True, False),
+    (1, 512, 4, 32, 32, 64, True, True),
+    (4, 256, 80, 64, 64, 256, True, False),
+    (1, 1500, 8, 64, 64, 64, True, False)])
+def test_ssm_scan_kernel_matches_plain(gen, Bb, S, H, P, N, chunk, initial,
+                                       strong):
     """The SSD kernel against its plain chunked version at rtol = atol =
     1e-4 (tests/test_kernels.py's tolerance for the TPU kernel): the JAX
     test's cases, ragged S, TINY_EDGE_C's and zamba2's heads, an initial
-    state."""
+    state; then the edges of the cluster split: S of 1, 63, 65 and 129, P 4
+    with N 8, an initial state crossing ranks, strong decays (A down to
+    -80, dt up to 1; the plain version at the kernel's 64-row chunks), a
+    batch that fills the card (one rank, two super-chunks) and S of 1,500
+    (eight ranks of three chunks)."""
     x = torch.randn(Bb, S, H, P, generator=gen, device="cuda")
-    dt = torch.nn.functional.softplus(
-        torch.randn(Bb, S, H, generator=gen, device="cuda")) * 0.1
-    A = -torch.exp(torch.randn(H, generator=gen, device="cuda"))
+    if strong:
+        dt = torch.rand(Bb, S, H, generator=gen, device="cuda")
+        A = -(1 + 79 * torch.rand(H, generator=gen, device="cuda"))
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn(Bb, S, H, generator=gen, device="cuda")) * 0.1
+        A = -torch.exp(torch.randn(H, generator=gen, device="cuda"))
     B = torch.randn(Bb, S, N, generator=gen, device="cuda") * 0.3
     C = torch.randn(Bb, S, N, generator=gen, device="cuda") * 0.3
     h0 = (torch.randn(Bb, H, P, N, generator=gen, device="cuda")
