@@ -67,7 +67,10 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      step); then TINY_EDGE_C and zamba2 cut to 4 layers (float32) on the
      dense and paged engines at the first tolerance, a fan-out whose late
      forks must match its early ones, and the 4-layer zamba2 over an int8
-     pool;
+     pool; then TINY_CLOUD on chunked paged engines whose pool (6 pages
+     of 8) cannot hold its 4 requests, resumed by host swap, by replay and
+     under the serial scheduler, at the first tolerance (every engine must
+     evict; swap-outs = swap-ins on the swapping ones);
   5. at full width — qwen3-8b in the cloud, qwen2-1.5b and zamba2-2.7b at
      the edge, random bf16 weights from a seed: the PICE pipeline on paged
      engines (chunked for the attention stacks; zamba2 prefills
@@ -88,8 +91,24 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      host wall time against device busy time by kernel (torch.profiler) on
      a short batch, the port's kernels' time by device function, and the
      host's cudaLaunchKernel calls per model call;
-  7. one JSON line of the kernels, the card's name and power limit, and the
-     final {"ok": true, ...} line.
+  7. eviction at full width on phase 5's qwen3-8b weights (chunked,
+     page 32, 4 slots, bf16 and int8 pools): 4 requests of a 384-token
+     prompt and 128 new tokens on a pool of 40 pages, resumed by host swap
+     and by replay, against a roomy pool, and the serial scheduler on the
+     roomy pool (2 requests, 32 new tokens); every promote's pages read
+     back and held byte for byte to the host snapshot; launches counted a
+     run;
+  8. swap against replay on the card's clock (qwen3-8b, bf16 and int8): a
+     256-token prompt evicted after 64, 256 and 768 generated tokens, the
+     demote, the promote and the resume to the next token by each way, the
+     bytes, the host-link rates and the crossover;
+  9. the load generator: one seeded trace of 16 requests through
+     `replay_sync` on `EngineFrontend` over the 40-page qwen3-8b pool, with
+     host swap and with replay: goodput, SLA attainment by tier, TTFT p50 /
+     p99, and every handle final with no page left in use;
+  10. one JSON line of the kernels (with their launches on the paths of
+     phases 7 and 9 under "eviction_paths"), the card's name and power
+     limit, and the final {"ok": true, ...} line.
 
 Each phase logs the seconds it took.
 
@@ -1350,6 +1369,44 @@ def phase_tiny_parity(torch):
             f"kv_dtype={variant[3]}: {len(prompts)} requests, greedy tokens "
             f"equal, logprobs within atol 1e-2")
     ssm_tiny_parity(torch, prompts)
+    tiny_eviction_parity(torch)
+
+
+def tiny_eviction_parity(torch):
+    """TINY_CLOUD (float32) on chunked paged engines whose pool (6 pages of
+    8) cannot hold its 4 requests, card against CPU: resumed by host swap,
+    by replay, and under the serial one-chunk scheduler (which swaps)."""
+    from repro_torch.configs.pice_cloud_edge import TINY_CLOUD
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = TINY_CLOUD.with_(dtype="float32", prefill_chunk=16)
+    cpu_params = transformer.init_params(cfg, seed=0, device="cpu")
+    cuda_params = _to(cpu_params, "cuda")
+    prompts = [[65, 66, 67, 68], [70, 71], [80, 81, 82],
+               [90, 91, 92, 93, 94]]
+
+    def engine(device, **kw):
+        return InferenceEngine(cfg, cuda_params if device == "cuda"
+                               else cpu_params, max_batch=3, max_len=64,
+                               page_size=8, n_pages=6, device=device, **kw)
+    for label, kw in (("host swap", {}), ("replay", dict(host_swap=False)),
+                      ("serial scheduler", dict(ragged_ingest=False))):
+        card, cpu = engine("cuda", **kw), engine("cpu", **kw)
+        got = card.generate(prompts, max_new=24)
+        want = cpu.generate(prompts, max_new=24)
+        _same_greedy(torch, got, want, lambda: engine("cpu", **kw), prompts,
+                     ("tiny-cloud tight pool", label))
+        for eng in (card, cpu):
+            assert eng.evictions > 0, f"{label}: nothing was evicted"
+            if eng.host_swap:
+                assert eng.swap_outs > 0 and eng.swap_ins == eng.swap_outs
+            else:
+                assert eng.swap_outs == 0
+            assert eng.alloc.pages_in_use == 0 and not eng.alloc.hosted
+        log(f"tiny-cloud, 6 pages of 8, {label}: {len(prompts)} requests, "
+            f"{card.evictions} evictions, {card.swap_outs} swap-outs, "
+            f"{card.swap_ins} swap-ins on the card; greedy tokens equal to "
+            f"the CPU's, logprobs within rtol 1e-4 atol 1e-5")
 
 
 def ssm_tiny_parity(torch, prompts):
@@ -1904,6 +1961,329 @@ def phase_profile(torch, engines):
                 f"{key[:90]}")
 
 
+# Phase 7: 4 requests of a 384-token prompt and 128 new tokens need 16
+# pages of 32 each at the end, 64 in all; the tight pool holds 40.
+EVICT_PROMPT, EVICT_NEW, EVICT_PAGES = 384, 128, 40
+SERIAL_NEW = 32          # the serial scheduler's run (2 of the requests)
+# Phase 8: a 256-token prompt evicted after 64, 256 and 768 generated
+# tokens (contexts of 320, 512 and 1,024), each cycle timed 3 times.
+SWAP_PROMPT, SWAP_GENERATED, SWAP_REPS = 256, (64, 256, 768), 3
+# Phase 9: 16 requests of 350-450 prompt tokens and 32-64 new ones at 16
+# a second on 4 slots over the tight pool: 3 in flight outgrow 40 pages.
+LOAD_RATE, LOAD_PROMPT, LOAD_NEW = 16.0, (350, 450), (32, 64)
+# the decode and ingest wrappers each pool's engines run
+EVICT_KERNELS = {
+    "": ("paged_decode_attention", "paged_prefill_attention_ragged",
+         "paged_prefill_attention"),
+    "int8": ("paged_decode_attention_quant",
+             "paged_prefill_attention_ragged_quant",
+             "paged_prefill_attention_quant")}
+
+
+def restore_checker(torch, eng, checked):
+    """Wrap `eng._admit_swapped`: after each promote, read back the promoted
+    pages of every attention leaf (K/V codes and scale rows) and require
+    them byte for byte equal to the host snapshot (uint8 views, so an int8
+    or bf16 page compares its raw bytes). Appends the pages checked."""
+    from repro_torch.models import transformer
+    real = eng._admit_swapped
+
+    def admit(r):
+        idx = list(eng.alloc.hosted[r.req_id]["swapped_idx"])
+        host = eng._swap_payloads(r.swap["host"], r.swap["pages"]) \
+            if idx else []
+        slot = real(r)
+        if idx:
+            ids = torch.tensor([eng.alloc.owned[slot][i] for i in idx],
+                               device="cuda")
+            for seg, snap in zip(transformer.attention_segments(eng.cache),
+                                 host):
+                for k, leaf in seg.items():
+                    back = leaf.view(torch.uint8).index_select(1, ids).cpu()
+                    assert torch.equal(back, snap[k].view(torch.uint8)), \
+                        f"promoted {k} differs from the host snapshot"
+        checked.append(len(idx))
+        return slot
+    eng._admit_swapped = admit
+
+
+def agreement(got, want):
+    """(equal tokens, first divergence or None) of each request."""
+    out = []
+    for (tg, _), (tw, _) in zip(got, want):
+        n = next((t for t, (a, b) in enumerate(zip(tg, tw)) if a != b), None)
+        out.append((sum(a == b for a, b in zip(tg, tw)), n))
+    return out
+
+
+def phase_eviction(torch, params):
+    """Phase 7: eviction at full width. qwen3-8b (phase 5's weights) on
+    chunked paged engines, page 32, 4 slots, over a bf16 and an int8 pool:
+    4 requests of a 384-token prompt and 128 new tokens (no stop at EOS) on
+    a pool of 40 pages, resumed by host swap and by replay, against a roomy
+    pool (4 x 32 pages), and the serial scheduler on the roomy pool (two
+    of the requests, 32 new tokens). Each
+    run's launches are counted from 0; every promote's pages are read back
+    and held byte for byte to the host snapshot. Gates: evictions without
+    any hook, swap-outs = swap-ins on the swap engines and none on the
+    replay engines, every request's tokens, finite logprobs, no page in
+    use and no hosted entry at the end. Greedy agreement with the roomy
+    engine is reported, not gated: batch membership changes the decode
+    kernel's split count at bf16, so its merge order."""
+    import math
+    from repro_torch.configs.pice_cloud_edge import cloud_config
+    from repro_torch.serving.engine import InferenceEngine
+    log("== phase 7: eviction at full width (qwen3-8b, random bf16 "
+        "weights)")
+    cfg = cloud_config().with_(prefill_chunk=128)
+    prompts = [[(11 * i + 5 * j) % 251 + 1 for j in range(EVICT_PROMPT)]
+               for i in range(4)]
+    kw = dict(max_batch=4, max_len=1024, page_size=32, eos_id=-1,
+              device="cuda")
+    paths = {}
+    for kv in ("", "int8"):
+        pool = kv or "bf16"
+        outs = {}
+        for label, extra in (
+                ("roomy", {}),
+                ("swap", dict(n_pages=EVICT_PAGES)),
+                ("replay", dict(n_pages=EVICT_PAGES, host_swap=False)),
+                ("serial", dict(ragged_ingest=False))):
+            eng = InferenceEngine(cfg.with_(kv_dtype=kv), params,
+                                  name=f"{pool} {label}", **kw, **extra)
+            checked = []
+            if eng.host_swap:
+                restore_checker(torch, eng, checked)
+            # the serial scheduler runs for its launches (#3 / #5) and
+            # its agreement: two of the requests and SERIAL_NEW tokens
+            # keep phase 7 inside its time (the step count, not the batch,
+            # sets a run's time)
+            mine = prompts[:2] if label == "serial" else prompts
+            new = SERIAL_NEW if label == "serial" else EVICT_NEW
+            t0 = time.perf_counter()
+            out, launches = counted(
+                torch, lambda: eng.generate(mine, max_new=new))
+            wall = time.perf_counter() - t0
+            outs[label] = out
+            name = f"eviction {pool} {label}"
+            paths[name] = launches
+            assert all(len(t) == new for t, _ in out), \
+                f"{name}: a request ended short of its tokens"
+            assert all(math.isfinite(x) for _, lps in out for x in lps), \
+                f"{name}: non-finite logprobs"
+            assert eng.alloc.pages_in_use == 0 and not eng.alloc.hosted, \
+                f"{name}: pages left in use"
+            if "n_pages" in extra:
+                assert eng.evictions > 0, f"{name}: nothing was evicted"
+            if label == "swap":
+                assert eng.swap_outs > 0 and eng.swap_ins == eng.swap_outs
+                assert len(checked) == eng.swap_ins
+            else:
+                assert eng.swap_outs == 0, f"{name}: swapped"
+            decode, ragged, single = EVICT_KERNELS[kv]
+            assert launches[decode] > 0 and launches["rmsnorm"] > 0
+            assert launches[single if label == "serial" else ragged] > 0, \
+                f"{name}: its ingest kernel never ran"
+            log(f"{name}: {eng.n_pages} pages, {len(mine)} x "
+                f"{EVICT_PROMPT}-token prompts, {new} new tokens each, in "
+                f"{wall:.2f} s; "
+                f"evictions {eng.evictions}, swap-outs {eng.swap_outs}, "
+                f"swap-ins {eng.swap_ins}, swap bytes {eng.swap_bytes}, "
+                f"pages read back equal to the snapshot {sum(checked)} in "
+                f"{len(checked)} promotes, peak pages {eng.peak_pages}")
+            del eng
+        for label in ("swap", "replay", "serial"):
+            log(f"  {pool} {label} against roomy (equal tokens, first "
+                f"divergence) per request: "
+                f"{agreement(outs[label], outs['roomy'])}")
+    log("eviction-path launches: " + json.dumps(
+        {name: {k: n for k, n in launches.items() if n}
+         for name, launches in paths.items()}))
+    return paths
+
+
+def swap_cycle(torch, eng, prompt, g, swap):
+    """One evict / resume of a request holding `prompt` + g generated
+    tokens (the generated tokens are carried and ingested in chunks, which
+    builds the state g decode steps would), timed on the host clock around
+    work that ends in a synchronize: the eviction (`swap_evict_s`), the
+    promote alone, and the resume to the next committed token
+    (`resume_swap_s` or `resume_replay_s`, the reference benchmark's
+    definition, benchmarks/paged_engine_bench.py:_swap_cycle)."""
+    eng.host_swap = swap
+    carry = [(7 * i) % 251 + 1 for i in range(g)]
+    slot = eng.add_request(0, prompt, max_new=g + 8, carry_tokens=carry,
+                           carry_lps=[0.0] * g)
+    while eng.slots[slot].generated <= g:
+        eng.step()
+    eng._harvest()
+    ctx = eng.slots[slot].ctx_len
+    bytes0 = eng.swap_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assert eng._evict_victim(protect=-1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    r = eng._resume_queue.pop(0)
+    assert (r.swap is not None) == swap
+    n0 = len(r.carry_tokens)
+    t2 = time.perf_counter()
+    slot = eng.try_admit(r)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    while len(eng.slots[slot].tokens) <= n0:
+        eng.step()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    assert eng.cancel(0)
+    eng._harvest()
+    assert eng.alloc.pages_in_use == 0 and not eng.alloc.hosted
+    return {"ctx_len": ctx, "evict_s": t1 - t0, "admit_s": t3 - t2,
+            "resume_s": t4 - t2, "bytes": eng.swap_bytes - bytes0}
+
+
+def phase_swap_vs_replay(torch, params):
+    """Phase 8: resume by promote against resume by replay at full width
+    (qwen3-8b, chunked, page 32, bf16 and int8 pools), on the card's own
+    clock: one request of a 256-token prompt evicted after 64, 256 and 768
+    generated tokens, medians of 3 cycles after one warm cycle each way.
+    Prints the points in BENCH_serving.json["swap"]'s field names (the
+    file is not written), the host-link rates reached and the crossover."""
+    from repro_torch.configs.pice_cloud_edge import cloud_config
+    from repro_torch.serving.engine import InferenceEngine
+    log("== phase 8: swap against replay at full width (qwen3-8b)")
+    cfg = cloud_config().with_(prefill_chunk=128)
+    prompt = [(3 * j) % 251 + 1 for j in range(SWAP_PROMPT)]
+    report = {}
+    for kv in ("", "int8"):
+        pool = kv or "bf16"
+        eng = InferenceEngine(cfg.with_(kv_dtype=kv), params, max_batch=2,
+                              max_len=2048, page_size=32, n_pages=48,
+                              eos_id=-1, device="cuda")
+        for swap in (True, False):
+            swap_cycle(torch, eng, prompt, SWAP_GENERATED[0], swap)
+        points = []
+        for g in SWAP_GENERATED:
+            sw = [swap_cycle(torch, eng, prompt, g, True)
+                  for _ in range(SWAP_REPS)]
+            rp = [swap_cycle(torch, eng, prompt, g, False)
+                  for _ in range(SWAP_REPS)]
+            one_way = sw[0]["bytes"] // 2
+            evict = statistics.median(c["evict_s"] for c in sw)
+            promote = statistics.median(c["admit_s"] for c in sw)
+            points.append({
+                "generated": g, "ctx_len": sw[0]["ctx_len"],
+                "resume_swap_s": statistics.median(c["resume_s"]
+                                                   for c in sw),
+                "resume_replay_s": statistics.median(c["resume_s"]
+                                                     for c in rp),
+                "swap_evict_s": evict, "promote_s": promote,
+                "swapped_bytes_one_way": one_way,
+                "device_to_host_GBps": one_way / evict / 1e9,
+                "host_to_device_GBps": one_way / promote / 1e9})
+            p = points[-1]
+            log(f"{pool} g={g} (ctx {p['ctx_len']}): evict {evict * 1e3:.2f}"
+                f" ms ({p['device_to_host_GBps']:.2f} GB/s), promote "
+                f"{promote * 1e3:.2f} ms ({p['host_to_device_GBps']:.2f} "
+                f"GB/s), resume by swap {p['resume_swap_s'] * 1e3:.2f} ms, "
+                f"by replay {p['resume_replay_s'] * 1e3:.2f} ms, "
+                f"{one_way} B one way")
+        crossover = next((p["generated"] for p in points
+                          if p["resume_swap_s"] < p["resume_replay_s"]),
+                         None)
+        report[pool] = {"kv_dtype": pool, "prompt_len": SWAP_PROMPT,
+                        "points": points, "crossover_generated": crossover}
+        log(f"{pool}: crossover_generated {crossover}")
+        del eng
+    link_probe(torch, report["bf16"]["points"][-1]["swapped_bytes_one_way"])
+    log("swap: " + json.dumps(report))
+    return report
+
+
+def link_probe(torch, nbytes):
+    """The host link alone, for `nbytes` (the largest bf16 snapshot): one
+    copy each way into pageable memory (what the engine's snapshot and
+    promote use) and into pinned memory, median of 5 after one warm copy,
+    host clock around a synchronize."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    pageable = torch.empty(nbytes, dtype=torch.uint8)
+    rates = {}
+    for name, fn in (("device to pageable host", lambda: dev.cpu()),
+                     ("device to pinned host", lambda: pinned.copy_(dev)),
+                     ("pageable host to device", lambda: dev.copy_(pageable)),
+                     ("pinned host to device", lambda: dev.copy_(pinned))):
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rates[name] = nbytes / statistics.median(times[1:]) / 1e9
+    log(f"host link, {nbytes} B: " + ", ".join(
+        f"{name} {r:.2f} GB/s" for name, r in rates.items()))
+
+
+def phase_loadgen(torch, params):
+    """Phase 9: the load generator on the card. One seeded trace of 16
+    requests at LOAD_RATE through `replay_sync` on `EngineFrontend` over
+    the tight qwen3-8b bf16 pool (40 pages of 32, 4 slots, no stop at EOS),
+    with host swap and with replay; tier deadlines at the load generator's
+    default budget. Gates: every handle ends in a final state and no page
+    is in use, no hosted entry left. Goodput, SLA attainment by tier and
+    TTFT p50 / p99 are printed, not compared (walls vary between runs)."""
+    from repro_torch.configs.pice_cloud_edge import cloud_config
+    from repro_torch.core.profiler import RuntimeMonitor
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.frontend import EngineFrontend
+    log(f"== phase 9: the load generator (qwen3-8b, {LOAD_RATE} requests a "
+        f"second)")
+    cfg = cloud_config().with_(prefill_chunk=128)
+    trace = loadgen.synthesize_trace(LOAD_RATE, 16, seed=0,
+                                     prompt_len=LOAD_PROMPT,
+                                     max_new=LOAD_NEW)
+    paths = {}
+    for label, swap in (("host swap", True), ("replay", False)):
+        eng = InferenceEngine(cfg, params, max_batch=4, max_len=1024,
+                              page_size=32, n_pages=EVICT_PAGES, eos_id=-1,
+                              host_swap=swap, device="cuda")
+        mon = RuntimeMonitor()
+        fe = EngineFrontend(eng, monitor=mon)
+        handles = []
+        submit = fe.submit
+
+        def keep(req, sheddable=True, _submit=submit):
+            handles.append(_submit(req, sheddable=sheddable))
+            return handles[-1]
+        fe.submit = keep
+        rep, launches = counted(torch, lambda: loadgen.replay_sync(
+            fe, trace, seed=0, offered_rps=LOAD_RATE))
+        paths[f"loadgen {label}"] = launches
+        states = [h.state for h in handles]
+        assert len(handles) == 16 and all(
+            st in ("done", "cancelled", "shed", "failed") for st in states), \
+            f"loadgen {label}: handles not final: {states}"
+        assert eng.alloc.pages_in_use == 0 and not eng.alloc.hosted, \
+            f"loadgen {label}: pages left in use"
+        assert launches["paged_decode_attention"] > 0
+        tiers = {t: f"{rep.per_tier_met.get(t, 0)}/{n}"
+                 for t, n in sorted(rep.per_tier_total.items())}
+        log(f"loadgen {label}: {rep.n_requests} requests in "
+            f"{rep.elapsed_s:.2f} s, completed {rep.completed}, deadline "
+            f"{rep.deadline_cancelled}, shed {rep.shed}, failed "
+            f"{rep.failed}; goodput {rep.goodput_tps:.1f} tok/s, "
+            f"throughput {rep.throughput_tps:.1f} tok/s, SLA attainment "
+            f"{rep.sla_attainment:.3f} (met/total by tier {tiers}); TTFT "
+            f"p50 {mon.ttft_percentile(50) * 1e3:.1f} ms, p99 "
+            f"{mon.ttft_percentile(99) * 1e3:.1f} ms; evictions "
+            f"{eng.evictions}, swap-outs {eng.swap_outs}, swap-ins "
+            f"{eng.swap_ins}")
+        del eng, fe
+    return paths
+
+
 SOURCES = {
     "paged_decode_attention": (
         "src/repro_torch/csrc/paged_decode_attention.cu",
@@ -1980,12 +2360,19 @@ def main() -> int:
     timed("phase 4", phase_tiny_parity, torch)
     paths, engines = timed("phase 5", phase_full_width, torch)
     timed("phase 6", phase_profile, torch, engines)
+    weights = engines["qwen3-8b"].params
+    del engines
+    other = timed("phase 7", phase_eviction, torch, weights)
+    timed("phase 8", phase_swap_vs_replay, torch, weights)
+    other.update(timed("phase 9", phase_loadgen, torch, weights))
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         path = MAIN_PATH[name]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "main_path": path,
-                 "launches": paths[path][name]}
+                 "launches": paths[path][name],
+                 "eviction_paths": {p: n[name] for p, n in other.items()
+                                    if n[name]}}
         # the top-level numbers are the first timing row's (the cloud
         # model's, qwen3-8b, for attention; zamba2's prefill for the SSD
         # scan); the other rows' follow under their own names

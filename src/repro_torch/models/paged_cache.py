@@ -356,8 +356,7 @@ class PageAllocator:
     """Host-side page bookkeeping: free list + per-slot page chains, with
     per-page refcounts so forks can share read-only prefix pages
     copy-on-write (`fork` / `cow_page`). A page returns to the free list
-    only when its last reference is released. (The host tier's demote /
-    promote waits for the host-swap slice.)"""
+    only when its last reference is released."""
     n_pages: int
     page_size: int
     max_pages_per_seq: int
@@ -366,6 +365,12 @@ class PageAllocator:
         self.free: List[int] = list(range(self.n_pages))
         self.owned: Dict[int, List[int]] = {}
         self.refcount: List[int] = [0] * self.n_pages
+        # Host tier: req_id -> {"resident": [(logical_idx, page_id)],
+        # "swapped_idx": [logical_idx]}. Demoted requests keep shared pages
+        # resident (their reference is held, so siblings can't free them)
+        # and surrender uniquely-owned pages to the free list once the
+        # engine has snapshotted their bytes to host memory.
+        self.hosted: Dict = {}
 
     def _take(self) -> int:
         p = self.free.pop()
@@ -444,6 +449,61 @@ class PageAllocator:
         self.refcount[p] -= 1
         pages[idx] = new
         return p, new
+
+    def demote(self, slot: int, req_id) -> List[Tuple[int, int]]:
+        """Move a slot's chain to the host tier instead of freeing it.
+
+        Uniquely-owned pages are freed for reuse and listed as swapped —
+        the caller must snapshot their bytes before anything can rewrite
+        them (the pools are written in place). Shared pages stay resident
+        with this chain's reference held, so COW siblings cannot free them
+        and `promote` re-shares them in place. Returns [(logical_idx,
+        page_id)] for the swapped pages."""
+        pages = self.owned.pop(slot)
+        resident: List[Tuple[int, int]] = []
+        swapped: List[Tuple[int, int]] = []
+        for i, p in enumerate(pages):
+            if self.refcount[p] == 1:
+                swapped.append((i, p))
+                self.refcount[p] = 0
+                self.free.append(p)
+            else:
+                resident.append((i, p))
+        self.hosted[req_id] = {"resident": resident,
+                               "swapped_idx": [i for i, _ in swapped]}
+        return swapped
+
+    def promote(self, req_id, slot: int) -> List[Tuple[int, int]]:
+        """Re-admit a demoted request into `slot`: fresh device pages for
+        the swapped logical indices (MemoryError when the pool is dry),
+        resident shared pages rejoin the chain with their held reference.
+        Returns [(logical_idx, new_page_id)] upload targets for the host
+        bytes, in logical order."""
+        ent = self.hosted[req_id]
+        assert slot not in self.owned, "destination slot still owns pages"
+        if len(self.free) < len(ent["swapped_idx"]):
+            raise MemoryError("page pool exhausted")
+        uploads = [(i, self._take()) for i in ent["swapped_idx"]]
+        chain = dict(uploads)
+        chain.update(ent["resident"])
+        self.owned[slot] = [chain[i] for i in sorted(chain)]
+        del self.hosted[req_id]
+        return uploads
+
+    def drop_hosted(self, req_id) -> None:
+        """Abandon a demoted request, releasing its held resident refs."""
+        ent = self.hosted.pop(req_id, None)
+        if ent is None:
+            return
+        for _, p in ent["resident"]:
+            self.refcount[p] -= 1
+            assert self.refcount[p] >= 0, "refcount underflow"
+            if self.refcount[p] == 0:
+                self.free.append(p)
+
+    def hosted_pages(self, req_id) -> int:
+        """Swapped page count a promote of req_id must allocate."""
+        return len(self.hosted[req_id]["swapped_idx"])
 
     def release(self, slot: int) -> None:
         for p in self.owned.pop(slot, []):

@@ -5,11 +5,11 @@ The port of the JAX package's `models/transformer.py` for the segments the
 PICE serving path runs: init; the full-sequence `forward` (scoring); the
 dense cache with its monolithic `prefill` and `decode_step`; the paged cache
 with monolithic `prefill_paged`, one prompt chunk, batched ragged chunks
-(attention-only stacks), the decode step and the COW fork copy. Dense and
-monolithic paged prefill share `_prefill_block`, whose `kv_writer` hook
-alone differs, so both produce the same activations.
-`promote_slot_paged` (host swap) and the xLSTM, MoE and encoder families
-wait for their slices.
+(attention-only stacks), the decode step, the COW fork copy and the
+host-swap promote. Dense and monolithic paged prefill share
+`_prefill_block`, whose `kv_writer` hook alone differs, so both produce the
+same activations. The xLSTM, MoE and encoder families wait for their
+slices.
 
 Layers come in segments (`segments_of`): runs of one block kind. ATTN is an
 attention + MLP block, MAMBA2 a Mamba2 block (`models/ssm.py`) and
@@ -42,6 +42,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import runtime
@@ -617,3 +618,41 @@ def fork_slot_paged(cfg: ModelConfig, cache: dict, src_slot: int,
     cache["lengths"][dst_slot] = cache["lengths"][src_slot]
     return cache
 
+
+def promote_slot_paged(cfg: ModelConfig, cache: dict, upload_ids, payloads,
+                       slot: int, ctx_len: int) -> dict:
+    """Swap-in (host-tier promote): write a demoted request's snapshotted
+    pages back into every attention segment's pools, in place, and restore
+    its cached length, so decode re-enters directly — no replay.
+
+    upload_ids: host sequence of U physical page ids (ints); an id equal to
+    n_pages (the scratch page) stands for the JAX package's dropped padding
+    id, and any other id outside [0, n_pages] raises before anything
+    reaches the device. payloads: one dict per attention segment holding
+    k_pages/v_pages (count, U, page, n_kv, hd), and k_scale/v_scale
+    (count, U, n_kv) for a quantized pool, cast to the pool's storage dtype
+    and written byte for byte (one index_copy_ a leaf, through uint8 views:
+    PyTorch indexes no float8 tensor in place on the CPU). The block table
+    is pushed separately by the engine's host mirror. Recurrent segments
+    pass through untouched (the engine gates swap to attention-only
+    stacks)."""
+    check_paged_supported(cfg)
+    segs = attention_segments(cache)
+    ids = [int(p) for p in upload_ids]
+    if ids:
+        if len(payloads) != len(segs):
+            raise ValueError(f"{len(payloads)} payloads for {len(segs)} "
+                             f"attention segments")
+        n_pages = segs[0]["k_pages"].shape[1] - 1
+        if min(ids) < 0 or max(ids) > n_pages:
+            raise ValueError(f"upload page ids must lie in [0, {n_pages}]")
+        idx = runtime.host_array_on(np.asarray(ids, np.int64),
+                                    cache["lengths"].device)
+        for seg, pay in zip(segs, payloads):
+            for key, leaf in seg.items():
+                src = pay[key].to(device=leaf.device,
+                                  dtype=leaf.dtype).contiguous()
+                leaf.view(torch.uint8).index_copy_(1, idx,
+                                                   src.view(torch.uint8))
+    cache["lengths"][slot] = int(ctx_len)
+    return cache

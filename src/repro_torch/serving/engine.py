@@ -8,10 +8,16 @@ The port of the JAX package's `serving/engine.py`. Two KV backends
   "paged": a page pool (models/paged_cache.py); pages are allocated on
       demand at admission, appended per decode step, and freed on
       completion; when the pool runs dry the lowest-priority, youngest
-      request is evicted and transparently resubmitted (evict-and-replay).
+      request is evicted and transparently resubmitted. With `host_swap`
+      (the default, attention-only stacks) the victim's pages are demoted
+      to host memory and promoted back on resume, so decode re-enters
+      directly; otherwise (host_swap=False, or a recurrent stack) the
+      resume replays prompt + generated tokens (evict-and-replay).
       With `cfg.prefill_chunk > 0` admission queues the prompt and the step
-      loop ingests it in chunks, batched ragged over every ingesting slot;
-      with `prefill_chunk == 0` the prompt is prefilled in one call
+      loop ingests it in chunks, batched ragged over every ingesting slot
+      (`ragged_ingest=False`: one chunk a step for the most urgent slot,
+      which joins the decode batch in the same step); with
+      `prefill_chunk == 0` the prompt is prefilled in one call
       (`transformer.prefill_paged`). `generate_fanout` prefills a shared
       prefix once and forks copy-on-write block-table rows off it. The
       pool stores `cfg.kv_dtype`: the compute dtype by default, another
@@ -27,7 +33,8 @@ most one batched ragged ingest call plus one decode-and-sample call. The
 decode's tokens and logprobs are read back at the NEXT step's harvest as
 one device->host copy; a step in which a prompt's last chunk lands adds one
 batched read of those first tokens, as the JAX package's does, and so does
-a monolithic admission. Host->device inputs go through pinned memory, so no
+a monolithic admission; a step that demotes a victim adds one read of its
+page bytes. Host->device inputs go through pinned memory, so no
 step waits on the device otherwise. With monolithic prefill, fork suffixes
 and eviction carries are teacher-forced one token a step (`Slot.pending`).
 
@@ -47,15 +54,14 @@ they were (the JAX engine advances every row, so a parked prefix that late
 forks copy has drifted). Both keep the contracts decode == teacher-forced
 forward and fan-out == independent submissions.
 
-What this engine does not do yet raises NotImplementedError naming the
-slice it waits for: `ragged_ingest=False` (the serial one-chunk scheduler),
-`host_swap=True` (host-tier demote/promote; the JAX package's default is
-True, the port's False), and families other than attention, Mamba2 and
-the shared-attention hybrid. `warmup()` is not ported.
+Families other than attention, Mamba2 and the shared-attention hybrid
+raise NotImplementedError naming the slice they wait for. `warmup()` is not
+ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -126,6 +132,13 @@ class _Resume:
     share_from: int = -1
     suffix: List[int] = dataclasses.field(default_factory=list)
     priority: int = 0
+    # host-tier swap payload (paged backend, host_swap): the victim's page
+    # bytes (+ quant scales) snapshotted at demotion, packed into one uint8
+    # host tensor (`InferenceEngine._snapshot`), plus the slot state a
+    # promote restores verbatim. Non-None routes admission through
+    # `_admit_swapped` (one upload and direct decode re-entry) instead of a
+    # prefill replay.
+    swap: Optional[dict] = None
 
 
 # Public name for the request-handle admission API (`InferenceEngine
@@ -148,18 +161,10 @@ class InferenceEngine:
                  eos_id: int = 0, name: str = "engine",
                  kv_backend: str = "paged", page_size: int = 32,
                  n_pages: Optional[int] = None, ragged_ingest: bool = True,
-                 host_swap: bool = False, device=None, seed: int = 0):
+                 host_swap: bool = True, device=None, seed: int = 0):
         if kv_backend not in ("dense", "paged"):
             raise ValueError(f"kv_backend must be 'dense' or 'paged', got "
                              f"{kv_backend!r}")
-        if not ragged_ingest:
-            raise NotImplementedError(
-                "ragged_ingest=False (the serial one-chunk scheduler) waits "
-                "for the serial-ingest slice")
-        if host_swap:
-            raise NotImplementedError(
-                "host_swap=True (host-tier demote/promote) waits for the "
-                "host-swap slice; eviction replays instead")
         if kv_backend == "paged":
             transformer.check_paged_supported(cfg)
             cfg.validate_paged(page_size, max_len)
@@ -177,8 +182,11 @@ class InferenceEngine:
         self.eos_id = eos_id
         self.name = name
         self.kv_backend = kv_backend
+        # ragged_ingest=False keeps the serial one-chunk-per-step ingest
+        # scheduler (the reference for the batched ragged path)
         self.ragged_ingest = ragged_ingest
-        self.host_swap = host_swap
+        # set for a paged attention-only stack below
+        self.host_swap = False
         self.slots = [Slot() for _ in range(max_batch)]
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
@@ -204,12 +212,19 @@ class InferenceEngine:
         # of the decode launched last step(), read back at the next step()
         self._pending_decode: Optional[Tuple[List[int], torch.Tensor]] = None
         self._table_dirty = False
-        # fault-injection surface (serving/faults.py): step_hook(engine) is
+        # fault-injection surfaces (serving/faults.py): step_hook(engine) is
         # called at the top of every step() and may cancel slots, stall, or
-        # raise EngineCrash
+        # raise EngineCrash; swap_fault_hook(req_id) -> True marks a swap
+        # promote's upload as lost, degrading that resume to evict-and-replay
         self.step_hook = None
+        self.swap_fault_hook = None
         self.cancels = 0
         self.deadline_cancels = 0
+        # host-tier swap telemetry (paged backend, host_swap)
+        self.swap_outs = 0
+        self.swap_ins = 0
+        self.swap_bytes = 0         # host<->device bytes moved by swaps
+        self.swap_losses = 0
         # paged: decode/ingest KV read traffic in bytes (pages touched per
         # step x per-page pool bytes across every attention layer, scales
         # of a quantized pool included)
@@ -234,6 +249,11 @@ class InferenceEngine:
                 cfg, max_batch, self.n_pages, page_size, self.pages_per_seq,
                 device=self.device)
             self.prefill_chunk = 0 if self.recurrent else cfg.prefill_chunk
+            # host-tier page swap (demote on eviction, promote on resume)
+            # rides the same attention-only gate as chunked prefill:
+            # recurrent segments would need their per-slot states
+            # snapshotted too, so those stacks keep evict-and-replay
+            self.host_swap = host_swap and not self.recurrent
             # bytes one page holds over every attention layer (recurrent
             # states are per slot, not per page)
             self._page_kv_bytes = sum(
@@ -301,13 +321,60 @@ class InferenceEngine:
         self.block_table[slot, :] = -1
         self._mark_table_dirty()
 
+    def _snapshot(self, ids: List[int]) -> torch.Tensor:
+        """Pages `ids` of every attention pool, each leaf at its storage
+        dtype (a quantized pool's K/V codes and both scale rows), packed
+        into one uint8 host tensor by ONE device->host read; each leaf's
+        bytes start on 16 bytes (`_swap_payloads` reads them back). The
+        host tensor is pinned on the card: a pageable copy runs at a small
+        fraction of the pinned rate (PERF.md §6). The pools are written in
+        place, so the order matters: the gather is enqueued on the compute
+        stream after every launch that wrote these pages, and the blocking
+        copy returns only once the bytes are on the host, before this step
+        can hand a freed id to another slot and write into it."""
+        idx = runtime.host_array_on(np.asarray(ids, np.int64), self.device)
+        parts = []
+        for seg in transformer.attention_segments(self.cache):
+            for leaf in seg.values():
+                g = leaf.view(torch.uint8).index_select(1, idx).reshape(-1)
+                parts.append(g)
+                if g.numel() % 16:
+                    parts.append(g.new_zeros(16 - g.numel() % 16))
+        packed = torch.cat(parts)
+        host = torch.empty(packed.shape, dtype=torch.uint8,
+                           pin_memory=packed.is_cuda)
+        return host.copy_(packed)
+
+    def _swap_payloads(self, packed: torch.Tensor, n: int
+                       ) -> List[Dict[str, torch.Tensor]]:
+        """The inverse of `_snapshot` for `n` pages: one dict per attention
+        segment of (count, n, ...) views of `packed` at each leaf's storage
+        dtype, on `packed`'s device."""
+        out, off = [], 0
+        for seg in transformer.attention_segments(self.cache):
+            pay = {}
+            for k, leaf in seg.items():
+                shape = (leaf.shape[0], n) + tuple(leaf.shape[2:])
+                nbytes = math.prod(shape) * leaf.element_size()
+                pay[k] = packed[off:off + nbytes].view(leaf.dtype).view(shape)
+                off += nbytes + (-nbytes) % 16
+            out.append(pay)
+        return out
+
     def _evict_victim(self, protect: int) -> bool:
         """Preempt one active slot other than `protect`: the lowest-priority
-        one, youngest-first within a priority class. Its unique pages return
-        to the pool (shared prefix pages survive via refcounts) and the
-        request is queued for resubmission: a fork whose prefix is still
-        parked resumes through the fork path, otherwise `prompt` holds the
-        full prefix+suffix for a fresh ingest."""
+        one, youngest-first within a priority class, and queue the request
+        for resubmission.
+
+        With host_swap its uniquely-owned pages are demoted: their bytes go
+        to host memory (`_snapshot`) and the pages back to the pool, while
+        shared prefix pages stay resident with a held reference; the resume
+        promotes the bytes back and re-enters decode directly, byte-exact,
+        with no prefill replay and no draw from the generator. Otherwise its
+        unique pages return to the pool (shared prefix pages survive via
+        refcounts): a fork whose prefix is still parked resumes through the
+        fork path, otherwise `prompt` holds the full prefix+suffix for a
+        fresh ingest."""
         victims = [i for i, s in enumerate(self.slots)
                    if s.active and i != protect]
         if not victims:
@@ -315,14 +382,34 @@ class InferenceEngine:
         v = min(victims, key=lambda i: (self.slots[i].priority,
                                         -self.slots[i].arrival))
         s = self.slots[v]
-        refork = (0 <= s.fork_src < self.max_batch
-                  and self.slots[s.fork_src].parked)
-        self._resume_queue.append(_Resume(
-            req_id=s.req_id, prompt=list(s.prompt), max_new=s.max_new,
-            carry_tokens=list(s.tokens), carry_lps=list(s.logprobs),
-            share_from=s.fork_src if refork else -1,
-            suffix=list(s.suffix) if refork else [], priority=s.priority))
-        self._release_slot_pages(v)
+        if self.host_swap:
+            swapped = self.alloc.demote(v, s.req_id)
+            # one device->host read, on an eviction step only
+            host = self._snapshot([p for _, p in swapped]) if swapped \
+                else None
+            self.swap_outs += 1
+            self.swap_bytes += len(swapped) * self._page_kv_bytes
+            self._resume_queue.append(_Resume(
+                req_id=s.req_id, prompt=list(s.prompt), max_new=s.max_new,
+                carry_tokens=list(s.tokens), carry_lps=list(s.logprobs),
+                priority=s.priority,
+                swap={"host": host, "pages": len(swapped),
+                      "ctx_len": s.ctx_len, "pending": list(s.pending),
+                      "prefill_toks": list(s.prefill_toks),
+                      "fork_src": s.fork_src, "suffix": list(s.suffix),
+                      "truncated": s.truncated}))
+            self.block_table[v, :] = -1
+            self._mark_table_dirty()
+        else:
+            refork = (0 <= s.fork_src < self.max_batch
+                      and self.slots[s.fork_src].parked)
+            self._resume_queue.append(_Resume(
+                req_id=s.req_id, prompt=list(s.prompt), max_new=s.max_new,
+                carry_tokens=list(s.tokens), carry_lps=list(s.logprobs),
+                share_from=s.fork_src if refork else -1,
+                suffix=list(s.suffix) if refork else [],
+                priority=s.priority))
+            self._release_slot_pages(v)
         s.active, s.evicted, s.req_id = False, True, -1
         s.pending, s.fork_src, s.suffix = [], -1, []
         s.prefill_toks = []     # a mid-prefill victim restarts its chunks
@@ -330,14 +417,16 @@ class InferenceEngine:
         return True
 
     def cancel(self, req_id: int) -> bool:
-        """Cancel a mid-flight request: ingesting, decoding, or evicted and
-        queued. Frees its pages (COW refcounts protect shared prefix pages)
-        and prunes its slot from the deferred-harvest commit list, so a slot
-        reused by a later admission never receives the cancelled request's
-        in-flight token. Survivors are untouched: each row's attention reads
-        only its own block-table row, decode writes are active-masked, and
-        the engine's generator draws noise for every row each step whatever
-        rows are active. Returns True if the request was found."""
+        """Cancel a mid-flight request: ingesting, decoding, evicted and
+        queued, or demoted to the host tier. Frees its pages (COW refcounts
+        protect shared prefix pages), drops any host-tier snapshot with the
+        resident pages it holds, and prunes its slot from the
+        deferred-harvest commit list, so a slot reused by a later admission
+        never receives the cancelled request's in-flight token. Survivors
+        are untouched: each row's attention reads only its own block-table
+        row, decode writes are active-masked, and the engine's generator
+        draws noise for every row each step whatever rows are active.
+        Returns True if the request was found."""
         hit = False
         for i, s in enumerate(self.slots):
             if s.active and s.req_id == req_id:
@@ -353,8 +442,14 @@ class InferenceEngine:
                         self._pending_decode = (
                             [c for c in commits if c != i], packed)
                 hit = True
-        kept = [r for r in self._resume_queue if r.req_id != req_id]
-        hit = hit or len(kept) != len(self._resume_queue)
+        kept = []
+        for r in self._resume_queue:
+            if r.req_id != req_id:
+                kept.append(r)
+                continue
+            if r.swap is not None:
+                self.alloc.drop_hosted(r.req_id)
+            hit = True
         self._resume_queue = kept
         if hit:
             self.cancels += 1
@@ -362,8 +457,9 @@ class InferenceEngine:
         return hit
 
     def abort_all(self) -> int:
-        """Cancel every live request (crash recovery). Parked prefix slots
-        are left to their owner's release. Returns the number aborted."""
+        """Cancel every live request (crash recovery): pages return to the
+        pool and host-tier snapshots are dropped. Parked prefix slots are
+        left to their owner's release. Returns the number aborted."""
         n = 0
         for s in list(self.slots):
             if s.active:
@@ -411,6 +507,56 @@ class InferenceEngine:
         full_shared = src.ctx_len // self.page_size
         need = -(-total // self.page_size) - full_shared
         return len(self.alloc.free) >= need
+
+    def can_admit_swap(self, req_id: int) -> bool:
+        """Admission check for a demoted request: a free batch row plus
+        enough free pages to re-house every swapped page (resident shared
+        pages are already held by the hosted entry)."""
+        if not self.free_slots():
+            return False
+        return len(self.alloc.free) >= self.alloc.hosted_pages(req_id)
+
+    def _admit_swapped(self, r: _Resume) -> int:
+        """Re-admit a demoted request by promoting its host-tier pages:
+        allocate fresh device pages (MemoryError when the pool is dry),
+        upload the snapshot in one host->device copy and write it into the
+        pools (`transformer.promote_slot_paged`, exactly the swapped pages:
+        no bucketed width), rebuild the block-table row, and restore the
+        slot so the next step's decode continues from the last sampled
+        token. No prefill replay and no draw from the generator."""
+        slot = self.free_slots()[0]
+        t0 = time.perf_counter()
+        self._t_admit.setdefault(r.req_id, t0)
+        self._prune_admit_stamps()
+        uploads = self.alloc.promote(r.req_id, slot)    # MemoryError if dry
+        chain = self.alloc.owned[slot]
+        self.block_table[slot, :] = -1
+        self.block_table[slot, :len(chain)] = chain
+        self._mark_table_dirty()
+        sw = r.swap
+        payloads = [] if not uploads else self._swap_payloads(
+            sw["host"].to(self.device), sw["pages"])
+        self.cache = transformer.promote_slot_paged(
+            self.cfg, self.cache, [p for _, p in uploads], payloads, slot,
+            sw["ctx_len"])
+        self.swap_ins += 1
+        self.swap_bytes += sw["pages"] * self._page_kv_bytes
+        s = self.slots[slot]
+        s.req_id, s.active = r.req_id, True
+        s.prompt = list(r.prompt)
+        s.tokens, s.logprobs = list(r.carry_tokens), list(r.carry_lps)
+        s.max_new, s.generated = r.max_new, len(r.carry_tokens)
+        s.ctx_len = sw["ctx_len"]
+        s.pending = list(sw["pending"])
+        s.prefill_toks = list(sw["prefill_toks"])
+        s.fork_src, s.suffix = sw["fork_src"], list(sw["suffix"])
+        s.evicted, s.priority = False, r.priority
+        s.truncated = sw["truncated"]
+        s.arrival = self._arrivals
+        self._arrivals += 1
+        self._track_peak()
+        self.busy_s += time.perf_counter() - t0
+        return slot
 
     def _live_pages(self, active: List[int]) -> int:
         """Read width for this decode step: enough block-table columns to
@@ -460,6 +606,19 @@ class InferenceEngine:
             self.cfg, self.params, self._to_device(padded), self.cache,
             slot, offset, len(chunk), live_pages=live)
         return logits
+
+    def _ingest_chunk(self, slot: int):
+        """The serial scheduler's step: feed the slot's next prompt chunk
+        into the paged cache (`prefill_chunk_paged`). After the final chunk
+        the first token is drawn from the chunk's logits, as `_first_draws`
+        draws a ragged row's."""
+        s = self.slots[slot]
+        chunk = s.prefill_toks[:self.prefill_chunk]
+        s.prefill_toks = s.prefill_toks[self.prefill_chunk:]
+        logits = self._feed_chunk(slot, chunk, s.ctx_len)
+        s.ctx_len += len(chunk)
+        if not s.prefill_toks:
+            self._first_draws([(slot, logits)])
 
     def _prefill_into_chunks(self, slot: int, toks: List[int]):
         """Synchronous chunked ingest of a whole prompt (prefill_prefix);
@@ -848,7 +1007,12 @@ class InferenceEngine:
         ingest rows and decode inputs with numpy, (2) push the block table
         at most once, (3) launch at most one batched ragged ingest call and
         one decode call, deferring the decode readback to the next step.
-        Returns True if work was done (including a harvest-only step)."""
+        With `ragged_ingest=False` the serial scheduler instead feeds one
+        chunk of the most urgent ingesting slot first, through
+        `prefill_chunk_paged`, and that slot joins this step's decode batch
+        when its last chunk lands (its block-table row is pushed for the
+        chunk). Returns True if work was done (including a harvest-only
+        step)."""
         if self.step_hook is not None:
             self.step_hook(self)
         worked = self._harvest()
@@ -856,6 +1020,18 @@ class InferenceEngine:
             return worked
         t0 = time.perf_counter()
         paged = self.kv_backend == "paged"
+        batched = self.prefill_chunk and self.ragged_ingest
+        if self.prefill_chunk and not batched:
+            # serial scheduler: one chunk for the most urgent ingesting
+            # slot (highest priority, then oldest admission), which joins
+            # the decode batch this same step
+            pref = [i for i, s in enumerate(self.slots)
+                    if s.active and s.prefill_toks]
+            if pref:
+                self._ingest_chunk(min(
+                    pref, key=lambda j: (-self.slots[j].priority,
+                                         self.slots[j].arrival)))
+                worked = True
         active = [i for i, s in enumerate(self.slots)
                   if s.active and not s.prefill_toks]
         if paged and active:
@@ -866,7 +1042,7 @@ class InferenceEngine:
         if paged:
             # ONE table push per step, before the first launch that reads it
             self._sync_table()
-        if self.prefill_chunk:
+        if batched:
             worked = self._run_ingest() or worked
         if plan is not None:
             self._dispatch_decode(plan)
@@ -939,10 +1115,28 @@ class InferenceEngine:
         """Attempt to admit `r`. Returns the slot index on success, or None
         when the request must wait for slots/pages to free. Raises
         MemoryError when the engine is IDLE and the request still cannot
-        fit. A fork resume whose parked prefix is gone falls back to a fresh
-        ingest of its full prompt."""
+        fit.
+
+        May mutate `r`: a lost swap upload (`swap_fault_hook`) degrades a
+        host-tier resume to evict-and-replay (r.prompt and the carried
+        tokens are what a replay eviction queues); a fork resume whose
+        parked prefix is gone falls back to a fresh ingest of its full
+        prompt."""
         if not self.free_slots():
             return None
+        if r.swap is not None and self.swap_fault_hook is not None \
+                and self.swap_fault_hook(r.req_id):
+            self.alloc.drop_hosted(r.req_id)
+            r.swap = None
+            self.swap_losses += 1
+        if r.swap is not None:
+            # demoted request: promote its pages and re-enter decode
+            if not self.can_admit_swap(r.req_id):
+                if not any(s.active for s in self.slots):
+                    raise MemoryError(
+                        f"request {r.req_id} cannot fit in the page pool")
+                return None                      # wait for pages to free
+            return self._admit_swapped(r)
         if r.share_from >= 0 and not self.slots[r.share_from].parked:
             r.share_from, r.suffix = -1, []       # prefix gone: from scratch
         if r.share_from >= 0:
@@ -991,6 +1185,8 @@ class InferenceEngine:
                         self.deadline_cancels += 1
                 pending[:0] = self.drain_resumes()
                 for r in pending:
+                    if r.swap is not None:
+                        self.alloc.drop_hosted(r.req_id)
                     results[r.req_id] = (list(r.carry_tokens),
                                          list(r.carry_lps))
                     self.deadline_cancels += 1

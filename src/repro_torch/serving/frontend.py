@@ -194,7 +194,8 @@ class EngineFrontend:
     Engine attributes (telemetry, fault hooks) forward transparently:
     `RuntimeMonitor.observe_engines` and `FaultInjector.attach` address a
     front-end exactly like the engine it wraps — in particular a
-    `FaultPlan`'s `step_hook` assignment lands on the engine."""
+    `FaultPlan`'s `step_hook`/`swap_fault_hook` assignments land on the
+    engine."""
 
     def __init__(self, engine: InferenceEngine, monitor=None,
                  queue_max: int = 64,
@@ -226,6 +227,14 @@ class EngineFrontend:
     def step_hook(self, fn):
         self.engine.step_hook = fn
 
+    @property
+    def swap_fault_hook(self):
+        return self.engine.swap_fault_hook
+
+    @swap_fault_hook.setter
+    def swap_fault_hook(self, fn):
+        self.engine.swap_fault_hook = fn
+
     def __getattr__(self, item):
         # telemetry/config reads (name, ttft, memory_stats, consume_window,
         # page_size, eos_id, ...) resolve on the wrapped engine
@@ -238,6 +247,9 @@ class EngineFrontend:
         for rid, h in list(self._live.items()):
             self._detach(rid)
             self._finish(h, "cancelled")
+        for r in list(self._resumes):
+            if r.swap is not None:
+                self.engine.alloc.drop_hosted(r.req_id)
         self._resumes.clear()
         return n
 
@@ -284,8 +296,8 @@ class EngineFrontend:
 
     # -- cancellation / deadlines ----------------------------------------
     def cancel(self, handle: RequestHandle, reason: str = "cancelled") -> bool:
-        """Cancel a request in any live state: still queued, running, or
-        evicted-and-waiting. The handle
+        """Cancel a request in any live state: still queued, running,
+        evicted-and-waiting, or demoted to the host tier. The handle
         finishes with `reason` and every token committed so far."""
         if handle.state in ("done", "cancelled", "shed", "failed"):
             return False
@@ -301,7 +313,7 @@ class EngineFrontend:
             self._finish(handle, reason)
             return True
         # running / evicted: engine.cancel prunes the slot, the engine's
-        # resume queue, and any pending-decode commit
+        # resume queue, any pending-decode commit, and host-tier snapshots
         self.engine.cancel(rid)
         slot = self._slot_of.pop(rid, None)
         if slot is not None:
@@ -332,6 +344,8 @@ class EngineFrontend:
         if r is None:
             return
         self._resumes.remove(r)
+        if r.swap is not None:
+            self.engine.alloc.drop_hosted(rid)
         if handle is not None:
             # a token committed at the pre-eviction harvest may not have
             # been published yet: the carried prefix is the source of truth
@@ -372,6 +386,8 @@ class EngineFrontend:
                         self._resumes.append(r)
                     else:
                         # not ours (cancelled in the same step): drop
+                        if r.swap is not None:
+                            engine.alloc.drop_hosted(r.req_id)
                         self.dropped_resumes += 1
                 if not self._has_work():
                     return
@@ -388,6 +404,9 @@ class EngineFrontend:
         for rid, h in list(self._live.items()):
             self._detach(rid)
             self._finish(h, "error", error=exc)
+        for r in list(self._resumes):
+            if r.swap is not None:
+                self.engine.alloc.drop_hosted(r.req_id)
         self._resumes.clear()
 
     def _detach(self, rid: int) -> None:

@@ -99,12 +99,13 @@ def test_monolithic_eviction_resume_equals_uninterrupted(params, fanout):
         prefix, suffixes = [65, 66, 67, 68, 69], [[70, 71], [72], [73, 74]]
         ref = _engine(tp, "paged", max_batch=4, **kw).generate_fanout(
             prefix, suffixes, max_new=24)
-        small = _engine(tp, "paged", max_batch=4, n_pages=7, **kw)
+        small = _engine(tp, "paged", max_batch=4, n_pages=7,
+                        host_swap=False, **kw)
         out = small.generate_fanout(prefix, suffixes, max_new=24)
     else:
         prompts = [[65, 66, 67, 68], [70, 71], [80, 81, 82]]
         ref = _engine(tp, "paged", **kw).generate(prompts, max_new=24)
-        small = _engine(tp, "paged", n_pages=6, **kw)
+        small = _engine(tp, "paged", n_pages=6, host_swap=False, **kw)
         out = small.generate(prompts, max_new=24)
     assert small.evictions > 0
     assert_same_replay(ref, out)

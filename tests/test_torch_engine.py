@@ -2,8 +2,9 @@
 the JAX package's engine with the same prefill_chunk and weights, and the
 port's own invariants: batched ragged ingest == one row at a time, fan-out
 == independent submissions, eviction-replay == uninterrupted, and cancel
-leaves survivors unchanged. The options the port does not serve yet raise,
-and a dense engine refuses a quantized pool."""
+leaves survivors unchanged. A dense engine refuses a quantized pool. (Host
+swap and the serial scheduler: tests/test_torch_swap.py and
+tests/test_torch_serial_ingest.py.)"""
 import pytest
 import torch
 
@@ -81,9 +82,9 @@ def test_eviction_replay_equals_uninterrupted(params):
     _, tp = params
     prompts = [[65, 66, 67, 68], [70, 71], [80, 81, 82]]
     ref = _engine(tp, max_len=64, page_size=8).generate(prompts, max_new=24)
-    small = _engine(tp, max_len=64, page_size=8, n_pages=6)
+    small = _engine(tp, max_len=64, page_size=8, n_pages=6, host_swap=False)
     out = small.generate(prompts, max_new=24)
-    assert small.evictions > 0
+    assert small.evictions > 0 and small.swap_outs == 0
     assert_same_replay(ref, out)
     assert small.alloc.pages_in_use == 0
 
@@ -129,16 +130,6 @@ def test_one_readback_per_decode_step(params):
     assert eng._pending_decode[1].shape == (2, eng.max_batch)
     assert eng.step()
     assert len(eng.slots[0].tokens) == n0 + 1
-
-
-@pytest.mark.parametrize("kw,chunk", [
-    (dict(ragged_ingest=False), 16),
-    (dict(host_swap=True), 16),
-])
-def test_unsupported_options_raise(params, kw, chunk):
-    _, tp = params
-    with pytest.raises(NotImplementedError):
-        _engine(tp, chunk=chunk, **kw)
 
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
