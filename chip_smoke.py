@@ -106,7 +106,17 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      `replay_sync` on `EngineFrontend` over the 40-page qwen3-8b pool, with
      host swap and with replay: goodput, SLA attainment by tier, TTFT p50 /
      p99, and every handle final with no page left in use;
-  10. one JSON line of the kernels (with their launches on the paths of
+  10. warmed engines against cold ones (phase 6's, over the same weight
+     tensors: chunked paged qwen3-8b over bf16 and int8 pools, qwen2-1.5b,
+     monolithic paged zamba2-2.7b): `warmup()`'s seconds, dispatches,
+     captured decode graphs and reserved memory; phase 6's batch must give
+     the same greedy tokens, logprobs and launches of every wrapper warmed
+     as cold, every warmed decode step a graph replay, and a sampled pair
+     from one seed the same tokens; a decode-only step's host wall time
+     cold and warmed; the warmed run profiled as in phase 6,
+     wall, device busy, busy share and launch calls a model call logged
+     cold against warmed;
+  11. one JSON line of the kernels (with their launches on the paths of
      phases 7 and 9 under "eviction_paths"), the card's name and power
      limit, and the final {"ok": true, ...} line.
 
@@ -1500,18 +1510,8 @@ def _to(tree, device):
 
 def kernel_counters():
     """Every kernel wrapper of the port, by the name its counter reports."""
-    from repro_torch.kernels.decode_attention import ops as ddops
-    from repro_torch.kernels.flash_attention import ops as faops
-    from repro_torch.kernels.paged_decode_attention import ops as dops
-    from repro_torch.kernels.paged_prefill_attention import ops as pops
-    from repro_torch.kernels.rmsnorm import ops as rops
-    from repro_torch.kernels.ssm_scan import ops as sops
-    return {fn.__name__: fn for fn in (
-        dops.paged_decode_attention, pops.paged_prefill_attention_ragged,
-        pops.paged_prefill_attention, dops.paged_decode_attention_quant,
-        pops.paged_prefill_attention_ragged_quant,
-        pops.paged_prefill_attention_quant, ddops.decode_attention,
-        faops.flash_attention, sops.ssm_scan, rops.rmsnorm)}
+    from repro_torch import kernels
+    return kernels.wrappers()
 
 
 # the wrappers that launch once per attention layer of a model call
@@ -1874,91 +1874,110 @@ def phase_profile(torch, engines):
     qwen3-8b engine side by side): 4 requests of a 256-token prompt and
     32 new tokens (PROFILE_DEPTH for the earlier rows), timed on the host
     clock without the profiler, then the same run under torch.profiler for
-    device time by kernel. Busy share =
-    device time / unprofiled wall time (one stream, so kernels do not
-    overlap). The matmuls' bound is their weight bytes, read once per model
-    call, over the HBM rate; model calls = attention-kernel launches of the
-    profiled run / attention layers (a monolithic prefill launches the
-    flash kernel once a layer). A
-    recurrent engine's decode also reads and writes every slot's SSD state
-    each step, logged beside its row."""
-    from torch.profiler import ProfilerActivity, profile
-    counters = kernel_counters()
+    device time by kernel (`profile_run`). Returns each engine's numbers,
+    which phase 10 sets beside its warmed engines'."""
     log("== phase 6: where the time goes (4 x 256-token prompts, 32 new "
         "tokens each unless a row says otherwise)")
-    prompts = profile_prompts()
+    rows = {}
     for name, eng in engines.items():
-        new = PROFILE_DEPTH.get(name, 32)
-        eng.generate(prompts, max_new=4)                 # warm up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        eng.generate(profile_prompts(), max_new=4)       # warm up
+        rows[name] = profile_run(torch, name, eng,
+                                 PROFILE_DEPTH.get(name, 32))
+    return rows
+
+
+# host calls that launch device work: kernels (the decode kernel's cluster
+# launches go through cudaLaunchKernelEx, the library matmuls' through
+# cuLaunchKernelEx) and captured graphs
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")
+
+
+def profile_run(torch, name, eng, new):
+    """Phase 6's batch through `eng`, timed on the host clock without the
+    profiler, then under torch.profiler for device time by kernel. Busy
+    share = device time / unprofiled wall time (one stream, so kernels do
+    not overlap). The matmuls' bound is their weight bytes, read once per
+    model call, over the HBM rate; model calls = attention-kernel launches
+    of the profiled run / attention layers (a monolithic prefill launches
+    the flash kernel once a layer; a graph replay adds its launches to the
+    counters). A recurrent engine's decode also reads and writes every
+    slot's SSD state each step, logged beside its row. Returns {"wall_ms",
+    "device_ms", "calls", "launch_calls"}: the launch calls are every
+    `LAUNCH_CALLS` call of the profiled run."""
+    from torch.profiler import ProfilerActivity, profile
+    counters = kernel_counters()
+    prompts = profile_prompts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         eng.generate(prompts, max_new=new)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        for fn in counters.values():
-            fn.launches = 0
-        t1 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            eng.generate(prompts, max_new=new)
-            torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        averages = prof.key_averages()
-        attn = sum(counters[k].launches for k in ATTENTION_KERNELS)
-        calls = attn / attention_layers(eng.cfg)
-        # device-side events only (kernels, copies, memsets): the host ops
-        # that launched them repeat the same device time
-        kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in averages
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_ms = sum(ms for _, ms, _ in kernels)
-        log(f"{name} ({new} new tokens): wall {wall * 1e3:.1f} ms, device "
-            f"busy {device_ms:.1f} ms ({100 * device_ms / (wall * 1e3):.1f} "
-            f"%), {len(kernels)} kernel kinds; the profiled run took "
-            f"{t2 - t1:.1f} s, its averages {time.perf_counter() - t2:.1f} s")
-        port_ms = sum(ms for key, ms, _ in kernels
-                      if any(k in key for k in PORT_KERNELS))
-        by_name = ", ".join(f"{name} {ms:.3f} ms x{n}" for name, (ms, n)
-                            in port_kernel_times(kernels).items())
-        log(f"  the port's kernels: {port_ms:.1f} ms "
-            f"({100 * port_ms / device_ms:.1f} % of device time): {by_name}")
-        if eng.recurrent:
-            ssd = state_bytes(eng, "ssd")
-            log(f"  recurrent decode: {ssd} B of SSD state over "
-                f"{eng.max_batch} slots, read and written each step (at "
-                f"least {2 * ssd / HBM_BYTES_PER_S * 1e3:.3f} ms a step); "
-                f"SSD scan launches {counters['ssm_scan'].launches}")
-        mm_ms = sum(ms for key, ms, _ in kernels
-                    if any(m in key for m in MATMUL_KERNELS))
-        wbytes = matmul_weight_bytes(eng.cfg, eng.params)
-        mm_bound = calls * wbytes / HBM_BYTES_PER_S * 1e3
-        log(f"  matmul kernels: {mm_ms:.1f} ms ({100 * mm_ms / device_ms:.1f}"
-            f" % of device time) over {calls:.0f} model calls; bound "
-            f"{mm_bound:.1f} ms ({wbytes / 1e9:.3f} GB of weights per call), "
-            f"{100 * mm_bound / mm_ms:.1f} % of it")
-        for key, ms, n in sorted(kernels, key=lambda k: -k[1])[:8]:
-            log(f"  {ms:9.3f} ms {100 * ms / device_ms:5.1f} % x{n:<6d} "
-                f"{key[:90]}")
-        # the host side of the same run (the profiler slows it; the split
-        # between ops is what it shows)
-        host = [(e.key, e.self_cpu_time_total / 1e3, e.count)
-                for e in averages
-                if e.device_type == torch.autograd.DeviceType.CPU]
-        host_ms = sum(ms for _, ms, _ in host)
-        log(f"  host ops: {host_ms:.1f} ms self CPU time in "
-            f"{sum(n for *_, n in host)} calls under the profiler")
-        launches = sum(n for key, _, n in host if key == "cudaLaunchKernel")
-        # the decode kernel's cluster launches go through
-        # cudaLaunchKernelEx, the library matmuls' through cuLaunchKernelEx
-        every = sum(n for key, _, n in host if key.startswith(
-            ("cudaLaunchKernel", "cuLaunchKernel")))
-        log(f"  cudaLaunchKernel: {launches} calls, "
-            f"{launches / calls:.0f} a model call; every launch call "
-            f"(cudaLaunchKernel*, cuLaunchKernel*): {every}, "
-            f"{every / calls:.0f} a model call")
-        for key, ms, n in sorted(host, key=lambda k: -k[1])[:6]:
-            log(f"  {ms:9.3f} ms {100 * ms / host_ms:5.1f} % x{n:<6d} "
-                f"{key[:90]}")
+    t2 = time.perf_counter()
+    averages = prof.key_averages()
+    attn = sum(counters[k].launches for k in ATTENTION_KERNELS)
+    calls = attn / attention_layers(eng.cfg)
+    # device-side events only (kernels, copies, memsets): the host ops
+    # that launched them repeat the same device time
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(ms for _, ms, _ in kernels)
+    log(f"{name} ({new} new tokens): wall {wall * 1e3:.1f} ms, device "
+        f"busy {device_ms:.1f} ms ({100 * device_ms / (wall * 1e3):.1f} "
+        f"%), {len(kernels)} kernel kinds; the profiled run took "
+        f"{t2 - t1:.1f} s, its averages {time.perf_counter() - t2:.1f} s")
+    port_ms = sum(ms for key, ms, _ in kernels
+                  if any(k in key for k in PORT_KERNELS))
+    by_name = ", ".join(f"{name} {ms:.3f} ms x{n}" for name, (ms, n)
+                        in port_kernel_times(kernels).items())
+    log(f"  the port's kernels: {port_ms:.1f} ms "
+        f"({100 * port_ms / max(device_ms, 1e-9):.1f} % of device time): "
+        f"{by_name}")
+    if eng.recurrent:
+        ssd = state_bytes(eng, "ssd")
+        log(f"  recurrent decode: {ssd} B of SSD state over "
+            f"{eng.max_batch} slots, read and written each step (at "
+            f"least {2 * ssd / HBM_BYTES_PER_S * 1e3:.3f} ms a step); "
+            f"SSD scan launches {counters['ssm_scan'].launches}")
+    mm_ms = sum(ms for key, ms, _ in kernels
+                if any(m in key for m in MATMUL_KERNELS))
+    wbytes = matmul_weight_bytes(eng.cfg, eng.params)
+    mm_bound = calls * wbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  matmul kernels: {mm_ms:.1f} ms "
+        f"({100 * mm_ms / max(device_ms, 1e-9):.1f} % of device time) over "
+        f"{calls:.0f} model calls; bound {mm_bound:.1f} ms "
+        f"({wbytes / 1e9:.3f} GB of weights per call), "
+        f"{100 * mm_bound / max(mm_ms, 1e-9):.1f} % of it")
+    for key, ms, n in sorted(kernels, key=lambda k: -k[1])[:8]:
+        log(f"  {ms:9.3f} ms {100 * ms / device_ms:5.1f} % x{n:<6d} "
+            f"{key[:90]}")
+    # the host side of the same run (the profiler slows it; the split
+    # between ops is what it shows)
+    host = [(e.key, e.self_cpu_time_total / 1e3, e.count)
+            for e in averages
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    host_ms = sum(ms for _, ms, _ in host)
+    log(f"  host ops: {host_ms:.1f} ms self CPU time in "
+        f"{sum(n for *_, n in host)} calls under the profiler")
+    launches = sum(n for key, _, n in host if key == "cudaLaunchKernel")
+    every = sum(n for key, _, n in host if key.startswith(LAUNCH_CALLS))
+    graphs = sum(n for key, _, n in host if key == "cudaGraphLaunch")
+    log(f"  cudaLaunchKernel: {launches} calls, "
+        f"{launches / calls:.0f} a model call; every launch call "
+        f"(cudaLaunchKernel*, cuLaunchKernel*, cudaGraphLaunch): {every}, "
+        f"{every / calls:.1f} a model call; cudaGraphLaunch {graphs}")
+    for key, ms, n in sorted(host, key=lambda k: -k[1])[:6]:
+        log(f"  {ms:9.3f} ms {100 * ms / host_ms:5.1f} % x{n:<6d} "
+            f"{key[:90]}")
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms, "calls": calls,
+            "launch_calls": every}
 
 
 # Phase 7: 4 requests of a 384-token prompt and 128 new tokens need 16
@@ -2316,6 +2335,130 @@ SOURCES = {
         "src/repro_torch/csrc/rmsnorm.cu",
         "src/repro/kernels/rmsnorm/kernel.py:25"),
 }
+# Phase 10: phase 6's engines, each beside a warmed one over the same
+# weight tensors (the new tokens of each are phase 6's: PROFILE_DEPTH); the
+# sampled pairs generate SAMPLED_NEW tokens (depth cut to keep the phase
+# inside its time)
+WARMED = ("qwen3-8b", "qwen3-8b-int8", "qwen2-1.5b", "zamba2-2.7b")
+SAMPLED_NEW = 8
+
+
+def decode_step_ms(torch, eng, steps=16):
+    """Host wall time of one decode-only step of `eng` (ms, mean of
+    `steps`): phase 6's 4 prompts admitted and ingested first, then steps
+    that launch a decode and harvest the one before; the requests finish
+    after the window."""
+    for i, p in enumerate(profile_prompts()):
+        eng.add_request(10_000 + i, p, max_new=steps + 4)
+    while any(s.active and s.prefill_toks for s in eng.slots):
+        eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    while eng.step():
+        pass
+    return ms
+
+
+def phase_graphs(torch, engines, cold_rows):
+    """Phase 10: `warmup()` on the card, and a warmed engine, which replays
+    a captured CUDA graph for each decode step, against a cold one. For
+    each engine of WARMED (chunked paged qwen3-8b over bf16 and int8
+    pools, qwen2-1.5b, monolithic paged zamba2-2.7b): the warmup's
+    seconds, dispatch count, graphs and the device memory it left
+    reserved; phase 6's batch on the cold engine (phase 6's) and on the
+    warmed one, which must give the same greedy tokens, logprobs within
+    phase 4's tolerance (the largest difference logged) and the same
+    launches of every wrapper, with every decode step a replay; a
+    decode-only step's host wall time, cold and warmed; a sampled
+    pair (temperature 0.8, top_k 16, one seed), cold and warmed, which must
+    draw the same tokens; then the warmed engine's run profiled as phase 6
+    profiles the cold one, both rows logged side by side."""
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.sampler import SamplerConfig
+    log("== phase 10: warmed engines (the paged decode step captured as one "
+        "CUDA graph per live width) against cold ones")
+    prompts = profile_prompts()
+    for name in WARMED:
+        cold = engines[name]
+        new = PROFILE_DEPTH.get(name, 32)
+        decode = ("paged_decode_attention_quant" if cold.cfg.kv_quantized
+                  else "paged_decode_attention")
+
+        def make(**kw):
+            return InferenceEngine(
+                cold.cfg, cold.params, max_batch=cold.max_batch,
+                max_len=cold.max_len, page_size=cold.page_size, name=name,
+                device="cuda", **kw)
+
+        def warmed(**kw):
+            eng = make(**kw)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            count = eng.warmup(max_context=256 + new, prompt_lens=(256,))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            log(f"{name}: warmup() {secs:.2f} s, {count} dispatches, "
+                f"{len(eng._graphs)} graphs (live widths "
+                f"{sorted(eng._graphs)}), "
+                f"{torch.cuda.memory_reserved() - reserved} B of device "
+                f"memory left reserved (the graphs' pool, buffers and "
+                f"workspaces)")
+            assert eng._graphs, f"{name}: warmup captured no graph"
+            return eng
+        warm = warmed()
+        want, n_cold = counted(
+            torch, lambda: cold.generate(prompts, max_new=new))
+        replays = warm.graph_replays
+        got, n_warm = counted(
+            torch, lambda: warm.generate(prompts, max_new=new))
+        replays = warm.graph_replays - replays
+        worst = 0.0
+        for i, ((tg, lg), (tc, lc)) in enumerate(zip(got, want)):
+            assert tg == tc, f"{name}: request {i}'s greedy tokens differ " \
+                "warmed and cold"
+            torch.testing.assert_close(torch.tensor(lg), torch.tensor(lc),
+                                       rtol=1e-4, atol=1e-5)
+            worst = max(worst, max(abs(a - b) for a, b in zip(lg, lc)))
+        assert n_warm == n_cold, (n_warm, n_cold)
+        layers = attention_layers(cold.cfg)
+        assert replays > 0 and n_warm[decode] == replays * layers, \
+            f"{name}: a decode step ran outside the captured graphs"
+        log(f"  greedy, {new} new tokens: tokens equal, largest logprob "
+            f"difference {worst:.3g}, launches equal "
+            f"({ {k: n for k, n in n_warm.items() if n} }), {replays} graph "
+            f"replays")
+        log(f"  a decode-only step (4 live slots): "
+            f"{decode_step_ms(torch, cold):.2f} ms cold, "
+            f"{decode_step_ms(torch, warm):.2f} ms warmed, on the host clock")
+        sampler = SamplerConfig(temperature=0.8, top_k=16)
+        a = make(sampler=sampler, seed=11).generate(prompts,
+                                                    max_new=SAMPLED_NEW)
+        b = warmed(sampler=sampler, seed=11).generate(prompts,
+                                                      max_new=SAMPLED_NEW)
+        assert [t for t, _ in a] == [t for t, _ in b], \
+            f"{name}: sampled tokens differ warmed and cold"
+        log(f"  sampled (temperature 0.8, top_k 16), {SAMPLED_NEW} new "
+            f"tokens: tokens equal warmed and cold")
+        row = profile_run(torch, f"{name} warmed", warm, new)
+        c = cold_rows[name]
+        log(f"  {name} cold / warmed, {new} new tokens: wall "
+            f"{c['wall_ms']:.1f} / {row['wall_ms']:.1f} ms, device busy "
+            f"{c['device_ms']:.1f} / {row['device_ms']:.1f} ms, busy share "
+            f"{100 * c['device_ms'] / c['wall_ms']:.1f} / "
+            f"{100 * row['device_ms'] / row['wall_ms']:.1f} %, launch calls "
+            f"a model call {c['launch_calls'] / c['calls']:.1f} / "
+            f"{row['launch_calls'] / row['calls']:.1f}")
+        del warm
+
+
 # the full-width path each kernel's `launches` is read from (phase 5)
 MAIN_PATH = {"paged_decode_attention": "chunked paged pipeline",
              "paged_prefill_attention_ragged": "chunked paged pipeline",
@@ -2359,12 +2502,14 @@ def main() -> int:
     timing = timed("phase 3", phase_timing, torch)
     timed("phase 4", phase_tiny_parity, torch)
     paths, engines = timed("phase 5", phase_full_width, torch)
-    timed("phase 6", phase_profile, torch, engines)
+    cold_rows = timed("phase 6", phase_profile, torch, engines)
     weights = engines["qwen3-8b"].params
-    del engines
+    del engines["qwen3-8b-dense"]
     other = timed("phase 7", phase_eviction, torch, weights)
     timed("phase 8", phase_swap_vs_replay, torch, weights)
     other.update(timed("phase 9", phase_loadgen, torch, weights))
+    timed("phase 10", phase_graphs, torch, engines, cold_rows)
+    del engines
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         path = MAIN_PATH[name]

@@ -54,12 +54,27 @@ they were (the JAX engine advances every row, so a parked prefix that late
 forks copy has drifted). Both keep the contracts decode == teacher-forced
 forward and fan-out == independent submissions.
 
+`warmup()` prepares an idle engine before a serving window with one
+eager, state-neutral dispatch of each step-loop variant the JAX package's
+warmup() compiles (the same count). On the card a paged engine also
+captures its decode-and-sample step (`transformer.decode_step_paged`,
+`sample`, `token_logprob` and the (2, B) pack) as one CUDA graph per live
+width, all in one memory pool; from then on every decode step whose live
+width was warmed copies its inputs into the graphs' static buffers, draws
+the Gumbel noise eagerly from the engine's generator (so a warmed engine
+samples draw for draw as a cold one), and replays the graph: one
+`cudaGraphLaunch` where a cold step launches every kernel from Python. The
+graphs read the cache leaves and parameters by address, so a warmed engine
+raises if one of them moved to other storage; nothing is captured again
+silently, and a failed capture raises. Ingest, monolithic prefill, the
+dense backend's decode and every engine on the CPU stay eager.
+
 Families other than attention, Mamba2 and the shared-attention hybrid
-raise NotImplementedError naming the slice they wait for. `warmup()` is not
-ported.
+raise NotImplementedError naming the slice they wait for.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -68,12 +83,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import runtime
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.paged_cache import PageAllocator
 from repro_torch.serving.requests import BoundedRecord
-from repro_torch.serving.sampler import SamplerConfig, sample, token_logprob
+from repro_torch.serving.sampler import (SamplerConfig, gumbel_noise, sample,
+                                         token_logprob)
 
 
 @dataclasses.dataclass
@@ -153,6 +170,48 @@ def _bucket(n: int, lo: int = 32) -> int:
     return b
 
 
+def _pow2_bucket(n: int, hi: int) -> int:
+    """Power-of-two bucket from 1, clamped to `hi` (the JAX package's swap
+    promote upload widths, which `warmup()` enumerates)."""
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, hi)
+
+
+def _tensors(tree):
+    """The tensor leaves of nested dicts and lists, in a fixed order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+@dataclasses.dataclass
+class _DecodeGraph:
+    """One captured paged decode-and-sample step at one live width."""
+    graph: "torch.cuda.CUDAGraph"
+    # (wrapper, launches) of one replay: a replay runs no Python, so the
+    # engine adds these to the wrappers' counters itself
+    launches: List[Tuple[object, int]]
+
+
+@dataclasses.dataclass
+class _GraphIO:
+    """The captured decode's static buffers, allocated before the first
+    capture and shared by every graph: its inputs, the Gumbel noise drawn
+    eagerly before each replay (temperature > 0 only), and the packed
+    (tokens, logprobs) output."""
+    tokens: torch.Tensor            # (B, 1) int64
+    active: torch.Tensor            # (B,) bool
+    noise: Optional[torch.Tensor]   # (B, V) float32
+    out: torch.Tensor               # (2, B) float32
+
+
 class InferenceEngine:
     """Continuous-batching engine for one model on one device."""
 
@@ -229,6 +288,19 @@ class InferenceEngine:
         # step x per-page pool bytes across every attention layer, scales
         # of a quantized pool included)
         self.kv_bytes_read = 0
+        # CUDA graphs of the paged decode-and-sample step by live width,
+        # captured by warmup() on the card (`_capture_decode`) and replayed
+        # by step(); none on the CPU, on the dense backend, or before
+        # warmup(), where every step dispatches eagerly
+        self._graphs: Dict[int, _DecodeGraph] = {}
+        self._graph_io: Optional[_GraphIO] = None
+        self._graph_stream = None
+        self._graph_pool = None
+        # what the graphs were captured over: every cache leaf's and
+        # parameter's data_ptr, and the sampler (`_check_captured`)
+        self._graph_ptrs: Optional[List[int]] = None
+        self._graph_sampler: Optional[SamplerConfig] = None
+        self.graph_replays = 0
         # chunked ingest is the paged backend's and needs an attention-only
         # stack; a dense engine, or a recurrent stack, prefills
         # monolithically whatever cfg.prefill_chunk says
@@ -344,6 +416,15 @@ class InferenceEngine:
         host = torch.empty(packed.shape, dtype=torch.uint8,
                            pin_memory=packed.is_cuda)
         return host.copy_(packed)
+
+    def _packed_bytes(self, n: int) -> int:
+        """Bytes of `_snapshot`'s packed host buffer for n pages."""
+        total = 0
+        for seg in transformer.attention_segments(self.cache):
+            for leaf in seg.values():
+                nbytes = leaf[:, 0].numel() * leaf.element_size() * n
+                total += nbytes + (-nbytes) % 16
+        return total
 
     def _swap_payloads(self, packed: torch.Tensor, n: int
                        ) -> List[Dict[str, torch.Tensor]]:
@@ -935,26 +1016,136 @@ class InferenceEngine:
         return StepPlan(active_ids=active_ids, last=last, mask=mask,
                         live=live, commits=commits)
 
+    def _decode_sample(self, tokens: torch.Tensor, active: torch.Tensor,
+                       live: int, noise: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """One decode step + sample + logprob on the device at read width
+        `live`, packed (2, B) as (tokens, logprobs). Sampling draws its
+        Gumbel noise from the engine's generator unless `noise` is given."""
+        if self.kv_backend == "paged":
+            logits, self.cache = transformer.decode_step_paged(
+                self.cfg, self.params, tokens, self.cache, active=active,
+                live_pages=live)
+        else:
+            logits, self.cache = transformer.decode_step(
+                self.cfg, self.params, tokens, self.cache, active=active,
+                live_rows=live)
+        toks = sample(logits, self.sampler, self.gen, noise=noise)
+        return torch.stack([toks.float(), token_logprob(logits, toks)])
+
     def _dispatch_decode(self, plan: StepPlan):
         """The "run" half: one decode step + sample + logprob on the device,
-        read back at the next step's harvest."""
-        tokens = self._to_device(plan.last)
-        active = self._to_device(plan.mask)
+        read back at the next step's harvest; the captured graph of the
+        plan's live width is replayed when warmup() captured one."""
         if self.kv_backend == "paged":
             self.kv_bytes_read += self._page_kv_bytes * sum(
                 -(-self.slots[i].ctx_len // self.page_size)
                 for i in plan.active_ids)
-            logits, self.cache = transformer.decode_step_paged(
-                self.cfg, self.params, tokens, self.cache, active=active,
-                live_pages=plan.live)
+        graph = self._graphs.get(plan.live)
+        if graph is not None:
+            packed = self._replay_decode(graph, plan)
         else:
-            logits, self.cache = transformer.decode_step(
-                self.cfg, self.params, tokens, self.cache, active=active,
-                live_rows=plan.live)
-        toks = sample(logits, self.sampler, self.gen)
-        lps = token_logprob(logits, toks)
-        self._pending_decode = (plan.commits,
-                                torch.stack([toks.float(), lps]))
+            packed = self._decode_sample(self._to_device(plan.last),
+                                         self._to_device(plan.mask),
+                                         plan.live)
+        self._pending_decode = (plan.commits, packed)
+
+    def _replay_decode(self, graph: _DecodeGraph, plan: StepPlan
+                       ) -> torch.Tensor:
+        """Replay a captured decode-and-sample step: the plan's inputs are
+        copied into the static buffers through pinned memory, the Gumbel
+        noise is drawn eagerly from the engine's generator (the draw a cold
+        engine makes inside `sample`, whatever a capture would do with the
+        generator), and the wrappers' counters take the replay's launches.
+        Returns a clone of the packed output."""
+        self._check_captured()
+        io = self._graph_io
+        io.tokens.copy_(torch.from_numpy(plan.last).pin_memory(),
+                        non_blocking=True)
+        io.active.copy_(torch.from_numpy(plan.mask).pin_memory(),
+                        non_blocking=True)
+        if io.noise is not None:
+            gumbel_noise(io.noise.shape, self.gen, self.device, out=io.noise)
+        graph.graph.replay()
+        self.graph_replays += 1
+        for wrapper, n in graph.launches:
+            wrapper.launches += n
+        # cloned: the next replay rewrites io.out, and this step's result is
+        # read only at the next step's harvest; the clone keeps it whatever
+        # runs in between
+        return io.out.clone()
+
+    def _check_captured(self) -> None:
+        """The graphs hold raw pointers: raise if a cache leaf or a
+        parameter now lies in other storage than at their capture, or the
+        sampler they sample with changed. Nothing is captured again
+        silently."""
+        if self.sampler != self._graph_sampler:
+            raise RuntimeError(
+                f"the sampler changed from {self._graph_sampler} to "
+                f"{self.sampler} after the decode graphs were captured")
+        ptrs = [t.data_ptr() for t in _tensors((self.cache, self.params))]
+        if ptrs != self._graph_ptrs:
+            raise RuntimeError(
+                "a cache leaf or parameter moved to other storage after the "
+                "decode graphs were captured over it: update tensors in "
+                "place on a warmed engine")
+
+    def _capture_decode(self, live: int) -> None:
+        """Warm the paged decode-and-sample step at read width `live` on the
+        card and capture it as a CUDA graph into the engine's graph pool,
+        shared by every live width: first one eager dispatch on the capture
+        stream (PyTorch's rule before a capture; the dispatch `warmup()`
+        counts), then the capture, unless this width has its graph. The
+        static inputs are zeroed first, every row inactive, so the eager
+        dispatch writes only the scratch page. A capture launches nothing:
+        the counts it added to the wrappers' counters are taken back and
+        kept for its replays. A failed capture raises."""
+        B = self.max_batch
+        if self._graph_io is None:
+            noise = None
+            if self.sampler.temperature > 0:
+                noise = torch.zeros((B, self.cfg.vocab_size),
+                                    dtype=torch.float32, device=self.device)
+            self._graph_io = _GraphIO(
+                tokens=torch.zeros((B, 1), dtype=torch.int64,
+                                   device=self.device),
+                active=torch.zeros(B, dtype=torch.bool, device=self.device),
+                noise=noise,
+                out=torch.zeros((2, B), dtype=torch.float32,
+                                device=self.device))
+            self._graph_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        else:
+            self._check_captured()
+        io, stream = self._graph_io, self._graph_stream
+        io.tokens.zero_()
+        io.active.zero_()
+
+        def body():
+            io.out.copy_(self._decode_sample(io.tokens, io.active, live,
+                                             io.noise))
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            body()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        if live in self._graphs:
+            return
+        wrappers = list(kernels.wrappers().values())
+        before = [w.launches for w in wrappers]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+            body()
+        launches = []
+        for w, n0 in zip(wrappers, before):
+            if w.launches > n0:
+                launches.append((w, w.launches - n0))
+            w.launches = n0
+        self._graphs[live] = _DecodeGraph(graph, launches)
+        if self._graph_ptrs is None:
+            self._graph_ptrs = [t.data_ptr() for t in
+                                _tensors((self.cache, self.params))]
+            self._graph_sampler = self.sampler
 
     def _run_ingest(self) -> bool:
         """Batched ragged chunk ingest: EVERY ingesting slot's next chunk in
@@ -1049,6 +1240,164 @@ class InferenceEngine:
             worked = True
         self.busy_s += time.perf_counter() - t0
         return worked
+
+    def warmup(self, *, max_context: Optional[int] = None,
+               prompt_lens: Tuple[int, ...] = (),
+               ingest_rows: Tuple[int, ...] = (1,)) -> int:
+        """Prepare the step loop's variants on an IDLE engine, so that the
+        first serving window pays no first-use cost, and return the number
+        of variant dispatches made: the JAX engine's count for the same
+        config and arguments, one eager dispatch for each jit variant its
+        warmup() compiles.
+
+        max_context bounds the decode live widths to warm (default max_len);
+        prompt_lens warms monolithic prefill at their buckets (dense and
+        non-chunked paged engines) and score() at the same buckets;
+        ingest_rows warms batched ragged ingest at their row buckets, each
+        at every live width (chunked paged engines; the serial scheduler
+        warms its one-slot chunk at every live width instead). A paged
+        engine also warms the fork copy and, with host_swap, a promote at
+        every upload-width bucket. On the card the kernels are built first
+        (`runtime.build_all()`), and the dispatches pay the library handles,
+        the allocator's segments, the pinned host blocks of each promote
+        width and the decode kernel's cached occupancy and shared-memory
+        limit. A paged engine on the card also captures its decode-and-
+        sample step as one CUDA graph per live width (`_capture_decode`),
+        which step() then replays.
+
+        State-neutral: the generator is not drawn from, and nothing is
+        written but the scratch page. Decode runs with every row inactive,
+        ragged ingest with sentinel rows (slot max_batch), the serial chunk
+        and monolithic prefill with zero-length prompts, the promote into
+        the scratch page; the cached length and recurrent states of the
+        batch row a variant must name are restored after it. A dense
+        engine's decode rows are restored after its write, and its prefill
+        runs into a one-slot cache of its own."""
+        assert not any(s.active or s.parked for s in self.slots), \
+            "warmup requires an idle engine"
+        dev, B = self.device, self.max_batch
+        if dev.type == "cuda":
+            runtime.build_all()
+        count = 0
+        buckets = sorted({min(_bucket(n), self.max_len) for n in prompt_lens})
+        if self.kv_backend == "paged":
+            lives = sorted({self._chunk_live(end) for end in
+                            range(1, min(max_context or self.max_len,
+                                         self.max_len) + 1)})
+            for live in lives:
+                if dev.type == "cuda":
+                    self._capture_decode(live)
+                else:
+                    self._decode_sample(
+                        torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                        torch.zeros(B, dtype=torch.bool, device=dev), live,
+                        self._warm_noise())
+                count += 1
+            C = self.prefill_chunk
+            if C and self.ragged_ingest:
+                rbs = set()
+                for n in ingest_rows:
+                    r = 1
+                    while r < min(n, B):
+                        r *= 2
+                    rbs.add(r)
+                for rb in sorted(rbs):
+                    toks = torch.zeros((rb, C), dtype=torch.int64, device=dev)
+                    sent = np.full((rb,), B, np.int32)
+                    zero = np.zeros((rb,), np.int32)
+                    for live in lives:
+                        transformer.prefill_ragged_paged(
+                            self.cfg, self.params, toks, self.cache, sent,
+                            zero, zero, live_pages=live)
+                        count += 1
+            elif C:
+                toks = torch.zeros((1, C), dtype=torch.int64, device=dev)
+                for live in lives:
+                    with self._row_kept(0):
+                        transformer.prefill_chunk_paged(
+                            self.cfg, self.params, toks, self.cache, 0, 0, 0,
+                            live_pages=live)
+                    count += 1
+            else:
+                for S in buckets:
+                    with self._row_kept(0):
+                        transformer.prefill_paged(
+                            self.cfg, self.params,
+                            torch.zeros((1, S), dtype=torch.int64,
+                                        device=dev), self.cache, 0, 0)
+                    count += 1
+            # the fork copy: src == dst copies nothing on an idle engine
+            self.cache = transformer.fork_slot_paged(self.cfg, self.cache,
+                                                     0, 0, 0, 0)
+            count += 1
+            if self.host_swap:
+                # one promote at each upload-width bucket, every id the
+                # scratch page; the length it sets is restored
+                for U in sorted({_pow2_bucket(u, self.pages_per_seq)
+                                 for u in range(1, self.pages_per_seq + 1)}):
+                    host = torch.zeros(self._packed_bytes(U),
+                                       dtype=torch.uint8,
+                                       pin_memory=dev.type == "cuda")
+                    with self._row_kept(0):
+                        transformer.promote_slot_paged(
+                            self.cfg, self.cache, [self.n_pages] * U,
+                            self._swap_payloads(host.to(dev), U), 0, 0)
+                    count += 1
+        else:
+            self._warm_dense_decode()
+            count += 1
+            for S in buckets:
+                one = transformer.init_cache(self.cfg, 1, self.max_len,
+                                             device=dev)
+                transformer.prefill(self.cfg, self.params,
+                                    torch.zeros((1, S), dtype=torch.int64,
+                                                device=dev), one, [S])
+                count += 1
+        for S in buckets:
+            self.score([self.eos_id] * S)
+            count += 1
+        return count
+
+    def _warm_noise(self) -> Optional[torch.Tensor]:
+        """Zero Gumbel noise for a warm dispatch's sample, which must not
+        draw from the engine's generator (None for greedy sampling)."""
+        if self.sampler.temperature <= 0:
+            return None
+        return torch.zeros((self.max_batch, self.cfg.vocab_size),
+                           dtype=torch.float32, device=self.device)
+
+    @contextlib.contextmanager
+    def _row_kept(self, slot: int):
+        """Restore batch row `slot`'s cached length and recurrent states
+        after the body: a warm variant that must name a real row."""
+        rows = [self.cache["lengths"][slot:slot + 1]] + [
+            leaf[:, slot] for seg in self.cache["segments"] if "ssd" in seg
+            for leaf in seg.values()]
+        saved = [r.clone() for r in rows]
+        try:
+            yield
+        finally:
+            for r, v in zip(rows, saved):
+                r.copy_(v)
+
+    def _warm_dense_decode(self) -> None:
+        """A dense engine's decode-and-sample dispatch with every row
+        inactive. Its K/V writes land at each slot's length (clamped, as
+        `cache.write_plan` does), so those rows are restored after it."""
+        dev, B = self.device, self.max_batch
+        attn = transformer.attention_segments(self.cache)
+        kept = []
+        if attn:
+            S = attn[0]["k"].shape[2]
+            rows = torch.arange(B, device=dev)
+            at = self.cache["lengths"].long().clamp(0, S - 1)
+            kept = [(leaf, leaf[:, rows, at].clone()) for seg in attn
+                    for leaf in seg.values()]
+        self._decode_sample(torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                            torch.zeros(B, dtype=torch.bool, device=dev),
+                            self.max_len, self._warm_noise())
+        for leaf, v in kept:
+            leaf[:, rows, at] = v
 
     # ------------------------------------------------------------------
     def generate(self, prompts: List[List[int]], max_new: int = 128,

@@ -21,10 +21,15 @@ class SamplerConfig:
     top_p: float = 1.0
 
 
-def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Standard Gumbel noise, -log(E) with E ~ Exp(1)."""
-    e = torch.empty(shape, dtype=torch.float32, device=device)
-    return -torch.log(e.exponential_(generator=generator))
+def gumbel_noise(shape, generator: torch.Generator, device,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Standard Gumbel noise, -log(E) with E ~ Exp(1). With `out` (a float32
+    tensor of `shape`) the noise is drawn into it, the same draw bit for
+    bit."""
+    if out is None:
+        e = torch.empty(shape, dtype=torch.float32, device=device)
+        return -torch.log(e.exponential_(generator=generator))
+    return out.exponential_(generator=generator).log_().neg_()
 
 
 def sample(logits: torch.Tensor, cfg: SamplerConfig,

@@ -622,3 +622,81 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def _warm_pair(cfg, sampler=None, **kw):
+    """A cold and a warmed paged engine on the card over the same weight
+    tensors (TINY-sized, page 16, max_len 128)."""
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.sampler import SamplerConfig
+    params = _to(transformer.init_params(cfg, seed=0, device="cpu"), "cuda")
+
+    def make():
+        return InferenceEngine(cfg, params, max_batch=3, max_len=128,
+                               page_size=16, device="cuda",
+                               sampler=sampler or SamplerConfig(), seed=5,
+                               **kw)
+    cold, warm = make(), make()
+    assert warm.warmup(prompt_lens=(64,)) > 0
+    return cold, warm
+
+
+def _counted(fn):
+    from repro_torch import kernels
+    wrappers = kernels.wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def _tiny(kv_dtype="", chunk=16):
+    from repro_torch.models.config import ModelConfig
+    return ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                       n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=128,
+                       max_seq_len=512, dtype="float32", remat=False,
+                       kv_dtype=kv_dtype, prefill_chunk=chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["float32", "int8", "tiny-edge-c"])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_warmed_engine_equals_cold_on_card(gen, which, sampled):
+    """A warmed paged engine replays one captured graph for every decode
+    step and gives the cold engine's tokens, logprobs and launch counts
+    (float32 and int8 pools, the Mamba2 stack TINY_EDGE_C); sampled runs
+    from the same seed draw the same tokens."""
+    from repro_torch.configs.pice_cloud_edge import TINY_EDGE_C
+    from repro_torch.serving.sampler import SamplerConfig
+    cfg = {"float32": _tiny(), "int8": _tiny("int8"),
+           "tiny-edge-c": TINY_EDGE_C.with_(dtype="float32")}[which]
+    sampler = SamplerConfig(temperature=0.8, top_k=16) if sampled else None
+    cold, warm = _warm_pair(cfg, sampler)
+    assert warm._graphs, "warmup captured no graph on the card"
+    prompts = [[65 + i for i in range(43)], [70, 71], [80] * 32]
+    want, n_cold = _counted(lambda: cold.generate(prompts, max_new=12))
+    got, n_warm = _counted(lambda: warm.generate(prompts, max_new=12))
+    assert n_warm == n_cold
+    decode = "paged_decode_attention_quant" if which == "int8" \
+        else "paged_decode_attention"
+    layers = sum(k in ("attn", "shared_attn") for k in cfg.block_pattern())
+    assert warm.graph_replays > 0
+    assert n_warm[decode] == warm.graph_replays * layers, \
+        "a decode step ran outside the captured graphs"
+    for (tg, lg), (tc, lc) in zip(got, want):
+        assert tg == tc
+        torch.testing.assert_close(torch.tensor(lg), torch.tensor(lc),
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_moved_leaf_after_capture_raises(gen):
+    """A cache leaf put in other storage after the capture makes the next
+    decode step raise instead of replaying over the old pointers."""
+    _, warm = _warm_pair(_tiny())
+    seg = warm.cache["segments"][0]
+    seg["k_pages"] = seg["k_pages"].clone()
+    with pytest.raises(RuntimeError, match="moved"):
+        warm.generate([[1, 2, 3]], max_new=4)
