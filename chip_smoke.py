@@ -64,30 +64,37 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      paged give the same tokens on the card; then the paged engines over
      int8 and fp8 pools, logprobs within atol 1e-2 (a float-noise rounding
      flip in a requantized page moves a value by a whole quantization
-     step); then TINY_EDGE_C and zamba2 cut to 4 layers (float32) on the
-     dense and paged engines at the first tolerance, a fan-out whose late
-     forks must match its early ones, and the 4-layer zamba2 over an int8
-     pool; then TINY_CLOUD on chunked paged engines whose pool (6 pages
+     step); then TINY_EDGE_C, xlstm-1.3b cut to 4 layers (sLSTM, mLSTM,
+     sLSTM, mLSTM, chunks of 16) and zamba2 cut to 4 layers (float32) on
+     the dense and paged engines at the first tolerance, a fan-out whose
+     late forks must match its early ones, and the 4-layer zamba2 over an
+     int8 pool; then TINY_CLOUD on chunked paged engines whose pool (6 pages
      of 8) cannot hold its 4 requests, resumed by host swap, by replay and
      under the serial scheduler, at the first tolerance (every engine must
      evict; swap-outs = swap-ins on the swapping ones);
-  5. at full width — qwen3-8b in the cloud, qwen2-1.5b and zamba2-2.7b at
-     the edge, random bf16 weights from a seed: the PICE pipeline on paged
-     engines (chunked for the attention stacks; zamba2 prefills
-     monolithically, and with an ensemble of 2 both edges expand every
-     progressive request; three corpus requests, and one more with the
-     scheduler's decision pinned to progressive if none of them went
-     progressive), the same on chunked paged engines over int8 pools
-     (qwen3-8b, qwen2-1.5b), the same pipeline on dense engines over the
-     same weight tensors (two requests), one batch each on monolithic
-     paged qwen3-8b engines over a bf16 and an fp8 pool and on the paged
-     zamba2 engine, the int8 pool's KV read bytes against the bf16 pool's
-     on one batch, and `score()` of a 1024-token sequence on each model;
-     every kernel's launch counter is set to 0 just before each of these
-     paths and read just after: RMSNorm runs on every path, and the flash
-     kernel once an attention layer for each monolithic prefill;
+  5. at full width — qwen3-8b in the cloud, the JAX package's edge fleet
+     (qwen2-1.5b, xlstm-1.3b at 48 layers and zamba2-2.7b), random bf16
+     weights from a seed: the PICE pipeline on paged engines (chunked for
+     the attention stacks; zamba2 and xlstm-1.3b prefill monolithically,
+     and the ensemble holds every edge, so each expands every progressive
+     request; three corpus requests, and one more with the scheduler's
+     decision pinned to progressive if none of them went progressive),
+     the same on chunked paged engines over int8 pools (qwen3-8b,
+     qwen2-1.5b), the same pipeline on dense engines over the same weight
+     tensors (two requests), one 256-token xlstm-1.3b prefill timed, one
+     batch each on monolithic paged qwen3-8b engines over a bf16 and an
+     fp8 pool and on the paged zamba2 and xlstm-1.3b engines, the int8
+     pool's KV read bytes against the bf16 pool's on one batch, and
+     `score()` of a 1024-token sequence on each model, timed; each
+     model's parameters counted in its tensors beside `param_count()`,
+     its recurrent state bytes and the peak memory; every kernel's launch
+     counter is set to 0 just before each of these paths and read just
+     after: RMSNorm runs on every path (97 launches an xlstm-1.3b model
+     call), and the flash kernel once an attention layer for each
+     monolithic prefill;
   6. where each full-width engine's time goes (chunked paged qwen3-8b over
-     a bf16 and an int8 pool, qwen2-1.5b, dense qwen3-8b, paged zamba2):
+     a bf16 and an int8 pool, qwen2-1.5b, dense qwen3-8b, paged zamba2,
+     paged xlstm-1.3b over 64-token prompts):
      host wall time against device busy time by kernel (torch.profiler) on
      a short batch, the port's kernels' time by device function, and the
      host's cudaLaunchKernel calls per model call;
@@ -108,10 +115,11 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      p99, and every handle final with no page left in use;
   10. warmed engines against cold ones (phase 6's, over the same weight
      tensors: chunked paged qwen3-8b over bf16 and int8 pools, qwen2-1.5b,
-     monolithic paged zamba2-2.7b): `warmup()`'s seconds, dispatches,
-     captured decode graphs and reserved memory; phase 6's batch must give
-     the same greedy tokens, logprobs and launches of every wrapper warmed
-     as cold, every warmed decode step a graph replay, and a sampled pair
+     monolithic paged zamba2-2.7b and xlstm-1.3b): `warmup()`'s seconds,
+     dispatches, captured decode graphs and reserved memory; phase 6's
+     batch must give the same greedy tokens, logprobs and launches of
+     every wrapper warmed as cold, every warmed decode step a graph replay
+     (none dispatched eagerly), and a sampled pair
      from one seed the same tokens; a decode-only step's host wall time
      cold and warmed; the warmed run profiled as in phase 6,
      wall, device busy, busy share and launch calls a model call logged
@@ -1420,7 +1428,8 @@ def tiny_eviction_parity(torch):
 
 
 def ssm_tiny_parity(torch, prompts):
-    """TINY_EDGE_C and zamba2 cut to 4 layers (the shared block twice),
+    """TINY_EDGE_C, xlstm-1.3b cut to 4 layers (sLSTM, mLSTM, sLSTM, mLSTM;
+    chunks of 16) and zamba2 cut to 4 layers (the shared block twice),
     float32, on the dense and paged engines, card against CPU; a fan-out
     of four identical one-token suffixes on 3 slots, whose late forks must
     match its early ones; the 4-layer zamba2 over an int8 pool."""
@@ -1429,6 +1438,9 @@ def ssm_tiny_parity(torch, prompts):
     from repro_torch.models import transformer
     from repro_torch.serving.engine import InferenceEngine
     cfgs = {"tiny-edge-c": TINY_EDGE_C.with_(dtype="float32"),
+            "xlstm-4l": get_config("xlstm-1.3b").reduced().with_(
+                n_layers=4, slstm_at=(0, 2), ssm_chunk=16, dtype="float32",
+                remat=False),
             "zamba2-4l": get_config("zamba2-2.7b").reduced().with_(
                 n_layers=4, dtype="float32", remat=False)}
     for name, cfg in cfgs.items():
@@ -1565,9 +1577,10 @@ class MonolithicPrefills:
                    for name, n in self.counts.items())
 
 
-def profile_prompts():
-    """Phase 6's batch: 4 prompts of 256 tokens."""
-    return [[(7 * i + j) % 251 + 1 for j in range(256)] for i in range(4)]
+def profile_prompts(n=256):
+    """Phase 6's batch: 4 prompts of `n` tokens (256 but for the rows of
+    PROFILE_PROMPT)."""
+    return [[(7 * i + j) % 251 + 1 for j in range(n)] for i in range(4)]
 
 
 def pin_progressive(scheduler):
@@ -1592,8 +1605,9 @@ def run_pipeline(torch, engines, n_requests, label):
     """Profile the engines, build the PICE pipeline (qwen3-8b cloud) and
     answer `n_requests` corpus requests, counting kernel launches over the
     requests: the flash kernel's must be one an attention layer for each
-    monolithic prefill. Returns (the launches, the tokens each engine
-    generated).
+    monolithic prefill. Every edge model expands every progressive
+    request (the ensemble holds the whole edge fleet). Returns (the
+    launches, the tokens each engine generated).
 
     The scheduler picks cloud_full or progressive per request from the
     engines' profiled rates, and those vary between calls (the edge's cost
@@ -1606,6 +1620,7 @@ def run_pipeline(torch, engines, n_requests, label):
     from repro_torch.serving.requests import Request, Response
     pipe = serve.build_pipeline(engines, serve.CAPABILITIES,
                                 log_fn=log, cloud_name="qwen3-8b")
+    pipe.cfg.ensemble_size = len(engines) - 1
     before = {n: (e.tokens_generated, e.busy_s) for n, e in engines.items()}
 
     def ask(ex):
@@ -1655,12 +1670,13 @@ def phase_full_width(torch):
     from repro_torch.models import transformer
     from repro_torch.serving import engine as engine_mod
     log("== phase 5: full width (random bf16 weights)")
-    # zamba2 is recurrent: its engines prefill monolithically whatever
-    # prefill_chunk says
+    # zamba2 and xlstm-1.3b are recurrent: their engines prefill
+    # monolithically whatever prefill_chunk says
+    edges = edge_configs()
     cfgs = {"qwen3-8b": cloud_config().with_(prefill_chunk=128),
-            "qwen2-1.5b": edge_configs()["qwen2-1.5b"].with_(
-                prefill_chunk=128),
-            "zamba2-2.7b": edge_configs()["zamba2-2.7b"]}
+            "qwen2-1.5b": edges["qwen2-1.5b"].with_(prefill_chunk=128),
+            "zamba2-2.7b": edges["zamba2-2.7b"],
+            "xlstm-1.3b": edges["xlstm-1.3b"]}
     kw = dict(max_batch=8, max_len=1024, device="cuda")
     engines, dense = {}, {}
     for seed, (name, cfg) in enumerate(cfgs.items()):
@@ -1673,9 +1689,14 @@ def phase_full_width(torch):
             cfg, params, kv_backend="dense", name=name, **kw)
         cache_b = sum(seg[k].numel() * seg[k].element_size()
                       for seg in dense[name].cache["segments"] for k in seg)
-        log(f"{name}: {cfg.param_count() / 1e9:.2f} B params ({cfg.dtype}), "
-            f"pool {engines[name].n_pages} pages, dense cache "
-            f"{cache_b / 1e9:.3f} GB (recurrent states included), prefill "
+        tensors = list(engine_mod._tensors(params))
+        log(f"{name}: {cfg.param_count() / 1e9:.2f} B params by "
+            f"param_count(), {sum(t.numel() for t in tensors) / 1e9:.3f} B "
+            f"in its tensors ("
+            f"{sum(t.numel() * t.element_size() for t in tensors) / 1e9:.3f}"
+            f" GB, {cfg.dtype} and float32), pool {engines[name].n_pages} "
+            f"pages, dense cache {cache_b / 1e9:.3f} GB (recurrent states "
+            f"included: {state_bytes(dense[name]) / 1e9:.3f} GB), prefill "
             f"chunk {engines[name].prefill_chunk}, built in "
             f"{time.perf_counter() - t0:.1f} s")
     # the same weight tensors over int8 pools (the attention stacks)
@@ -1692,11 +1713,16 @@ def phase_full_width(torch):
     for name, eng in quant.items():
         log(f"{name} int8 pool: {eng._page_kv_bytes} B a page over every "
             f"layer (bf16 pool: {engines[name]._page_kv_bytes} B)")
-    zamba = engines["zamba2-2.7b"]
+    zamba, xlstm = engines["zamba2-2.7b"], engines["xlstm-1.3b"]
     log(f"zamba2-2.7b: {zamba._page_kv_bytes} B a page over its "
-        f"{attention_layers(zamba.cfg)} shared-attention applications; SSD "
-        f"states {state_bytes(zamba, 'ssd')} B, conv states "
-        f"{state_bytes(zamba, 'conv')} B for {kw['max_batch']} slots")
+        f"{attention_layers(zamba.cfg)} shared-attention applications; "
+        f"Mamba2 states (SSD and conv) {state_bytes(zamba)} B for "
+        f"{kw['max_batch']} slots")
+    log(f"xlstm-1.3b: {xlstm._page_kv_bytes} B a page (no attention "
+        f"layer); mLSTM states {state_bytes(xlstm, ('mlstm',))} B, sLSTM "
+        f"states {state_bytes(xlstm, ('slstm',))} B for {kw['max_batch']} "
+        f"slots ({state_bytes(xlstm) / kw['max_batch'] / 1e6:.1f} MB a "
+        f"slot)")
     # every sampled logits row passes token_logprob: count non-finite
     # entries on the device, read once at the end
     nonfinite = torch.zeros((), dtype=torch.int64, device="cuda")
@@ -1712,6 +1738,7 @@ def phase_full_width(torch):
         paths["chunked paged pipeline"], made = run_pipeline(
             torch, engines, 3, "chunked paged")
         assert made["zamba2-2.7b"] > 0, "zamba2 expanded nothing"
+        assert made["xlstm-1.3b"] > 0, "xlstm-1.3b expanded nothing"
         paths["int8 chunked paged pipeline"], _ = run_pipeline(
             torch, quant, 3, "int8 chunked paged")
         for name in quant:
@@ -1720,9 +1747,12 @@ def phase_full_width(torch):
                 f"{engines[name].kv_bytes_read} B")
         paths["dense pipeline"], made = run_pipeline(torch, dense, 2, "dense")
         assert made["zamba2-2.7b"] > 0, "zamba2 expanded nothing"
+        assert made["xlstm-1.3b"] > 0, "xlstm-1.3b expanded nothing"
+        xlstm_prefill(torch, xlstm)
         for label, eng in (("monolithic paged generate", mono),
                            ("monolithic paged fp8 generate", mono_fp8),
-                           ("zamba2 monolithic paged generate", zamba)):
+                           ("zamba2 monolithic paged generate", zamba),
+                           ("xlstm monolithic paged generate", xlstm)):
             t0 = time.perf_counter()
             with MonolithicPrefills({label: eng}) as mono:
                 _, paths[label] = counted(
@@ -1733,20 +1763,33 @@ def phase_full_width(torch):
                 f"{paths[label]}")
             assert paths[label]["flash_attention"] == mono.flash_launches(), \
                 f"{label}: one flash launch an attention layer a prefill"
+            if not attention_layers(eng.cfg):
+                norms = recurrent_norms(eng.cfg)
+                assert paths[label]["rmsnorm"] % norms == 0, paths[label]
+                log(f"  {paths[label]['rmsnorm']} RMSNorm launches: "
+                    f"{norms} a model call over "
+                    f"{paths[label]['rmsnorm'] // norms} model calls")
         kv_read_ratio(torch, quant["qwen3-8b"], engines["qwen3-8b"])
         seq = [(13 * i) % 251 + 1 for i in range(1024)]
         for name, eng in dense.items():
+            t0 = time.perf_counter()
             (mean, gold), launches = counted(torch, lambda: eng.score(seq))
+            wall = time.perf_counter() - t0
             paths[f"score {name}"] = launches
             assert math.isfinite(mean) and np.isfinite(gold).all(), name
             n_attn = attention_layers(eng.cfg)
             n_mamba = eng.cfg.block_pattern().count("mamba2")
             assert launches["flash_attention"] == n_attn, launches
             assert launches["ssm_scan"] == n_mamba, launches
-            log(f"score [{name}] of a 1024-token sequence: mean logprob "
-                f"{mean:.4f}, {len(gold)} tokens, flash launches "
-                f"{launches['flash_attention']} = attention layers, SSD "
-                f"scan launches {launches['ssm_scan']} = Mamba2 layers")
+            if not n_attn:
+                assert launches["rmsnorm"] == recurrent_norms(eng.cfg), \
+                    launches
+            log(f"score [{name}] of a 1024-token sequence: {wall:.3f} s "
+                f"(host clock, cold), mean logprob {mean:.4f}, {len(gold)} "
+                f"tokens, flash launches {launches['flash_attention']} = "
+                f"attention layers, SSD scan launches "
+                f"{launches['ssm_scan']} = Mamba2 layers, RMSNorm launches "
+                f"{launches['rmsnorm']}")
     finally:
         engine_mod.token_logprob = logprob
     assert int(nonfinite) == 0, f"{int(nonfinite)} non-finite logits"
@@ -1780,8 +1823,31 @@ def phase_full_width(torch):
     return paths, {"qwen3-8b": engines["qwen3-8b"],
                    "qwen3-8b-int8": quant["qwen3-8b"],
                    "qwen2-1.5b": engines["qwen2-1.5b"],
+                   "xlstm-1.3b": xlstm,
                    "qwen3-8b-dense": dense["qwen3-8b"],
                    "zamba2-2.7b": zamba}
+
+
+def xlstm_prefill(torch, eng):
+    """One 256-token prompt and its first token on the paged xlstm-1.3b
+    engine, eager (a first call warms up): host wall time and launches."""
+    prompt = profile_prompts()[0]
+    eng.generate([prompt], max_new=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, launches = counted(torch, lambda: eng.generate([prompt], max_new=1))
+    wall = time.perf_counter() - t0
+    assert launches["rmsnorm"] == recurrent_norms(eng.cfg), launches
+    log(f"xlstm-1.3b prefill of one 256-token prompt and its first token: "
+        f"{wall * 1e3:.1f} ms (host clock); RMSNorm launches "
+        f"{launches['rmsnorm']} (one model call)")
+
+
+def recurrent_norms(cfg):
+    """RMSNorm launches of one model call of a stack without attention:
+    each Mamba2, mLSTM or sLSTM layer norms its input and its inner
+    activations, and the final norm runs once."""
+    return 2 * cfg.n_layers + 1
 
 
 def attention_layers(cfg):
@@ -1790,10 +1856,15 @@ def attention_layers(cfg):
     return sum(k in ("attn", "shared_attn") for k in cfg.block_pattern())
 
 
-def state_bytes(eng, key):
-    """Bytes of an engine's recurrent state leaves `key` ("ssd", "conv")."""
-    return sum(seg[key].numel() * seg[key].element_size()
-               for seg in eng.cache["segments"] if key in seg)
+def state_bytes(eng, kinds=None):
+    """Bytes of an engine's recurrent state leaves, in the segments of the
+    block `kinds` (default every recurrent kind)."""
+    from repro_torch.models import transformer
+    kinds = kinds or tuple(transformer.RECURRENT_KINDS)
+    return sum(leaf.numel() * leaf.element_size()
+               for (kind, _), seg in zip(transformer.segments_of(eng.cfg),
+                                         eng.cache["segments"])
+               if kind in kinds for leaf in seg.values())
 
 
 def kv_read_ratio(torch, quant, ref):
@@ -1867,6 +1938,11 @@ def _leaves(tree):
 # PRs measured at 32 run 8 (the profiler's trace processing, about a
 # minute an engine at 32, kept the script inside its time).
 PROFILE_DEPTH = {"qwen3-8b-int8": 8, "qwen2-1.5b": 8, "qwen3-8b-dense": 8}
+# Prompt length of each engine's profiled batch where it is not 256: the
+# sLSTM scan launches about 17 kernels a token and layer, and the
+# profiler's trace processing of 4 x 256 prompts (about 100 k launches)
+# would take minutes.
+PROFILE_PROMPT = {"xlstm-1.3b": 64}
 
 
 def phase_profile(torch, engines):
@@ -1880,9 +1956,10 @@ def phase_profile(torch, engines):
         "tokens each unless a row says otherwise)")
     rows = {}
     for name, eng in engines.items():
-        eng.generate(profile_prompts(), max_new=4)       # warm up
+        plen = PROFILE_PROMPT.get(name, 256)
+        eng.generate(profile_prompts(plen), max_new=4)       # warm up
         rows[name] = profile_run(torch, name, eng,
-                                 PROFILE_DEPTH.get(name, 32))
+                                 PROFILE_DEPTH.get(name, 32), plen)
     return rows
 
 
@@ -1892,21 +1969,23 @@ def phase_profile(torch, engines):
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")
 
 
-def profile_run(torch, name, eng, new):
-    """Phase 6's batch through `eng`, timed on the host clock without the
-    profiler, then under torch.profiler for device time by kernel. Busy
-    share = device time / unprofiled wall time (one stream, so kernels do
-    not overlap). The matmuls' bound is their weight bytes, read once per
-    model call, over the HBM rate; model calls = attention-kernel launches
-    of the profiled run / attention layers (a monolithic prefill launches
-    the flash kernel once a layer; a graph replay adds its launches to the
-    counters). A recurrent engine's decode also reads and writes every
-    slot's SSD state each step, logged beside its row. Returns {"wall_ms",
+def profile_run(torch, name, eng, new, plen=256):
+    """Phase 6's batch (prompts of `plen` tokens) through `eng`, timed on
+    the host clock without the profiler, then under torch.profiler for
+    device time by kernel. Busy share = device time / unprofiled wall time
+    (one stream, so kernels do not overlap). The matmuls' bound is their
+    weight bytes, read once per model call, over the HBM rate; model calls
+    = attention-kernel launches of the profiled run / attention layers (a
+    monolithic prefill launches the flash kernel once a layer; a graph
+    replay adds its launches to the counters), or for a stack without
+    attention RMSNorm launches / `recurrent_norms`. A recurrent engine's
+    decode also reads and writes every slot's state each step, logged
+    beside its row. Returns {"wall_ms",
     "device_ms", "calls", "launch_calls"}: the launch calls are every
     `LAUNCH_CALLS` call of the profiled run."""
     from torch.profiler import ProfilerActivity, profile
     counters = kernel_counters()
-    prompts = profile_prompts()
+    prompts = profile_prompts(plen)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.generate(prompts, max_new=new)
@@ -1921,15 +2000,19 @@ def profile_run(torch, name, eng, new):
         torch.cuda.synchronize()
     t2 = time.perf_counter()
     averages = prof.key_averages()
-    attn = sum(counters[k].launches for k in ATTENTION_KERNELS)
-    calls = attn / attention_layers(eng.cfg)
+    if attention_layers(eng.cfg):
+        calls = sum(counters[k].launches for k in ATTENTION_KERNELS) \
+            / attention_layers(eng.cfg)
+    else:
+        calls = counters["rmsnorm"].launches / recurrent_norms(eng.cfg)
     # device-side events only (kernels, copies, memsets): the host ops
     # that launched them repeat the same device time
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(ms for _, ms, _ in kernels)
-    log(f"{name} ({new} new tokens): wall {wall * 1e3:.1f} ms, device "
+    log(f"{name} ({plen}-token prompts, {new} new tokens): wall "
+        f"{wall * 1e3:.1f} ms, device "
         f"busy {device_ms:.1f} ms ({100 * device_ms / (wall * 1e3):.1f} "
         f"%), {len(kernels)} kernel kinds; the profiled run took "
         f"{t2 - t1:.1f} s, its averages {time.perf_counter() - t2:.1f} s")
@@ -1941,10 +2024,10 @@ def profile_run(torch, name, eng, new):
         f"({100 * port_ms / max(device_ms, 1e-9):.1f} % of device time): "
         f"{by_name}")
     if eng.recurrent:
-        ssd = state_bytes(eng, "ssd")
-        log(f"  recurrent decode: {ssd} B of SSD state over "
+        st = state_bytes(eng)
+        log(f"  recurrent decode: {st} B of recurrent state over "
             f"{eng.max_batch} slots, read and written each step (at "
-            f"least {2 * ssd / HBM_BYTES_PER_S * 1e3:.3f} ms a step); "
+            f"least {2 * st / HBM_BYTES_PER_S * 1e3:.3f} ms a step); "
             f"SSD scan launches {counters['ssm_scan'].launches}")
     mm_ms = sum(ms for key, ms, _ in kernels
                 if any(m in key for m in MATMUL_KERNELS))
@@ -2015,8 +2098,8 @@ def restore_checker(torch, eng, checked):
         if idx:
             ids = torch.tensor([eng.alloc.owned[slot][i] for i in idx],
                                device="cuda")
-            for seg, snap in zip(transformer.attention_segments(eng.cache),
-                                 host):
+            segs = transformer.attention_segments(eng.cfg, eng.cache)
+            for seg, snap in zip(segs, host):
                 for k, leaf in seg.items():
                     back = leaf.view(torch.uint8).index_select(1, ids).cpu()
                     assert torch.equal(back, snap[k].view(torch.uint8)), \
@@ -2339,16 +2422,17 @@ SOURCES = {
 # weight tensors (the new tokens of each are phase 6's: PROFILE_DEPTH); the
 # sampled pairs generate SAMPLED_NEW tokens (depth cut to keep the phase
 # inside its time)
-WARMED = ("qwen3-8b", "qwen3-8b-int8", "qwen2-1.5b", "zamba2-2.7b")
+WARMED = ("qwen3-8b", "qwen3-8b-int8", "qwen2-1.5b", "zamba2-2.7b",
+          "xlstm-1.3b")
 SAMPLED_NEW = 8
 
 
-def decode_step_ms(torch, eng, steps=16):
+def decode_step_ms(torch, eng, plen, steps=16):
     """Host wall time of one decode-only step of `eng` (ms, mean of
-    `steps`): phase 6's 4 prompts admitted and ingested first, then steps
-    that launch a decode and harvest the one before; the requests finish
-    after the window."""
-    for i, p in enumerate(profile_prompts()):
+    `steps`): phase 6's 4 prompts (of `plen` tokens) admitted and ingested
+    first, then steps that launch a decode and harvest the one before; the
+    requests finish after the window."""
+    for i, p in enumerate(profile_prompts(plen)):
         eng.add_request(10_000 + i, p, max_new=steps + 4)
     while any(s.active and s.prefill_toks for s in eng.slots):
         eng.step()
@@ -2377,15 +2461,17 @@ def phase_graphs(torch, engines, cold_rows):
     decode-only step's host wall time, cold and warmed; a sampled
     pair (temperature 0.8, top_k 16, one seed), cold and warmed, which must
     draw the same tokens; then the warmed engine's run profiled as phase 6
-    profiles the cold one, both rows logged side by side."""
+    profiles the cold one, both rows logged side by side. No decode step of
+    a warmed engine may dispatch eagerly."""
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.sampler import SamplerConfig
     log("== phase 10: warmed engines (the paged decode step captured as one "
         "CUDA graph per live width) against cold ones")
-    prompts = profile_prompts()
     for name in WARMED:
         cold = engines[name]
         new = PROFILE_DEPTH.get(name, 32)
+        plen = PROFILE_PROMPT.get(name, 256)
+        prompts = profile_prompts(plen)
         decode = ("paged_decode_attention_quant" if cold.cfg.kv_quantized
                   else "paged_decode_attention")
 
@@ -2401,7 +2487,7 @@ def phase_graphs(torch, engines, cold_rows):
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
             t0 = time.perf_counter()
-            count = eng.warmup(max_context=256 + new, prompt_lens=(256,))
+            count = eng.warmup(max_context=plen + new, prompt_lens=(plen,))
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             torch.cuda.empty_cache()
@@ -2417,9 +2503,20 @@ def phase_graphs(torch, engines, cold_rows):
         want, n_cold = counted(
             torch, lambda: cold.generate(prompts, max_new=new))
         replays = warm.graph_replays
-        got, n_warm = counted(
-            torch, lambda: warm.generate(prompts, max_new=new))
+        eager = []
+        decode_sample = warm._decode_sample
+        warm._decode_sample = lambda *a, **kw: (eager.append(1),
+                                                decode_sample(*a, **kw))[1]
+        try:
+            got, n_warm = counted(
+                torch, lambda: warm.generate(prompts, max_new=new))
+        finally:
+            # the wrapper closes a reference cycle through the engine,
+            # whose graphs the cyclic collector could then free during a
+            # later capture, which a capture does not allow
+            del warm._decode_sample
         replays = warm.graph_replays - replays
+        assert not eager, f"{name}: {len(eager)} decode steps ran eagerly"
         worst = 0.0
         for i, ((tg, lg), (tc, lc)) in enumerate(zip(got, want)):
             assert tg == tc, f"{name}: request {i}'s greedy tokens differ " \
@@ -2436,8 +2533,9 @@ def phase_graphs(torch, engines, cold_rows):
             f"({ {k: n for k, n in n_warm.items() if n} }), {replays} graph "
             f"replays")
         log(f"  a decode-only step (4 live slots): "
-            f"{decode_step_ms(torch, cold):.2f} ms cold, "
-            f"{decode_step_ms(torch, warm):.2f} ms warmed, on the host clock")
+            f"{decode_step_ms(torch, cold, plen):.2f} ms cold, "
+            f"{decode_step_ms(torch, warm, plen):.2f} ms warmed, on the "
+            f"host clock")
         sampler = SamplerConfig(temperature=0.8, top_k=16)
         a = make(sampler=sampler, seed=11).generate(prompts,
                                                     max_new=SAMPLED_NEW)
@@ -2447,7 +2545,7 @@ def phase_graphs(torch, engines, cold_rows):
             f"{name}: sampled tokens differ warmed and cold"
         log(f"  sampled (temperature 0.8, top_k 16), {SAMPLED_NEW} new "
             f"tokens: tokens equal warmed and cold")
-        row = profile_run(torch, f"{name} warmed", warm, new)
+        row = profile_run(torch, f"{name} warmed", warm, new, plen)
         c = cold_rows[name]
         log(f"  {name} cold / warmed, {new} new tokens: wall "
             f"{c['wall_ms']:.1f} / {row['wall_ms']:.1f} ms, device busy "

@@ -6,10 +6,9 @@ pairing here is qwen3-8b in the cloud with qwen2-1.5b at the edge. TINY_*
 variants are CPU-runnable models used by the tests and the launcher; they keep
 the >=10x size ratio the paper recommends.
 
-The full-size edge fleet holds qwen2-1.5b and the Mamba2 hybrid zamba2-2.7b;
-the TINY fleet adds the pure Mamba2 TINY_EDGE_C to the two dense SLMs. The
-JAX package's fleet also holds xlstm-1.3b, whose family (xLSTM) waits for its
-slice, so `edge_configs()` leaves it out.
+The full-size edge fleet is the JAX package's: qwen2-1.5b, the xLSTM stack
+xlstm-1.3b and the Mamba2 hybrid zamba2-2.7b, in that order. The TINY fleet
+adds the pure Mamba2 TINY_EDGE_C to the two dense SLMs.
 """
 from repro_torch.configs.registry import get_config
 from repro_torch.models.config import ModelConfig
@@ -22,6 +21,7 @@ def cloud_config() -> ModelConfig:
 def edge_configs() -> dict:
     return {
         "qwen2-1.5b": get_config("qwen2-1.5b"),
+        "xlstm-1.3b": get_config("xlstm-1.3b"),
         "zamba2-2.7b": get_config("zamba2-2.7b"),
     }
 

@@ -2,8 +2,8 @@
 
 Each config module `repro_torch.configs.<id>` exposes CONFIG, the full-size
 configuration with its source. Only the architectures whose families the port
-runs are listed: the dense GQA decoders of the PICE cloud/edge pairing and
-the Mamba2 + shared-attention hybrid of its edge fleet.
+runs are listed: the dense GQA decoders of the PICE cloud/edge pairing, the
+xLSTM stack and the Mamba2 + shared-attention hybrid of its edge fleet.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from repro_torch.models.config import ModelConfig
 ALIASES = {
     "qwen3-8b": "qwen3_8b",
     "qwen2-1.5b": "qwen2_1p5b",
+    "xlstm-1.3b": "xlstm_1p3b",
     "zamba2-2.7b": "zamba2_2p7b",
 }
 

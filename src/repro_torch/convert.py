@@ -7,7 +7,11 @@ and flat biases (see `models/attention.py`), and each leaf in its working
 dtype: matmul weights, embeddings and biases in `cfg.dtype`, norm scales and
 the length head in float32. A Mamba2 layer keeps A_log, D, dt_bias and its
 norm scale in float32 (the JAX package casts them to float32 at use) and
-w_in, w_out, conv_w and conv_b in `cfg.dtype`. A hybrid's shared block
+w_in, w_out, conv_w and conv_b in `cfg.dtype`. An xLSTM layer keeps the
+gate biases (the mLSTM's b_i and b_f, the sLSTM's b_gates), the sLSTM's
+recurrent weights r_gates and its norm scales in float32, which the JAX
+package computes with (a bf16 r_gates would round the recurrence at every
+token), and its projections in `cfg.dtype`. A hybrid's shared block
 (`ref["shared"]`, unstacked) converts as one layer, and its SHARED_ATTN
 segments, empty in the pytree, become empty lists. Give this module the
 pytree as numpy arrays (`jax.tree.map(np.asarray, params)`), so the port
@@ -26,7 +30,7 @@ from repro_torch.models.layers import compute_dtype
 from repro_torch.models.transformer import check_supported, segments_of
 
 _FLOAT32_LEAVES = ("scale", "q_norm", "k_norm", "A_log", "D", "dt_bias",
-                   "norm_scale")
+                   "norm_scale", "b_i", "b_f", "b_gates", "r_gates")
 
 
 def _leaf(name: str, a: np.ndarray, dtype, device) -> torch.Tensor:

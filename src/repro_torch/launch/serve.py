@@ -27,7 +27,7 @@ from repro_torch.serving.requests import Request
 
 CAPABILITIES = {"tiny-cloud": 0.9, "tiny-edge-a": 0.7, "tiny-edge-b": 0.55,
                 "tiny-edge-c": 0.6, "qwen3-8b": 0.9, "qwen2-1.5b": 0.7,
-                "zamba2-2.7b": 0.6}
+                "xlstm-1.3b": 0.6, "zamba2-2.7b": 0.6}
 
 
 def build_engines(train_steps: int = 0, seed: int = 0, names=None,

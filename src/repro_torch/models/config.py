@@ -209,7 +209,9 @@ class ModelConfig:
         shared memory, whose size `MAX_PAGE_SIZE` and `MAX_HEAD_DIM` bound;
         both kernels read K/V rows in 8-byte pieces, so head_dim is a
         multiple of `HEAD_DIM_MULTIPLE`, and of 8 for an int8 / fp8 pool.
-        The kernel wrappers check the same limits on every call.
+        The kernel wrappers check the same limits on every call. The head_dim
+        limits bind a stack with attention layers only: xlstm-1.3b's head_dim
+        of 512 sizes its mLSTM states, which no attention kernel reads.
         """
         if page_size <= 0:
             raise ValueError("page_size must be positive")
@@ -218,11 +220,13 @@ class ModelConfig:
         if page_size > MAX_PAGE_SIZE:
             raise ValueError(f"page_size {page_size} exceeds the kernels' "
                              f"limit of {MAX_PAGE_SIZE}")
-        if self.resolved_head_dim > MAX_HEAD_DIM:
+        attends = any(k in (ATTN, MOE, SHARED_ATTN)
+                      for k in self.block_pattern())
+        if attends and self.resolved_head_dim > MAX_HEAD_DIM:
             raise ValueError(f"head_dim {self.resolved_head_dim} exceeds the "
                              f"kernels' limit of {MAX_HEAD_DIM}")
         multiple = 8 if self.kv_quantized else HEAD_DIM_MULTIPLE
-        if self.resolved_head_dim % multiple:
+        if attends and self.resolved_head_dim % multiple:
             raise ValueError(f"head_dim {self.resolved_head_dim} is not a "
                              f"multiple of {multiple}")
         if self.kv_dtype not in ("", "float32", "bfloat16", "int8", "fp8"):

@@ -1,5 +1,6 @@
 """Decoder stacks (PyTorch) over a dense or a paged KV cache: dense
-attention, Mamba2 (SSM) and the Mamba2 + shared-attention hybrid (zamba2).
+attention, Mamba2 (SSM), xLSTM (mLSTM and sLSTM blocks) and the Mamba2 +
+shared-attention hybrid (zamba2).
 
 The port of the JAX package's `models/transformer.py` for the segments the
 PICE serving path runs: init; the full-sequence `forward` (scoring); the
@@ -8,20 +9,22 @@ with monolithic `prefill_paged`, one prompt chunk, batched ragged chunks
 (attention-only stacks), the decode step, the COW fork copy and the
 host-swap promote. Dense and monolithic paged prefill share
 `_prefill_block`, whose `kv_writer` hook alone differs, so both produce the
-same activations. The xLSTM, MoE and encoder families wait for their
-slices.
+same activations. The MoE and encoder families wait for their slices.
 
 Layers come in segments (`segments_of`): runs of one block kind. ATTN is an
 attention + MLP block, MAMBA2 a Mamba2 block (`models/ssm.py`) and
 SHARED_ATTN an application of the one weight-tied attention + MLP block of
 a hybrid, whose weights live once in params["shared"] while every
-application has its own cache segment.
+application has its own cache segment. MLSTM and SLSTM are the xLSTM
+blocks (`models/xlstm.py`). MAMBA2, MLSTM and SLSTM are the recurrent
+kinds: each keeps O(1) per-slot states in place of K/V.
 
 Params: {"embed": {"tok", "unembed"}, "segments": [[layer, ...], ...],
 "shared"?: layer, "final_norm": {"scale"}, "length_head"?}; an attention
 layer is {"norm1": {"scale"}, "attn": {...}, "norm2": {"scale"}, "mlp":
 {...}} (see attention.py for the weight layout), a Mamba2 layer {"norm1":
-{"scale"}, "mamba": {...}}, and a SHARED_ATTN segment's list is empty. The
+{"scale"}, "mamba": {...}}, an xLSTM layer {"norm1": {"scale"}, "mlstm" or
+"slstm": {...}}, and a SHARED_ATTN segment's list is empty. The
 paged cache is {"lengths": (B,) int32, "block_table": (B, P) int32,
 "segments": [...]}: an attention segment holds {"k_pages", "v_pages":
 (count, n_pages + 1, page, n_kv, hd)}, the last page of each pool a scratch
@@ -29,14 +32,18 @@ page that dropped writes land in (see paged_cache.py), and a quantized pool
 (cfg.kv_quantized) adds "k_scale", "v_scale": (count, n_pages + 1, n_kv)
 f32. The dense cache is {"lengths": (B,) int32, "segments": [...]} with
 {"k", "v": (count, B, max_len, n_kv, hd)} for an attention segment. A
-Mamba2 segment holds the same per-slot states in both caches: {"conv":
-(count, B, ssm_conv - 1, inner) in cfg.dtype, "ssd": (count, B, H, P, N)
-f32}. Every entry point updates its cache in place and returns it.
+recurrent segment holds the same per-slot states in both caches: Mamba2
+{"conv": (count, B, ssm_conv - 1, inner) in cfg.dtype, "ssd": (count, B,
+H, P, N) f32}; mLSTM {"C": (count, B, H, hd, hd), "n": (count, B, H, hd),
+"m": (count, B, H)} f32; sLSTM {"h", "c", "n", "m": (count, B, d_model)}
+f32. A segment's kind, not its keys, tells the two apart
+(`attention_segments`, `state_segments`). Every entry point updates its
+cache in place and returns it.
 
 The recurrent states follow the JAX package with one departure: a decode
 step with an `active` mask leaves inactive rows' states as they were (the
 JAX package advances every row, which corrupts a parked prefix that later
-forks copy; see `ssm.mamba2_decode`).
+forks copy; see `ssm.mamba2_decode`, `xlstm.mlstm_decode`).
 """
 from __future__ import annotations
 
@@ -50,7 +57,9 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import paged_cache as pc
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.config import ATTN, MAMBA2, SHARED_ATTN, ModelConfig
+from repro_torch.models import xlstm as xlstm_lib
+from repro_torch.models.config import (ATTN, MAMBA2, MLSTM, SHARED_ATTN,
+                                       SLSTM, ModelConfig)
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense_init,
                                        embed, init_embedding, init_mlp, mlp,
                                        norm, rope_tables, unembed)
@@ -67,12 +76,14 @@ def segments_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return segs
 
 
-SUPPORTED_KINDS = (ATTN, MAMBA2, SHARED_ATTN)
+SUPPORTED_KINDS = (ATTN, MAMBA2, MLSTM, SLSTM, SHARED_ATTN)
+# the kinds with per-slot recurrent states, and each one's params key
+RECURRENT_KINDS = {MAMBA2: "mamba", MLSTM: "mlstm", SLSTM: "slstm"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves stacks of attention, Mamba2 and shared-attention
-    blocks."""
+    """The port serves stacks of attention, Mamba2, xLSTM and
+    shared-attention blocks."""
     kinds = {kind for kind, _ in segments_of(cfg)}
     if not kinds <= set(SUPPORTED_KINDS):
         raise NotImplementedError(
@@ -83,9 +94,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def is_recurrent(cfg: ModelConfig) -> bool:
-    """True for a stack with a recurrent (Mamba2) segment: its prefill scans
-    the whole prompt in one call, so it cannot ingest in chunks."""
-    return any(kind == MAMBA2 for kind, _ in segments_of(cfg))
+    """True for a stack with a recurrent (Mamba2, mLSTM, sLSTM) segment: its
+    prefill scans the whole prompt in one call, so it cannot ingest in
+    chunks."""
+    return any(kind in RECURRENT_KINDS for kind, _ in segments_of(cfg))
 
 
 def _check_attention_only(cfg: ModelConfig) -> None:
@@ -107,9 +119,11 @@ def check_paged_supported(cfg: ModelConfig) -> None:
 def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
                 device) -> dict:
     d = cfg.d_model
-    if kind == MAMBA2:
+    if kind in RECURRENT_KINDS:
+        init = {MAMBA2: ssm_lib.init_mamba2, MLSTM: xlstm_lib.init_mlstm,
+                SLSTM: xlstm_lib.init_slstm}[kind]
         return {"norm1": {"scale": torch.ones(d, device=device)},
-                "mamba": ssm_lib.init_mamba2(cfg, gen, dtype, device)}
+                RECURRENT_KINDS[kind]: init(cfg, gen, dtype, device)}
     return {
         "norm1": {"scale": torch.ones(d, device=device)},
         "attn": attn_lib.init_attention(cfg, gen, dtype, device),
@@ -121,8 +135,9 @@ def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random weights from `seed`, drawn one tensor at a time on `device`
     (default the card; see `kernels.runtime.resolve_device`) and stored in
-    their working dtype (matmul weights and embeddings in cfg.dtype, norm
-    scales and the length head in float32)."""
+    their working dtype (matmul weights and embeddings in cfg.dtype; norm
+    scales, the length head and the leaves `convert` keeps in float32, in
+    float32)."""
     cfg.validate()
     check_supported(cfg)
     device = runtime.resolve_device(device)
@@ -161,31 +176,44 @@ def _walk(cfg: ModelConfig, params: dict, cache: Optional[dict] = None):
                                 else {k: v[j] for k, v in segc.items()})
 
 
-def attention_segments(cache: dict) -> List[dict]:
+def attention_segments(cfg: ModelConfig, cache: dict) -> List[dict]:
     """The cache's attention segments (K/V rows or page pools)."""
-    return [seg for seg in cache["segments"] if "ssd" not in seg]
+    return [seg for (kind, _), seg in zip(segments_of(cfg), cache["segments"])
+            if kind not in RECURRENT_KINDS]
 
 
-def _state_segments(cache: dict) -> List[dict]:
-    """The cache's Mamba2 segments (per-slot recurrent states)."""
-    return [seg for seg in cache["segments"] if "ssd" in seg]
+def state_segments(cfg: ModelConfig, cache: dict) -> List[dict]:
+    """The cache's recurrent segments (per-slot states)."""
+    return [seg for (kind, _), seg in zip(segments_of(cfg), cache["segments"])
+            if kind in RECURRENT_KINDS]
 
 
-def _first_attention(cache: dict) -> Optional[dict]:
-    """The first attention segment of a cache (None for a pure SSM stack):
-    the per-call plans are built from its shapes."""
-    segs = attention_segments(cache)
+def _first_attention(cfg: ModelConfig, cache: dict) -> Optional[dict]:
+    """The first attention segment of a cache (None for a purely recurrent
+    stack): the per-call plans are built from its shapes."""
+    segs = attention_segments(cfg, cache)
     return segs[0] if segs else None
 
 
-def _ssm_states(cfg: ModelConfig, count: int, batch: int, device) -> dict:
-    """A Mamba2 segment's per-slot states, zeros: the conv tail in
-    cfg.dtype and the SSD state in float32."""
-    inner, H, P, N = ssm_lib.ssm_dims(cfg)
-    return {"conv": torch.zeros((count, batch, cfg.ssm_conv - 1, inner),
-                                dtype=compute_dtype(cfg), device=device),
-            "ssd": torch.zeros((count, batch, H, P, N), dtype=torch.float32,
-                               device=device)}
+def _recurrent_states(cfg: ModelConfig, kind: str, count: int, batch: int,
+                      device) -> dict:
+    """A recurrent segment's per-slot states, zeros as in the JAX package's
+    `init_cache`: Mamba2's conv tail in cfg.dtype and SSD state in float32,
+    the mLSTM's C, n, m and the sLSTM's h, c, n, m in float32. A prefill
+    overwrites a slot's states whatever they held."""
+    f32 = dict(dtype=torch.float32, device=device)
+    if kind == MAMBA2:
+        inner, H, P, N = ssm_lib.ssm_dims(cfg)
+        return {"conv": torch.zeros((count, batch, cfg.ssm_conv - 1, inner),
+                                    dtype=compute_dtype(cfg), device=device),
+                "ssd": torch.zeros((count, batch, H, P, N), **f32)}
+    if kind == MLSTM:
+        _, H, hd = xlstm_lib.mlstm_dims(cfg)
+        return {"C": torch.zeros((count, batch, H, hd, hd), **f32),
+                "n": torch.zeros((count, batch, H, hd), **f32),
+                "m": torch.zeros((count, batch, H), **f32)}
+    return {k: torch.zeros((count, batch, cfg.d_model), **f32)
+            for k in xlstm_lib.SLSTM_STATE}
 
 
 # ---------------------------------------------------------------------------
@@ -197,25 +225,42 @@ def _mlp_residual(cfg: ModelConfig, layer: dict, x: torch.Tensor
     return x + mlp(cfg, layer["mlp"], norm(cfg, layer["norm2"], x))
 
 
-def _mamba_prefill(cfg: ModelConfig, layer: dict, x: torch.Tensor,
-                   conv: torch.Tensor, ssd: torch.Tensor) -> torch.Tensor:
-    """One Mamba2 block over whole prompts (x: (B, S, D)); its final states
-    are copied into `conv` (B, K-1, inner) and `ssd` (B, H, P, N). The scan
-    runs over all S rows, padding included, as in the JAX package."""
-    out, conv_s, ssd_s = ssm_lib.mamba2_fwd(
-        cfg, layer["mamba"], norm(cfg, layer["norm1"], x), return_state=True)
-    conv.copy_(conv_s)
-    ssd.copy_(ssd_s)
+def _recurrent_block(cfg: ModelConfig, kind: str, layer: dict,
+                     x: torch.Tensor, c: Optional[dict] = None
+                     ) -> torch.Tensor:
+    """One recurrent block over whole sequences (x: (B, S, D)), its scan
+    started from the block's initial state, as each scan of the JAX
+    package's prefill starts; with `c` (views of the B cache rows' state
+    leaves), its final states are copied there. The scan covers all S rows,
+    padding included: the engine prefills a recurrent stack unpadded."""
+    xin = norm(cfg, layer["norm1"], x)
+    p = layer[RECURRENT_KINDS[kind]]
+    if kind == MAMBA2:
+        out, conv, ssd = ssm_lib.mamba2_fwd(cfg, p, xin, return_state=True)
+        final = {"conv": conv, "ssd": ssd}
+    elif kind == MLSTM:
+        out, final = xlstm_lib.mlstm_fwd(cfg, p, xin, return_state=True)
+    else:
+        out, final = xlstm_lib.slstm_fwd(cfg, p, xin, return_state=True)
+    for k, leaf in (c or {}).items():
+        leaf.copy_(final[k])
     return x + out
 
 
-def _mamba_decode(cfg: ModelConfig, layer: dict, x: torch.Tensor, c: dict,
-                  active: Optional[torch.Tensor]) -> torch.Tensor:
-    """One Mamba2 block's decode step on x (B, 1, D), its states `c` updated
-    in place where `active` (all rows without one)."""
-    out, _, _ = ssm_lib.mamba2_decode(cfg, layer["mamba"],
-                                      norm(cfg, layer["norm1"], x), c["conv"],
-                                      c["ssd"], active)
+def _recurrent_decode(cfg: ModelConfig, kind: str, layer: dict,
+                      x: torch.Tensor, c: dict,
+                      active: Optional[torch.Tensor]) -> torch.Tensor:
+    """One recurrent block's decode step on x (B, 1, D), its states `c`
+    updated in place where `active` (all rows without one)."""
+    xin = norm(cfg, layer["norm1"], x)
+    p = layer[RECURRENT_KINDS[kind]]
+    if kind == MAMBA2:
+        out, _, _ = ssm_lib.mamba2_decode(cfg, p, xin, c["conv"], c["ssd"],
+                                          active)
+    elif kind == MLSTM:
+        out = xlstm_lib.mlstm_decode(cfg, p, xin, c, active)
+    else:
+        out = xlstm_lib.slstm_decode(cfg, p, xin, c, active)
     return x + out
 
 
@@ -246,7 +291,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
 
     Every attention layer reads through the flash-attention wrapper
     (causal, with cfg's window and softcap), every Mamba2 layer scans
-    through the SSD-scan wrapper. The aux loss is the MoE balance loss of
+    through the SSD-scan wrapper, every xLSTM layer runs its plain PyTorch
+    cell. The aux loss is the MoE balance loss of
     the JAX package, zero for the stacks the port serves."""
     check_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
@@ -254,9 +300,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
     positions = torch.arange(S, device=x.device)[None]
     rope = _rope(cfg, positions)
     for kind, layer, _ in _walk(cfg, params):
-        if kind == MAMBA2:
-            x = x + ssm_lib.mamba2_fwd(cfg, layer["mamba"],
-                                       norm(cfg, layer["norm1"], x))
+        if kind in RECURRENT_KINDS:
+            x = _recurrent_block(cfg, kind, layer, x)
             continue
         h = attn_lib.attention_fwd(cfg, layer["attn"],
                                    norm(cfg, layer["norm1"], x), positions,
@@ -276,12 +321,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """{"lengths": (batch,) int32, "segments": [...]}, zeros: an attention
     segment's {"k", "v": (count, batch, max_len, n_kv, hd)} in cfg.dtype
     (`cache.init_kv_cache`; the sliding-window ring is not ported), a
-    Mamba2 segment's per-slot states."""
+    recurrent segment's per-slot states."""
     check_supported(cfg)
     segs = []
     for kind, count in segments_of(cfg):
-        if kind == MAMBA2:
-            segs.append(_ssm_states(cfg, count, batch, device))
+        if kind in RECURRENT_KINDS:
+            segs.append(_recurrent_states(cfg, kind, count, batch, device))
             continue
         segs.append(cache_lib.init_kv_cache(
             count, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
@@ -335,9 +380,10 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     prompt_lengths: (B,) valid counts (default S). The cache may be a view
     of some rows of a larger one (the engine passes one slot's rows): the
     rows are written in place, K/V at positions [0, S) and zeros past S,
-    the Mamba2 states after all S positions (padding included, as in the
-    JAX package: the engine prefills a recurrent stack unpadded), and its
-    lengths are set to prompt_lengths."""
+    the recurrent states after all S positions from the initial state
+    (padding included, as in the JAX package: the engine prefills a
+    recurrent stack unpadded), and its lengths are set to
+    prompt_lengths."""
     check_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     B, S = x.shape[:2]
@@ -346,8 +392,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     plens = attn_lib.as_int32(prompt_lengths, x.device)
     rope = _rope(cfg, torch.arange(S, device=x.device)[None])
     for kind, layer, c in _walk(cfg, params, cache):
-        if kind == MAMBA2:
-            x = _mamba_prefill(cfg, layer, x, c["conv"], c["ssd"])
+        if kind in RECURRENT_KINDS:
+            x = _recurrent_block(cfg, kind, layer, x, c)
             continue
         x = _prefill_block(cfg, layer, x, rope, plens,
                            _dense_writer(c["k"], c["v"]))
@@ -372,21 +418,21 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     Every attention layer writes the new token's K/V at each row's length
     (clamped to fit, inactive rows included: their writes land in freed
-    space) and reads through the decode-attention wrapper; every Mamba2
-    layer advances its states. `active` (B,) bool masks the length advance
-    and the Mamba2 state updates. `live_rows` bounds the read to the
+    space) and reads through the decode-attention wrapper; every recurrent
+    layer advances its states in place. `active` (B,) bool masks the
+    length advance and the recurrent state updates. `live_rows` bounds the read to the
     cache's first rows (at least every active row's length + 1; inactive
     rows' logits are then unspecified). The write plan, RoPE tables and
     read lengths are built once per call."""
     check_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     lengths = cache["lengths"]
-    attn = _first_attention(cache)
+    attn = _first_attention(cfg, cache)
     call = None if attn is None else attn_lib.dense_decode_call(
         cfg, lengths, 1, attn["k"].shape[2], live_rows)
     for kind, layer, c in _walk(cfg, params, cache):
-        if kind == MAMBA2:
-            x = _mamba_decode(cfg, layer, x, c, active)
+        if kind in RECURRENT_KINDS:
+            x = _recurrent_decode(cfg, kind, layer, x, c, active)
             continue
         h, _, _ = attn_lib.attention_decode(
             cfg, layer["attn"], norm(cfg, layer["norm1"], x), c["k"], c["v"],
@@ -416,15 +462,16 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
     cfg.kv_quantized stores the pools as int8 / float8_e4m3fn and adds the
     per-(page, kv head) f32 scales k_scale/v_scale: (count, n_pages + 1,
     n_kv), initialised to ones so unwritten pages dequantize to zeros.
-    Mamba2 segments keep their O(1) per-slot states, as in the dense cache.
+    Recurrent segments keep their O(1) per-slot states, as in the dense
+    cache.
     """
     check_paged_supported(cfg)
     hd = cfg.resolved_head_dim
     adt = pc.kv_storage_dtype(cfg.resolved_kv_dtype)
     segs = []
     for kind, count in segments_of(cfg):
-        if kind == MAMBA2:
-            segs.append(_ssm_states(cfg, count, batch, device))
+        if kind in RECURRENT_KINDS:
+            segs.append(_recurrent_states(cfg, kind, count, batch, device))
             continue
         shape = (count, n_pages + 1, page_size, cfg.n_kv_heads, hd)
         seg = {"k_pages": torch.zeros(shape, dtype=adt, device=device),
@@ -448,8 +495,8 @@ def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     pages for `prompt_len` tokens: the layers run `_prefill_block` as dense
     prefill does, and each writes its K/V at positions [0, prompt_len)
     through the block table (the padding goes to the scratch page); the
-    Mamba2 layers scan all S positions and store their final states in row
-    `slot`. Sets lengths[slot] = prompt_len; a quantized pool requantizes
+    recurrent layers scan all S positions from their initial states and
+    store their final states in row `slot`. Sets lengths[slot] = prompt_len; a quantized pool requantizes
     the pages the prompt covers. Returns (logits (1, V), cache)."""
     check_paged_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
@@ -458,7 +505,7 @@ def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                              else [int(prompt_len)], x.device)
     rope = _rope(cfg, torch.arange(S, device=x.device)[None])
     row = cache["block_table"][slot]
-    attn = _first_attention(cache)
+    attn = _first_attention(cfg, cache)
     if attn is not None:
         offs, pages = torch.zeros_like(plen), attn["k_pages"][0]
         if cfg.kv_quantized:
@@ -479,9 +526,9 @@ def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         return write
 
     for kind, layer, c in _walk(cfg, params, cache):
-        if kind == MAMBA2:
-            x = _mamba_prefill(cfg, layer, x, c["conv"][slot:slot + 1],
-                               c["ssd"][slot:slot + 1])
+        if kind in RECURRENT_KINDS:
+            x = _recurrent_block(cfg, kind, layer, x,
+                                 {k: v[slot:slot + 1] for k, v in c.items()})
             continue
         x = _prefill_block(cfg, layer, x, rope, plen, writer(c))
     logits = _logits_at(cfg, params, x, plen)
@@ -569,22 +616,22 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     Every attention layer appends the new token into its page pools through
     the block table and reads through the paged decode wrapper; every
-    Mamba2 layer advances its per-slot states. `active` masks freed rows'
-    length advance, their K/V writes — the engine pushes block-table clears
-    lazily, so a freed row's stale table entry may still map a COW
-    sibling's pages — and their Mamba2 state updates (a parked prefix row
-    keeps the state its forks copy). `live_pages` bounds the read to the
+    recurrent layer advances its per-slot states in place. `active` masks
+    freed rows' length advance, their K/V writes — the engine pushes
+    block-table clears lazily, so a freed row's stale table entry may still
+    map a COW sibling's pages — and their recurrent state updates (a parked
+    prefix row keeps the state its forks copy). `live_pages` bounds the read to the
     first live block-table columns."""
     check_paged_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     lengths = cache["lengths"]
     table = cache["block_table"]
-    attn = _first_attention(cache)
+    attn = _first_attention(cfg, cache)
     call = None if attn is None else attn_lib.decode_call(
         cfg, table, lengths, attn["k_pages"][0], live_pages, active)
     for kind, layer, c in _walk(cfg, params, cache):
-        if kind == MAMBA2:
-            x = _mamba_decode(cfg, layer, x, c, active)
+        if kind in RECURRENT_KINDS:
+            x = _recurrent_decode(cfg, kind, layer, x, c, active)
             continue
         h = attn_lib.attention_decode_paged(
             cfg, layer["attn"], norm(cfg, layer["norm1"], x), c["k_pages"],
@@ -603,16 +650,16 @@ def fork_slot_paged(cfg: ModelConfig, cache: dict, src_slot: int,
     """Device-side state duplication behind copy-on-write prefix sharing:
     copy the partial tail page of every attention layer (tail_src_page ==
     tail_dst_page is a no-op when the prefix is page-aligned), with its
-    scales in a quantized pool, and the source row's Mamba2 states into
+    scales in a quantized pool, and the source row's recurrent states into
     the destination row, then mirror the source row's cached length. Also
     serves plain COW page copies: call with src_slot == dst_slot and the
     (old, new) page pair from `PageAllocator.cow_page`."""
     check_paged_supported(cfg)
-    for seg in attention_segments(cache):
+    for seg in attention_segments(cfg, cache):
         for leaf in seg.values():
             pc.copy_page(leaf, tail_src_page, tail_dst_page)
     if src_slot != dst_slot:
-        for seg in _state_segments(cache):
+        for seg in state_segments(cfg, cache):
             for leaf in seg.values():
                 leaf[:, dst_slot].copy_(leaf[:, src_slot])
     cache["lengths"][dst_slot] = cache["lengths"][src_slot]
@@ -637,7 +684,7 @@ def promote_slot_paged(cfg: ModelConfig, cache: dict, upload_ids, payloads,
     pass through untouched (the engine gates swap to attention-only
     stacks)."""
     check_paged_supported(cfg)
-    segs = attention_segments(cache)
+    segs = attention_segments(cfg, cache)
     ids = [int(p) for p in upload_ids]
     if ids:
         if len(payloads) != len(segs):

@@ -330,7 +330,7 @@ class InferenceEngine:
             # states are per slot, not per page)
             self._page_kv_bytes = sum(
                 seg[k][:, 0].numel() * seg[k].element_size()
-                for seg in transformer.attention_segments(self.cache)
+                for seg in transformer.attention_segments(self.cfg, self.cache)
                 for k in seg)
         else:
             self.cache = transformer.init_cache(cfg, max_batch, max_len,
@@ -406,7 +406,7 @@ class InferenceEngine:
         can hand a freed id to another slot and write into it."""
         idx = runtime.host_array_on(np.asarray(ids, np.int64), self.device)
         parts = []
-        for seg in transformer.attention_segments(self.cache):
+        for seg in transformer.attention_segments(self.cfg, self.cache):
             for leaf in seg.values():
                 g = leaf.view(torch.uint8).index_select(1, idx).reshape(-1)
                 parts.append(g)
@@ -420,7 +420,7 @@ class InferenceEngine:
     def _packed_bytes(self, n: int) -> int:
         """Bytes of `_snapshot`'s packed host buffer for n pages."""
         total = 0
-        for seg in transformer.attention_segments(self.cache):
+        for seg in transformer.attention_segments(self.cfg, self.cache):
             for leaf in seg.values():
                 nbytes = leaf[:, 0].numel() * leaf.element_size() * n
                 total += nbytes + (-nbytes) % 16
@@ -432,7 +432,7 @@ class InferenceEngine:
         segment of (count, n, ...) views of `packed` at each leaf's storage
         dtype, on `packed`'s device."""
         out, off = [], 0
-        for seg in transformer.attention_segments(self.cache):
+        for seg in transformer.attention_segments(self.cfg, self.cache):
             pay = {}
             for k, leaf in seg.items():
                 shape = (leaf.shape[0], n) + tuple(leaf.shape[2:])
@@ -1371,7 +1371,8 @@ class InferenceEngine:
         """Restore batch row `slot`'s cached length and recurrent states
         after the body: a warm variant that must name a real row."""
         rows = [self.cache["lengths"][slot:slot + 1]] + [
-            leaf[:, slot] for seg in self.cache["segments"] if "ssd" in seg
+            leaf[:, slot]
+            for seg in transformer.state_segments(self.cfg, self.cache)
             for leaf in seg.values()]
         saved = [r.clone() for r in rows]
         try:
@@ -1385,7 +1386,7 @@ class InferenceEngine:
         inactive. Its K/V writes land at each slot's length (clamped, as
         `cache.write_plan` does), so those rows are restored after it."""
         dev, B = self.device, self.max_batch
-        attn = transformer.attention_segments(self.cache)
+        attn = transformer.attention_segments(self.cfg, self.cache)
         kept = []
         if attn:
             S = attn[0]["k"].shape[2]

@@ -42,6 +42,12 @@ SSM_CONFIGS = {
     "zamba2-4l": get_config("zamba2-2.7b").reduced().with_(
         n_layers=4, dtype="float32", remat=False),
 }
+# xlstm-1.3b cut to 4 layers (sLSTM, mLSTM, sLSTM, mLSTM) and to chunks of
+# 16, so that a prompt of 37 is cut differently on the two sides: the JAX
+# package halves its chunk until it divides S (37 chunks of 1), the port
+# runs 16 + 16 + 5.
+XLSTM = get_config("xlstm-1.3b").reduced().with_(
+    n_layers=4, slstm_at=(0, 2), ssm_chunk=16, dtype="float32", remat=False)
 # Logits and states of a recurrent stack: one Mamba2 block's float32 output
 # lies up to 1.2e-5 from a float64 evaluation on either side (TINY_EDGE_C,
 # 40 tokens), and the two packages' logits differ by up to 9e-5 after four

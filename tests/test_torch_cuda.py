@@ -616,6 +616,49 @@ def test_ssm_tiny_engines_card_vs_cpu(gen, backend):
                                        rtol=1e-4, atol=1e-5)
 
 
+def _xlstm():
+    """xlstm-1.3b cut to 4 layers (sLSTM, mLSTM, sLSTM, mLSTM), chunks of
+    16, float32: the CPU tests' XLSTM."""
+    from repro_torch.configs.registry import get_config
+    return get_config("xlstm-1.3b").reduced().with_(
+        n_layers=4, slstm_at=(0, 2), ssm_chunk=16, dtype="float32",
+        remat=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_xlstm_tiny_engines_card_vs_cpu(gen, backend):
+    """The 4-layer xLSTM stack (float32) on the card against the CPU:
+    greedy tokens equal, logprobs within rtol 1e-4, atol 1e-5, every norm
+    through the RMSNorm kernel (a 37-token prompt cuts its mLSTM chunks
+    16 + 16 + 5), and a fan-out's late forks equal to its early ones."""
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = _xlstm()
+    prompts = [[65 + i for i in range(37)], [70, 71], [80] * 32]
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    out, fan = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _to(params, "cuda")
+        eng = InferenceEngine(cfg, p, max_batch=3, max_len=128,
+                              page_size=16, kv_backend=backend, device=dev)
+        before = rops.rmsnorm.launches
+        out[dev] = eng.generate(prompts, max_new=12)
+        if dev == "cuda":
+            assert rops.rmsnorm.launches > before
+        if backend == "paged":
+            fan[dev] = eng.generate_fanout([(7 * i) % 200 + 1
+                                            for i in range(32)],
+                                           [[7]] * 4, max_new=8)
+    if backend == "paged":
+        assert all(f == fan["cuda"][0] for f in fan["cuda"])
+        out = {d: out[d] + fan[d] for d in out}
+    for (tg, lg), (tc, lc) in zip(out["cuda"], out["cpu"]):
+        assert tg == tc
+        torch.testing.assert_close(torch.tensor(lg), torch.tensor(lc),
+                                   rtol=1e-4, atol=1e-5)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -661,23 +704,37 @@ def _tiny(kv_dtype="", chunk=16):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["float32", "int8", "tiny-edge-c"])
+@pytest.mark.parametrize("which", ["float32", "int8", "tiny-edge-c",
+                                   "xlstm"])
 @pytest.mark.parametrize("sampled", [False, True])
 def test_warmed_engine_equals_cold_on_card(gen, which, sampled):
     """A warmed paged engine replays one captured graph for every decode
-    step and gives the cold engine's tokens, logprobs and launch counts
-    (float32 and int8 pools, the Mamba2 stack TINY_EDGE_C); sampled runs
-    from the same seed draw the same tokens."""
+    step (no eager decode dispatch) and gives the cold engine's tokens,
+    logprobs and launch counts (float32 and int8 pools, the Mamba2 stack
+    TINY_EDGE_C, the 4-layer xLSTM stack); sampled runs from the same seed
+    draw the same tokens."""
     from repro_torch.configs.pice_cloud_edge import TINY_EDGE_C
     from repro_torch.serving.sampler import SamplerConfig
     cfg = {"float32": _tiny(), "int8": _tiny("int8"),
-           "tiny-edge-c": TINY_EDGE_C.with_(dtype="float32")}[which]
+           "tiny-edge-c": TINY_EDGE_C.with_(dtype="float32"),
+           "xlstm": _xlstm()}[which]
     sampler = SamplerConfig(temperature=0.8, top_k=16) if sampled else None
     cold, warm = _warm_pair(cfg, sampler)
     assert warm._graphs, "warmup captured no graph on the card"
     prompts = [[65 + i for i in range(43)], [70, 71], [80] * 32]
     want, n_cold = _counted(lambda: cold.generate(prompts, max_new=12))
-    got, n_warm = _counted(lambda: warm.generate(prompts, max_new=12))
+    eager = []
+    decode_sample = warm._decode_sample
+    warm._decode_sample = lambda *a, **kw: (eager.append(1),
+                                            decode_sample(*a, **kw))[1]
+    try:
+        got, n_warm = _counted(lambda: warm.generate(prompts, max_new=12))
+    finally:
+        # the wrapper closes a reference cycle through the engine, whose
+        # graphs the cyclic collector could then free during a later
+        # test's capture, which a capture does not allow
+        del warm._decode_sample
+    assert not eager, "a decode step ran eagerly on the warmed engine"
     assert n_warm == n_cold
     decode = "paged_decode_attention_quant" if which == "int8" \
         else "paged_decode_attention"

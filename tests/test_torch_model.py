@@ -118,6 +118,6 @@ def test_unsupported_configs_raise():
     base = CONFIGS["tiny"]
     for cfg in (base.with_(attn_logit_softcap=30.0),
                 base.with_(sliding_window=16),
-                base.with_(family="ssm", slstm_at=(0,))):
+                base.with_(family="moe", n_experts=4, experts_per_token=2)):
         with pytest.raises(NotImplementedError):
             tt.init_paged_cache(cfg, 2, 4, 8, 2)

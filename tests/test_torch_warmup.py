@@ -1,7 +1,8 @@
 """The port's `InferenceEngine.warmup()` against the JAX package's: the same
 count of variant dispatches for the same config and arguments (chunked
 ragged, serial and monolithic paged engines, host swap on and off, an int8
-pool, the dense backend, a recurrent stack); state-neutral (the generator's
+pool, the dense backend, the recurrent Mamba2 and xLSTM stacks);
+state-neutral (the generator's
 state, and every cache byte but the scratch page's, as they were; a warmed
 engine's sampled output equal to a cold one's); a busy engine refused. And
 the precondition of the decode graphs a warmed engine replays on the card:
@@ -10,7 +11,7 @@ evicts by swap and by replay, forks, promotes and cancels."""
 import pytest
 import torch
 
-from _torch_common import (PROMPTS, SSM_CONFIGS, TINY, jax_config,
+from _torch_common import (PROMPTS, SSM_CONFIGS, TINY, XLSTM, jax_config,
                            params_pair)
 from repro.serving.engine import InferenceEngine as JEngine
 from repro_torch.configs.pice_cloud_edge import TINY_CLOUD
@@ -34,8 +35,11 @@ ENGINES = {
     "dense": ("tiny", 0, "", dict(kv_backend="dense")),
     "ssm-paged": ("tiny-edge-c", 0, "", {}),
     "ssm-dense": ("tiny-edge-c", 0, "", dict(kv_backend="dense")),
+    "xlstm-paged": ("xlstm", 0, "", {}),
+    "xlstm-dense": ("xlstm", 0, "", dict(kv_backend="dense")),
 }
-CONFIGS = {"tiny": TINY, "tiny-edge-c": SSM_CONFIGS["tiny-edge-c"]}
+CONFIGS = {"tiny": TINY, "tiny-edge-c": SSM_CONFIGS["tiny-edge-c"],
+           "xlstm": XLSTM}
 
 
 @pytest.fixture(scope="module")
@@ -77,7 +81,8 @@ def test_count_equals_jax_warmup_by_arguments(params, name, args):
 
 def _scratch_free(eng):
     """Every cache leaf, an attention pool's scratch page left out."""
-    attn = {id(t) for seg in transformer.attention_segments(eng.cache)
+    attn = {id(t) for seg in transformer.attention_segments(eng.cfg,
+                                                            eng.cache)
             for t in seg.values()}
     out = []
     for t in engine_mod._tensors(eng.cache):
@@ -108,7 +113,7 @@ def test_warmup_is_state_neutral(params, name):
 
 @pytest.mark.parametrize("name", ["chunked-ragged", "chunked-serial",
                                   "monolithic", "int8-chunked", "dense",
-                                  "ssm-paged"])
+                                  "ssm-paged", "xlstm-paged", "xlstm-dense"])
 def test_warmed_engine_samples_as_cold(params, name):
     """The port of tests/test_plan_run.py::test_warmup_is_state_neutral: a
     warmed engine's sampled output is bitwise a cold one's."""
