@@ -26,11 +26,8 @@ import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.models.config import SHARED_ATTN, ModelConfig
-from repro_torch.models.layers import compute_dtype
+from repro_torch.models.layers import FLOAT32_LEAVES, compute_dtype
 from repro_torch.models.transformer import check_supported, segments_of
-
-_FLOAT32_LEAVES = ("scale", "q_norm", "k_norm", "A_log", "D", "dt_bias",
-                   "norm_scale", "b_i", "b_f", "b_gates", "r_gates")
 
 
 def _leaf(name: str, a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -41,7 +38,7 @@ def _leaf(name: str, a: np.ndarray, dtype, device) -> torch.Tensor:
         a = a.reshape(-1, a.shape[-1])
     elif name in ("bq", "bk", "bv"):          # (H, hd) -> (H*hd,)
         a = a.reshape(-1)
-    keep_f32 = name in _FLOAT32_LEAVES
+    keep_f32 = name in FLOAT32_LEAVES
     return torch.from_numpy(a).to(device=device,
                                   dtype=torch.float32 if keep_f32 else dtype)
 
@@ -53,12 +50,15 @@ def _convert(tree, dtype, device, name: str = ""):
 
 
 def params_from_reference(cfg: ModelConfig, ref: Dict[str, Any],
-                          device=None) -> dict:
+                          device=None, master: bool = False) -> dict:
     """ref: the JAX params pytree with numpy leaves -> the port's params on
-    `device` (default the card; see `kernels.runtime.resolve_device`)."""
+    `device` (default the card; see `kernels.runtime.resolve_device`): the
+    working params, or with `master` every leaf in float32 (the training
+    masters, `transformer.init_params(master=True)`; also the layout the
+    JAX package's gradients convert into)."""
     check_supported(cfg)
     device = runtime.resolve_device(device)
-    dtype = compute_dtype(cfg)
+    dtype = torch.float32 if master else compute_dtype(cfg)
     segments = []
     for (kind, count), stacked in zip(segments_of(cfg), ref["segments"]):
         segments.append([] if kind == SHARED_ATTN else [

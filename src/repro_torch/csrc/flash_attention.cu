@@ -67,6 +67,25 @@
 // Layouts (all contiguous): q, out (B, S, Hq, hd); k, v (B, S, Hkv, hd);
 // head_dim a multiple of 4 up to 256; query head j reads kv head
 // j / q_per_kv.
+//
+// The backward (no TPU counterpart: the JAX package differentiates its
+// plain jnp), from q, k, v, the forward's out and its log-sum-exp lse
+// (B, Hq, S) and the output gradient dO, in float32 arithmetic whatever
+// the input type (a scalar kernel: the tensor cores are later work):
+//   P = exp(s - lse) on the kept scores, D = rowsum(dO * O) (bwd_rowdot),
+//   dS = P (dO V^T - D), through the softcap dU = dS (1 - (s / c)^2),
+//   dV = P^T dO, dK = scale dU^T Q (bwd_dkdv_kernel), dQ = scale dU K
+//   (bwd_dq_kernel).
+// No two blocks write one output element, so there are no atomics and the
+// gradients are the same bits on every run: a dK / dV block owns 32 keys of
+// one (batch, query head) and walks every 32-row query tile whose mask
+// reaches its keys, summing in registers; with q_per_kv > 1 it writes its
+// head's share to a float32 scratch and bwd_reduce_heads adds the group's
+// shares in head order (a block per kv head instead would leave qwen2-
+// 1.5b's 12 over 2 heads at 128 blocks for 132 SMs). A dQ block owns 32
+// query rows of one head and walks the key tiles its mask reaches. Both
+// recompute P from lse; both hold their tiles in float32 in shared memory
+// with rows padded to hd + 1 (conflict-free column reads).
 
 #include <stdint.h>
 
@@ -97,9 +116,9 @@ size_t smem_floats(int hd, int dc) {
 template <typename T, int DC>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int Hq,
-             int Hkv, int hd, int BP, int causal, int window, float softcap,
-             float scale) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int S, int Hq, int Hkv, int hd, int BP,
+             int causal, int window, float softcap, float scale) {
   using V = Vec<T>;
   using Raw = typename V::Raw;
   constexpr int VEC = V::kN;
@@ -268,6 +287,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!row_ok[i]) continue;
     const size_t o = q_off(ty + kTY * i);
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    if (lse != nullptr && tx == 0) {
+      const int r = ty + kTY * i;
+      lse[((size_t)b * Hq + h * rep + r / np) * S + p0 + r % np] =
+          m[i] + logf(l[i]);
+    }
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
       const int d = tx + kTX * j;
@@ -385,9 +409,10 @@ __global__ void __launch_bounds__(128 * RW * KG)
 flash_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ out, int S, int Hq, int Hkv,
-                   int hd, int HB, int causal, int window, float softcap,
-                   float scale_log2, int copy_bytes) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int S, int Hq, int Hkv, int hd, int HB, int causal,
+                   int window, float softcap, float scale_log2,
+                   int copy_bytes) {
   constexpr int NJ = 8;  // 8-wide key tiles of a K/V tile, and output
                          // tiles of a 64-column atom
   constexpr int key_groups = KG, rows = 64 * RW, threads = 128 * RW * KG;
@@ -674,6 +699,7 @@ flash_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
       const float a0 = exp2_approx(m[i] - m_new);
       const float a1 = exp2_approx(m1 - m_new);
       l[i] = l[i] * a0 + l1 * a1;
+      m[i] = m_new;
 #pragma unroll
       for (int a = 0; a < A; ++a)
 #pragma unroll
@@ -693,6 +719,11 @@ flash_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const int r = 16 * wu + g + 8 * i;
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    const int row = 64 * wg + r;
+    // the row's natural log-sum-exp: m and log2(l) are in base 2
+    if (lse != nullptr && t == 0 && row < nrows)
+      lse[((size_t)b * Hq + (size_t)h * rep + h0 + row / np) * S + p0 +
+          row % np] = (m[i] + __log2f(l[i])) * 0.6931471805599453f;
 #pragma unroll
     for (int a = 0; a < A; ++a)
 #pragma unroll
@@ -735,7 +766,8 @@ int sm_count() {
 // One launch shape of flash_kernel_wgmma: RW row warpgroups, KG key groups.
 template <int A, int RW, int KG>
 int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                 const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S,
+                 const __nv_bfloat16* v, __nv_bfloat16* out, float* lse,
+                 int B, int S,
                  int Hq, int Hkv, int hd, int causal, int window,
                  float softcap, cudaStream_t stream) {
   constexpr int rows = 64 * RW;
@@ -762,7 +794,7 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
               16 ==
           0;
   kernel<<<grid, 128 * RW * KG, smem, stream>>>(
-      q, k, v, out, S, Hq, Hkv, hd, HB, causal, window, softcap,
+      q, k, v, out, lse, S, Hq, Hkv, hd, HB, causal, window, softcap,
       kLog2e / sqrtf((float)hd), c16 ? 16 : 8);
   return (int)cudaGetLastError();
 }
@@ -772,13 +804,15 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
 // (head_dim up to 192), else one.
 template <int A>
 int launch_wgmma_shape(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                       const __nv_bfloat16* v, __nv_bfloat16* out, int B,
+                       const __nv_bfloat16* v, __nv_bfloat16* out, float* lse,
+                       int B,
                        int S, int Hq, int Hkv, int hd, int causal, int window,
                        float softcap, cudaStream_t stream) {
   const int rep = Hq / Hkv, hb = min(rep, 128), bp = 128 / hb;
   const long blocks128 =
       (long)B * Hkv * ((rep + hb - 1) / hb) * ((S + bp - 1) / bp);
-#define FLASH_ARGS q, k, v, out, B, S, Hq, Hkv, hd, causal, window, softcap
+#define FLASH_ARGS \
+  q, k, v, out, lse, B, S, Hq, Hkv, hd, causal, window, softcap
   if (blocks128 >= sm_count())
     return launch_wgmma<A, 2, 1>(FLASH_ARGS, stream);
   if constexpr (A <= 3)
@@ -790,15 +824,15 @@ int launch_wgmma_shape(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 // head_dim up to 256 in 64-wide atoms (zero padded)
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int S, int Hq, int Hkv, int hd, int causal, int window,
+                float* lse, int B, int S, int Hq, int Hkv, int hd, int causal, int window,
                 float softcap, cudaStream_t stream) {
   const auto* qt = static_cast<const __nv_bfloat16*>(q);
   const auto* kt = static_cast<const __nv_bfloat16*>(k);
   const auto* vt = static_cast<const __nv_bfloat16*>(v);
   auto* ot = static_cast<__nv_bfloat16*>(out);
 #define FLASH_WG(A)                                                      \
-  return launch_wgmma_shape<A>(qt, kt, vt, ot, B, S, Hq, Hkv, hd, causal, \
-                               window, softcap, stream)
+  return launch_wgmma_shape<A>(qt, kt, vt, ot, lse, B, S, Hq, Hkv, hd,    \
+                               causal, window, softcap, stream)
   if (hd <= 64) FLASH_WG(1);
   if (hd <= 128) FLASH_WG(2);
   if (hd <= 192) FLASH_WG(3);
@@ -808,7 +842,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 }
 
 template <typename T, int DC>
-int launch_dc(const T* q, const T* k, const T* v, T* out, int B, int S,
+int launch_dc(const T* q, const T* k, const T* v, T* out, float* lse,
+              int B, int S,
               int Hq, int Hkv, int hd, int causal, int window, float softcap,
               cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(hd, DC);
@@ -822,16 +857,16 @@ int launch_dc(const T* q, const T* k, const T* v, T* out, int B, int S,
   const int rep = Hq / Hkv;
   const int BP = kRows / rep;
   const dim3 grid((S + BP - 1) / BP, Hkv, B);
-  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, S, Hq, Hkv, hd, BP,
-                                           causal, window, softcap,
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, lse, S, Hq, Hkv, hd,
+                                           BP, causal, window, softcap,
                                            1.0f / sqrtf((float)hd));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int Hq, int Hkv, int hd, int causal, int window,
-           float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int Hq, int Hkv, int hd, int causal,
+           int window, float softcap, cudaStream_t stream) {
   if (hd % Vec<T>::kN || Hkv < 1 || Hq % Hkv || Hq / Hkv > kRows)
     return (int)cudaErrorInvalidValue;
   const T* qt = static_cast<const T*>(q);
@@ -839,7 +874,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
 #define FLASH_LAUNCH(DC)                                                   \
-  return launch_dc<T, DC>(qt, kt, vt, ot, B, S, Hq, Hkv, hd, causal,      \
+  return launch_dc<T, DC>(qt, kt, vt, ot, lse, B, S, Hq, Hkv, hd, causal, \
                           window, softcap, stream)
   if (hd <= kTX * 4) FLASH_LAUNCH(4);
   if (hd <= kTX * 8) FLASH_LAUNCH(8);
@@ -849,28 +884,394 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// Backward (scalar float32)
+// ---------------------------------------------------------------------------
+
+constexpr int kBT = 32;          // keys, and query rows, of a backward tile
+constexpr int kBThreads = 256;
+
+// D[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d] in float32: one warp a
+// row
+template <typename T>
+__global__ void bwd_rowdot(const T* __restrict__ o, const T* __restrict__ dout,
+                           float* __restrict__ dsum, int B, int S, int Hq,
+                           int hd) {
+  const long row = (long)blockIdx.x * (kBThreads / 32) + threadIdx.x / 32;
+  if (row >= (long)B * S * Hq) return;
+  const int lane = threadIdx.x & 31;
+  const T* orow = o + row * hd;
+  const T* drow = dout + row * hd;
+  float acc = 0.f;
+  for (int d = lane; d < hd; d += 32) acc += to_f32(orow[d]) * to_f32(drow[d]);
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    const int h = (int)(row % Hq);
+    const long bs = row / Hq;  // b * S + s
+    const int b = (int)(bs / S), s = (int)(bs % S);
+    dsum[((size_t)b * Hq + h) * S + s] = acc;
+  }
+}
+
+// One tile pair's shared tensors: a (kBT, hd) tile of rows as float32.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          size_t row_stride, int first,
+                                          int S, int hd, int ld) {
+  for (int e = threadIdx.x; e < kBT * hd; e += kBThreads) {
+    const int r = e / hd, d = e % hd;
+    dst[r * ld + d] =
+        first + r < S ? to_f32(src[(size_t)(first + r) * row_stride + d])
+                      : 0.f;
+  }
+}
+
+struct BwdMask {
+  int S, causal, window;
+  __device__ __forceinline__ bool keep(int qpos, int kpos) const {
+    return qpos < S && kpos < S && (!causal || kpos <= qpos) &&
+           (!window || kpos > qpos - window);
+  }
+};
+
+// The score tile of query rows (qs, dos: kBT x ld) against keys (ks, vs):
+// thread (ty, tx) = (tid / 16, tid % 16) takes rows ty + 16 i and keys
+// tx + 16 j (i, j < 2). Writes P to ps and scale * dU to dss (kBT x
+// kBT + 1, row-major by query row).
+__device__ __forceinline__ void bwd_scores(
+    const float* qs, const float* dos, const float* ks, const float* vs,
+    const float* lse_s, const float* dsum_s, float* ps, float* dss, int hd,
+    int ld, int q0, int k0, const BwdMask& mk, float scale, float softcap) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float s[2][2] = {}, dp[2][2] = {};
+  for (int d = 0; d < hd; ++d) {
+    float qv[2], dv[2], kv[2], vv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      qv[i] = qs[(ty + 16 * i) * ld + d];
+      dv[i] = dos[(ty + 16 * i) * ld + d];
+      kv[i] = ks[(tx + 16 * i) * ld + d];
+      vv[i] = vs[(tx + 16 * i) * ld + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        dp[i][j] = fmaf(dv[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = ty + 16 * i, c = tx + 16 * j;
+      float x = s[i][j] * scale;
+      if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+      const bool keep = mk.keep(q0 + r, k0 + c);
+      const float p = keep ? expf(x - lse_s[r]) : 0.f;
+      float ds = p * (dp[i][j] - dsum_s[r]);
+      if (softcap > 0.f) {
+        const float t = x / softcap;
+        ds *= 1.f - t * t;
+      }
+      ps[r * (kBT + 1) + c] = p;
+      dss[r * (kBT + 1) + c] = ds * scale;
+    }
+}
+
+// dK, dV of kBT keys of one (b, query head qh): its share of kv head
+// qh / q_per_kv's gradient. Into dk, dv (B, S, Hkv, hd) when q_per_kv is 1,
+// else into the float32 shares pk, pv (B, S, Hq, hd). Thread owns key
+// tid / 8 and dims tid % 8 + 8 j (j < DC).
+template <typename T, int DC>
+__global__ void __launch_bounds__(kBThreads)
+    bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dsum, T* __restrict__ dk,
+                    T* __restrict__ dv, float* __restrict__ pk,
+                    float* __restrict__ pv, int S, int Hq, int Hkv, int hd,
+                    int causal, int window, float softcap, float scale) {
+  const int k0 = blockIdx.x * kBT, qh = blockIdx.y, b = blockIdx.z;
+  const int rep = Hq / Hkv, h = qh / rep, ld = hd + 1, tid = threadIdx.x;
+  extern __shared__ float sm[];
+  float* ks = sm;
+  float* vs = ks + kBT * ld;
+  float* qs = vs + kBT * ld;
+  float* dos = qs + kBT * ld;
+  float* ps = dos + kBT * ld;
+  float* dss = ps + kBT * (kBT + 1);
+  float* lse_s = dss + kBT * (kBT + 1);
+  float* dsum_s = lse_s + kBT;
+  const BwdMask mk{S, causal, window};
+  const size_t kv_stride = (size_t)Hkv * hd, q_stride = (size_t)Hq * hd;
+  load_rows(ks, k + (size_t)b * S * kv_stride + (size_t)h * hd, kv_stride, k0,
+            S, hd, ld);
+  load_rows(vs, v + (size_t)b * S * kv_stride + (size_t)h * hd, kv_stride, k0,
+            S, hd, ld);
+  // query rows whose mask reaches keys k0 .. k0 + kBT - 1
+  const int q_first = causal ? k0 : 0;
+  const int q_last = window ? min(S, k0 + kBT - 1 + window) : S;
+  const int kc = tid / 8, dx0 = tid % 8;
+  float acc_k[DC], acc_v[DC];
+#pragma unroll
+  for (int j = 0; j < DC; ++j) acc_k[j] = acc_v[j] = 0.f;
+  const size_t qbase = (size_t)b * S * q_stride + (size_t)qh * hd;
+  for (int q0 = (q_first / kBT) * kBT; q0 < q_last; q0 += kBT) {
+    __syncthreads();  // the previous tile's readers are done
+    load_rows(qs, q + qbase, q_stride, q0, S, hd, ld);
+    load_rows(dos, dout + qbase, q_stride, q0, S, hd, ld);
+    if (tid < kBT) {
+      const size_t o = ((size_t)b * Hq + qh) * S + q0 + tid;
+      lse_s[tid] = q0 + tid < S ? lse[o] : 0.f;
+      dsum_s[tid] = q0 + tid < S ? dsum[o] : 0.f;
+    }
+    __syncthreads();
+    bwd_scores(qs, dos, ks, vs, lse_s, dsum_s, ps, dss, hd, ld, q0, k0, mk,
+               scale, softcap);
+    __syncthreads();
+    for (int r = 0; r < kBT; ++r) {
+      const float p = ps[r * (kBT + 1) + kc];
+      const float ds = dss[r * (kBT + 1) + kc];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) {
+        const int d = dx0 + 8 * j;
+        if (d < hd) {
+          acc_v[j] = fmaf(p, dos[r * ld + d], acc_v[j]);
+          acc_k[j] = fmaf(ds, qs[r * ld + d], acc_k[j]);
+        }
+      }
+    }
+  }
+  if (k0 + kc >= S) return;
+  if (rep == 1) {
+    const size_t o = ((size_t)b * S + k0 + kc) * kv_stride + (size_t)h * hd;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      const int d = dx0 + 8 * j;
+      if (d < hd) {
+        dk[o + d] = from_f32<T>(acc_k[j]);
+        dv[o + d] = from_f32<T>(acc_v[j]);
+      }
+    }
+    return;
+  }
+  const size_t o = ((size_t)b * S + k0 + kc) * q_stride + (size_t)qh * hd;
+#pragma unroll
+  for (int j = 0; j < DC; ++j) {
+    const int d = dx0 + 8 * j;
+    if (d < hd) {
+      pk[o + d] = acc_k[j];
+      pv[o + d] = acc_v[j];
+    }
+  }
+}
+
+// dk, dv[b, s, h, d] = the sum over the group's query heads, in head order,
+// of their shares pk, pv[b, s, h q_per_kv + j, d]
+template <typename T>
+__global__ void bwd_reduce_heads(const float* __restrict__ pk,
+                                 const float* __restrict__ pv,
+                                 T* __restrict__ dk, T* __restrict__ dv,
+                                 long n, int Hkv, int rep, int hd) {
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const int d = (int)(e % hd);
+  const long bsh = e / hd;  // (b * S + s) * Hkv + h
+  const size_t src = ((size_t)(bsh / Hkv) * Hkv * rep +
+                      (size_t)(bsh % Hkv) * rep) * hd + d;
+  float sk = 0.f, sv = 0.f;
+  for (int j = 0; j < rep; ++j) {
+    sk += pk[src + (size_t)j * hd];
+    sv += pv[src + (size_t)j * hd];
+  }
+  dk[e] = from_f32<T>(sk);
+  dv[e] = from_f32<T>(sv);
+}
+
+// dQ of kBT query rows of one (b, query head); thread owns row tid / 8 and
+// dims tid % 8 + 8 j (j < DC)
+template <typename T, int DC>
+__global__ void __launch_bounds__(kBThreads)
+    bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ dsum, T* __restrict__ dq, int S,
+                  int Hq, int Hkv, int hd, int causal, int window,
+                  float softcap, float scale) {
+  const int q0 = blockIdx.x * kBT, qh = blockIdx.y, b = blockIdx.z;
+  const int h = qh / (Hq / Hkv), ld = hd + 1, tid = threadIdx.x;
+  extern __shared__ float sm[];
+  float* ks = sm;
+  float* vs = ks + kBT * ld;
+  float* qs = vs + kBT * ld;
+  float* dos = qs + kBT * ld;
+  float* ps = dos + kBT * ld;
+  float* dss = ps + kBT * (kBT + 1);
+  float* lse_s = dss + kBT * (kBT + 1);
+  float* dsum_s = lse_s + kBT;
+  const BwdMask mk{S, causal, window};
+  const size_t kv_stride = (size_t)Hkv * hd, q_stride = (size_t)Hq * hd;
+  const size_t qbase = (size_t)b * S * q_stride + (size_t)qh * hd;
+  load_rows(qs, q + qbase, q_stride, q0, S, hd, ld);
+  load_rows(dos, dout + qbase, q_stride, q0, S, hd, ld);
+  if (tid < kBT) {
+    const size_t o = ((size_t)b * Hq + qh) * S + q0 + tid;
+    lse_s[tid] = q0 + tid < S ? lse[o] : 0.f;
+    dsum_s[tid] = q0 + tid < S ? dsum[o] : 0.f;
+  }
+  // key tiles the mask of rows q0 .. q0 + kBT - 1 reaches
+  const int k_end = causal ? min(S, q0 + kBT) : S;
+  const int k_begin = window ? max(0, q0 - window + 1) : 0;
+  const int r = tid / 8, dx0 = tid % 8;
+  float acc[DC];
+#pragma unroll
+  for (int j = 0; j < DC; ++j) acc[j] = 0.f;
+  const size_t kvbase = (size_t)b * S * kv_stride + (size_t)h * hd;
+  for (int k0 = (k_begin / kBT) * kBT; k0 < k_end; k0 += kBT) {
+    __syncthreads();
+    load_rows(ks, k + kvbase, kv_stride, k0, S, hd, ld);
+    load_rows(vs, v + kvbase, kv_stride, k0, S, hd, ld);
+    __syncthreads();
+    bwd_scores(qs, dos, ks, vs, lse_s, dsum_s, ps, dss, hd, ld, q0, k0, mk,
+               scale, softcap);
+    __syncthreads();
+    for (int c = 0; c < kBT; ++c) {
+      const float ds = dss[r * (kBT + 1) + c];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) {
+        const int d = dx0 + 8 * j;
+        if (d < hd) acc[j] = fmaf(ds, ks[c * ld + d], acc[j]);
+      }
+    }
+  }
+  if (q0 + r >= S) return;
+  const size_t o = qbase + (size_t)(q0 + r) * q_stride;
+#pragma unroll
+  for (int j = 0; j < DC; ++j) {
+    const int d = dx0 + 8 * j;
+    if (d < hd) dq[o + d] = from_f32<T>(acc[j]);
+  }
+}
+
+template <typename T, int DC>
+int launch_bwd_dc(const T* q, const T* k, const T* v, const T* out,
+                  const T* dout, const float* lse, float* dsum, float* pk,
+                  float* pv, T* dq, T* dk, T* dv, int B, int S, int Hq,
+                  int Hkv, int hd, int causal, int window, float softcap,
+                  cudaStream_t stream) {
+  const int ld = hd + 1;
+  const size_t smem =
+      sizeof(float) * ((size_t)4 * kBT * ld + 2 * kBT * (kBT + 1) + 2 * kBT);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto dkdv = bwd_dkdv_kernel<T, DC>;
+  auto dqk = bwd_dq_kernel<T, DC>;
+  if (smem > (size_t)kDefaultSmem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const float scale = 1.0f / sqrtf((float)hd);
+  const long rows = (long)B * S * Hq;
+  const long row_blocks = (rows + kBThreads / 32 - 1) / (kBThreads / 32);
+  if (row_blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  bwd_rowdot<T><<<(unsigned)row_blocks, kBThreads, 0, stream>>>(
+      out, dout, dsum, B, S, Hq, hd);
+  const int tiles = (S + kBT - 1) / kBT;
+  dkdv<<<dim3(tiles, Hq, B), kBThreads, smem, stream>>>(
+      q, k, v, dout, lse, dsum, dk, dv, pk, pv, S, Hq, Hkv, hd, causal,
+      window, softcap, scale);
+  if (Hq != Hkv) {
+    const long n = (long)B * S * Hkv * hd;
+    bwd_reduce_heads<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        pk, pv, dk, dv, n, Hkv, Hq / Hkv, hd);
+  }
+  dqk<<<dim3(tiles, Hq, B), kBThreads, smem, stream>>>(
+      q, k, v, dout, lse, dsum, dq, S, Hq, Hkv, hd, causal, window, softcap,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const void* lse, void* dsum, void* pk,
+               void* pv, void* dq, void* dk, void* dv, int B, int S, int Hq,
+               int Hkv, int hd, int causal, int window, float softcap,
+               cudaStream_t stream) {
+  if (hd < 1 || Hkv < 1 || Hq % Hkv || B > 65535 || Hq > 65535)
+    return (int)cudaErrorInvalidValue;
+#define FLASH_BWD(DC)                                                       \
+  return launch_bwd_dc<T, DC>(                                              \
+      static_cast<const T*>(q), static_cast<const T*>(k),                   \
+      static_cast<const T*>(v), static_cast<const T*>(out),                 \
+      static_cast<const T*>(dout), static_cast<const float*>(lse),          \
+      static_cast<float*>(dsum), static_cast<float*>(pk),                   \
+      static_cast<float*>(pv), static_cast<T*>(dq), static_cast<T*>(dk),    \
+      static_cast<T*>(dv), B, S, Hq, Hkv, hd, causal, window, softcap,      \
+      stream)
+  if (hd <= 8 * 4) FLASH_BWD(4);
+  if (hd <= 8 * 8) FLASH_BWD(8);
+  if (hd <= 8 * 16) FLASH_BWD(16);
+  if (hd <= 8 * 32) FLASH_BWD(32);
+#undef FLASH_BWD
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32 (scalar kernel, q_per_kv up to 64), 1 = bfloat16
 // (tensor-core kernel, any q_per_kv); q, k, v and out share it. causal: 0
-// or 1; window: 0 = none; softcap: 0 = none. Returns cudaGetLastError()
-// after the launch, 0 on success.
+// or 1; window: 0 = none; softcap: 0 = none. lse: null, or (B, Hq, S)
+// float32 that takes each query row's log-sum-exp of its kept scores (the
+// backward's input). Returns cudaGetLastError() after the launch, 0 on
+// success.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    int B, int S, int Hq, int Hkv, int hd, int causal,
-                    int window, float softcap, int dtype, void* stream) {
+                    void* lse, int B, int S, int Hq, int Hkv, int hd,
+                    int causal, int window, float softcap, int dtype,
+                    void* stream) {
+  float* ls = static_cast<float*>(lse);
   if (B == 0 || S == 0) return 0;
   if (window < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, out, B, S, Hq, Hkv, hd, causal, window,
-                         softcap, s);
+    return launch<float>(q, k, v, out, ls, B, S, Hq, Hkv, hd, causal,
+                         window, softcap, s);
   if (dtype == 1) {
     if (hd % 4 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
-    return launch_bf16(q, k, v, out, B, S, Hq, Hkv, hd, causal, window,
+    return launch_bf16(q, k, v, out, ls, B, S, Hq, Hkv, hd, causal, window,
                        softcap, s);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: q, out, dout, dq (B, S, Hq, hd); k, v, dk, dv (B, S, Hkv,
+// hd), all of one type (dtype as above, any q_per_kv); lse (B, Hq, S)
+// float32 from the forward; dsum a float32 scratch of (B, Hq, S); pk, pv
+// float32 scratch of (B, S, Hq, hd) each, unused (may be null) when Hq ==
+// Hkv. Returns cudaGetLastError() after the launches, 0 on success.
+int flash_attention_bwd(const void* q, const void* k, const void* v,
+                        const void* out, const void* dout, const void* lse,
+                        void* dsum, void* pk, void* pv, void* dq, void* dk,
+                        void* dv, int B, int S, int Hq, int Hkv, int hd,
+                        int causal, int window, float softcap, int dtype,
+                        void* stream) {
+  if (B == 0 || S == 0) return 0;
+  if (window < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<float>(q, k, v, out, dout, lse, dsum, pk, pv, dq, dk,
+                             dv, B, S, Hq, Hkv, hd, causal, window, softcap,
+                             s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(q, k, v, out, dout, lse, dsum, pk, pv,
+                                     dq, dk, dv, B, S, Hq, Hkv, hd, causal,
+                                     window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }
 

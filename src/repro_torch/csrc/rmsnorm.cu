@@ -29,6 +29,20 @@
 // Layouts: x, out (R, D) contiguous, 16-byte aligned; scale (D,) float32,
 // 16-byte aligned. D a multiple of 4 (float32) or 8 (bfloat16), at most
 // kThreads * 8 pieces.
+//
+// The backward (rmsnorm_bwd_kernel, with no TPU counterpart: the JAX package
+// differentiates its plain jnp) is the exact derivative of that function in
+// float32: with rstd = rsqrt(mean(x^2) + eps) and xhat = x rstd,
+//   dx     = rstd (g scale - xhat mean(g scale xhat)),  in x's type
+//   dscale = sum over rows of g xhat,                    float32
+// Its teams take rows as the forward's do (the same team width), a block
+// walking rows blockIdx.x, + gridDim.x, ... one row a team at a time. Each
+// lane adds g xhat of its own columns into its team's slice of shared
+// memory, so no two threads write one address; at the end the block sums
+// its teams in order into one row of partials (gridDim.x, D), and a second
+// kernel sums those rows in order: dscale comes out the same bits on every
+// run (no floating-point atomics). Bound by bytes: x and g read once, dx
+// written once (the partials are D floats a block).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -176,6 +190,193 @@ int launch(const void* x, const void* scale, void* out, int R, int D,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+
+// blocks of the backward at most: two a streaming multiprocessor of an H100
+// (the partials buffer holds this many rows of D)
+constexpr int kBwdBlocks = 264;
+
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                       const T* __restrict__ g, T* __restrict__ dx,
+                       float* __restrict__ partial, int R, int D, int team,
+                       float eps) {
+  using V = Piece<T>;
+  constexpr int kS = V::kN / 4;
+  extern __shared__ float acc[];  // (teams, D): each team's sum of g xhat
+  __shared__ float red[2][kThreads / 32];
+  const int tid = threadIdx.x, lt = tid & (team - 1), tm = tid / team;
+  const int teams = kThreads / team;
+  const int pieces = D / V::kN;
+  float* mine = acc + (size_t)tm * D;
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    const int i = lt + team * k;
+    if (i < pieces)
+#pragma unroll
+      for (int c = 0; c < V::kN; ++c) mine[i * V::kN + c] = 0.f;
+  }
+  const float4* sc = reinterpret_cast<const float4*>(scale);
+  // every thread of the block takes the same number of turns (r0 depends
+  // on the block alone), so the barriers below are reached by all
+  for (int r0 = blockIdx.x * teams; r0 < R; r0 += gridDim.x * teams) {
+    const int r = r0 + tm;
+    const bool row_ok = r < R;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)r * D);
+    const uint4* gr = reinterpret_cast<const uint4*>(g + (size_t)r * D);
+    uint4 rx[NP], rg[NP];
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int i = lt + team * k;
+      rx[k] = rg[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (row_ok && i < pieces) {
+        rx[k] = xr[i];
+        rg[k] = gr[i];
+      }
+    }
+    // sum of x^2 and of g scale x over the row
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int i = lt + team * k;
+      if (!row_ok || i >= pieces) continue;
+      float fx[V::kN], fg[V::kN];
+      V::unpack(rx[k], fx);
+      V::unpack(rg[k], fg);
+#pragma unroll
+      for (int c = 0; c < kS; ++c) {
+        const float4 s4 = sc[i * kS + c];
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float xv = fx[4 * c + e];
+          ss += xv * xv;
+          dot += fg[4 * c + e] * sv[e] * xv;
+        }
+      }
+    }
+    for (int o = min(team, 32) / 2; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    }
+    if (team > 32) {
+      if ((tid & 31) == 0) {
+        red[0][tid / 32] = ss;
+        red[1][tid / 32] = dot;
+      }
+      __syncthreads();
+      const int w0 = (tid / team) * (team / 32);
+      ss = dot = 0.f;
+      for (int w = 0; w < team / 32; ++w) {
+        ss += red[0][w0 + w];
+        dot += red[1][w0 + w];
+      }
+      __syncthreads();  // red is reused by the next row
+    }
+    if (!row_ok) continue;
+    const float rstd = rsqrtf(ss / (float)D + eps);
+    // dx = rstd g scale - x rstd^3 dot / D
+    const float c3 = rstd * rstd * rstd * dot / (float)D;
+    uint4* dr = reinterpret_cast<uint4*>(dx + (size_t)r * D);
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int i = lt + team * k;
+      if (i >= pieces) continue;
+      float fx[V::kN], fg[V::kN], out[V::kN];
+      V::unpack(rx[k], fx);
+      V::unpack(rg[k], fg);
+#pragma unroll
+      for (int c = 0; c < kS; ++c) {
+        const float4 s4 = sc[i * kS + c];
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 4 * c + e;
+          out[j] = rstd * fg[j] * sv[e] - fx[j] * c3;
+          mine[i * V::kN + j] += fg[j] * fx[j] * rstd;
+        }
+      }
+      dr[i] = V::pack(out);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < D; i += kThreads) {
+    float s = 0.f;
+    for (int t = 0; t < teams; ++t) s += acc[(size_t)t * D + i];
+    partial[(size_t)blockIdx.x * D + i] = s;
+  }
+}
+
+// dscale[i] = the sum, in block order, of the blocks' partials of column i
+__global__ void rmsnorm_bwd_reduce(const float* __restrict__ partial,
+                                   float* __restrict__ dscale, int blocks,
+                                   int D) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= D) return;
+  float s = 0.f;
+  for (int b = 0; b < blocks; ++b) s += partial[(size_t)b * D + i];
+  dscale[i] = s;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+template <typename T, int NP>
+int launch_bwd_np(const void* x, const void* scale, const void* g, void* dx,
+                  float* partial, float* dscale, int R, int D, int team,
+                  float eps, cudaStream_t stream) {
+  const int teams = kThreads / team;
+  const size_t smem = sizeof(float) * (size_t)teams * D;
+  auto kernel = rmsnorm_bwd_kernel<T, NP>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks =
+      max(1, min((R + teams - 1) / teams, min(kBwdBlocks, 2 * sm_count())));
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(scale),
+      static_cast<const T*>(g), static_cast<T*>(dx), partial, R, D, team,
+      eps);
+  rmsnorm_bwd_reduce<<<(D + 255) / 256, 256, 0, stream>>>(partial, dscale,
+                                                          blocks, D);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* scale, const void* g, void* dx,
+               float* partial, float* dscale, int R, int D, float eps,
+               cudaStream_t stream) {
+  if (D % Piece<T>::kN) return (int)cudaErrorInvalidValue;
+  const int pieces = D / Piece<T>::kN;
+  int team = 1;
+  while (team < kThreads && team * kPieces < pieces) team *= 2;
+  const int np = (pieces + team - 1) / team;
+#define RMS_BWD_NP(N)                                                      \
+  if (np <= N)                                                             \
+  return launch_bwd_np<T, N>(x, scale, g, dx, partial, dscale, R, D, team, \
+                             eps, stream)
+  RMS_BWD_NP(1);
+  RMS_BWD_NP(2);
+  RMS_BWD_NP(4);
+  RMS_BWD_NP(8);
+#undef RMS_BWD_NP
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -191,6 +392,27 @@ int rmsnorm(const void* x, const void* scale, void* out, int R, int D,
   if (dtype == 1) return launch<__nv_bfloat16>(x, scale, out, R, D, eps, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The backward of rmsnorm: x, g, dx (R, D) of one type (dtype as above),
+// scale (D,) float32, all 16-byte aligned; partial a float32 scratch of
+// rmsnorm_bwd_max_blocks() x D; dscale (D,) float32. Returns
+// cudaGetLastError() after the launches, 0 on success.
+int rmsnorm_bwd(const void* x, const void* scale, const void* g, void* dx,
+                void* partial, void* dscale, int R, int D, float eps,
+                int dtype, void* stream) {
+  if (R < 0 || D < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(partial);
+  float* ds = static_cast<float*>(dscale);
+  if (R == 0) return (int)cudaMemsetAsync(ds, 0, sizeof(float) * D, s);
+  if (dtype == 0)
+    return launch_bwd<float>(x, scale, g, dx, pt, ds, R, D, eps, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, scale, g, dx, pt, ds, R, D, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int rmsnorm_bwd_max_blocks() { return kBwdBlocks; }
 
 const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

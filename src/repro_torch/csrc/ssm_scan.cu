@@ -94,6 +94,25 @@
 // (H,); B, C (Bb, S, N); h0 (optional), state (Bb, H, P, N). P and N are
 // multiples of 4 up to 64; x, B, C and h0 start on 16 bytes (the wrapper
 // copies one that does not).
+//
+// The backward (ssd_bwd_kernel; no TPU counterpart: the JAX package
+// differentiates its plain jnp) takes the gradients of y and of the final
+// state back to x, dt, A, B and C on the per-token recurrence, in scalar
+// float32. With a_t = exp(dt_t A) and G_t the gradient that reaches h_t
+// (G_t = a_{t+1} G_{t+1} + gy_t C_t, starting from the final state's):
+//   dx_t = dt_t G_t B_t,  ddt_t = x_t . G_t B_t + A a_t <G_t, h_{t-1}>,
+//   dB_t = dt_t G_t^T x_t,  dC_t = h_t^T gy_t,  dA = sum dt_t a_t <G_t, h_{t-1}>.
+// One block of 256 threads a (b, h): warp w holds state rows w, w + 8, ...
+// and lane l columns l, l + 32 in registers. A first walk over the
+// sequence saves the state before every kBwdK-token stretch to a global
+// scratch; the reverse walk reloads each stretch's starting state, recomputes
+// the stretch's states into registers and carries G back through them.
+// Sums over a state row are warp shuffles; sums over a column go through
+// shared memory per warp and are added in warp order. dB and dC are shared
+// by the heads and dA by the batch: each block writes its own per-head
+// (per-batch) rows, and ssd_bwd_reduce adds them in a fixed order, so the
+// gradients are the same bits on every run (no floating-point atomics).
+// Global scratch: the checkpoints, Bb H ceil(S / kBwdK) P N floats.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -587,6 +606,262 @@ int configure() {
   return (int)err;
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward (scalar float32)
+// ---------------------------------------------------------------------------
+
+namespace ssd_bwd {
+
+constexpr int kK = 4;          // tokens a stretch (states held in registers)
+constexpr int kWarps = 8;      // state rows w, w + 8, ... a warp
+constexpr int kBThreads = 32 * kWarps;
+
+struct BwdArgs {
+  const float* x;
+  const float* dt;
+  const float* A;
+  const float* B;
+  const float* C;
+  const float* h0;      // may be null
+  const float* gy;
+  const float* gstate;  // may be null (zero)
+  float* dx;
+  float* ddt;
+  float* dB_part;  // (Bb, H, S, N)
+  float* dC_part;  // (Bb, H, S, N)
+  float* dA_part;  // (Bb, H, S)
+  float* ckpt;     // (Bb * H, ceil(S / kK), P * N)
+  int S, H, P, N;
+};
+
+// a stretch's rows in shared memory, padded with zeros to kMax
+struct Stage {
+  float x[kK][kMax], gy[kK][kMax], B[kK][kMax], C[kK][kMax];
+  float dt[kK], a[kK];
+};
+
+__device__ void stage_rows(Stage& st, const BwdArgs& g, int b, int h, int s0,
+                           int L, float A, bool with_grad) {
+  for (int e = threadIdx.x; e < kK * kMax; e += kBThreads) {
+    const int t = e / kMax, c = e % kMax, s = s0 + t;
+    const bool ok = t < L;
+    const size_t xo = (((size_t)b * g.S + s) * g.H + h) * g.P + c;
+    const size_t bo = ((size_t)b * g.S + s) * g.N + c;
+    st.x[t][c] = ok && c < g.P ? g.x[xo] : 0.f;
+    st.B[t][c] = ok && c < g.N ? g.B[bo] : 0.f;
+    if (with_grad) {
+      st.gy[t][c] = ok && c < g.P ? g.gy[xo] : 0.f;
+      st.C[t][c] = ok && c < g.N ? g.C[bo] : 0.f;
+    }
+  }
+  if (threadIdx.x < kK) {
+    const int t = threadIdx.x;
+    const float d = t < L ? g.dt[((size_t)b * g.S + s0 + t) * g.H + h] : 0.f;
+    st.dt[t] = d;
+    st.a[t] = expf(d * A);
+  }
+}
+
+template <int PI, int NJ>
+__global__ void __launch_bounds__(kBThreads)
+    ssd_bwd_kernel(const BwdArgs g) {
+  __shared__ Stage st;
+  __shared__ float dBw[kK][kWarps][kMax], dCw[kK][kWarps][kMax];
+  __shared__ float t1w[kK][kWarps], ghw[kK][kWarps];
+  const int bh = blockIdx.x, b = bh / g.H, h = bh % g.H;
+  const int w = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int S = g.S, P = g.P, N = g.N;
+  const float A = g.A[h];
+  const int n_str = (S + kK - 1) / kK;
+  float* ck = g.ckpt + (size_t)bh * n_str * P * N;
+  const size_t st_off = (size_t)bh * P * N;
+
+  // the thread's state entries (p, n) = (w + 8 i, lane + 32 j)
+  auto valid = [&](int i, int j) {
+    return w + 8 * i < P && lane + 32 * j < N;
+  };
+  auto ent = [&](int i, int j) { return (w + 8 * i) * N + lane + 32 * j; };
+
+  // 1. forward: the state before each stretch
+  float hcur[PI][NJ];
+#pragma unroll
+  for (int i = 0; i < PI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      hcur[i][j] = g.h0 != nullptr && valid(i, j) ? g.h0[st_off + ent(i, j)]
+                                                  : 0.f;
+  for (int r = 0; r < n_str; ++r) {
+    const int s0 = r * kK, L = min(kK, S - s0);
+#pragma unroll
+    for (int i = 0; i < PI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (valid(i, j)) ck[(size_t)r * P * N + ent(i, j)] = hcur[i][j];
+    __syncthreads();
+    stage_rows(st, g, b, h, s0, L, A, false);
+    __syncthreads();
+    for (int t = 0; t < L; ++t) {
+      const float a = st.a[t], d = st.dt[t];
+#pragma unroll
+      for (int i = 0; i < PI; ++i) {
+        const float xv = d * st.x[t][w + 8 * i];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          hcur[i][j] = fmaf(a, hcur[i][j], xv * st.B[t][lane + 32 * j]);
+      }
+    }
+  }
+
+  // 2. reverse: G from the final state's gradient back to the first token
+  float G[PI][NJ];
+#pragma unroll
+  for (int i = 0; i < PI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      G[i][j] = g.gstate != nullptr && valid(i, j)
+                    ? g.gstate[st_off + ent(i, j)]
+                    : 0.f;
+  float a_next = 1.f;
+  for (int r = n_str - 1; r >= 0; --r) {
+    const int s0 = r * kK, L = min(kK, S - s0);
+    __syncthreads();
+    stage_rows(st, g, b, h, s0, L, A, true);
+    __syncthreads();
+    // the stretch's states: hb[t] = h before token s0 + t
+    float hb[kK + 1][PI][NJ];
+#pragma unroll
+    for (int i = 0; i < PI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        hb[0][i][j] = valid(i, j) ? ck[(size_t)r * P * N + ent(i, j)] : 0.f;
+#pragma unroll
+    for (int t = 0; t < kK; ++t) {
+      const float a = st.a[t], d = st.dt[t];
+#pragma unroll
+      for (int i = 0; i < PI; ++i) {
+        const float xv = d * st.x[t][w + 8 * i];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          hb[t + 1][i][j] = fmaf(a, hb[t][i][j], xv * st.B[t][lane + 32 * j]);
+      }
+    }
+#pragma unroll
+    for (int t = kK - 1; t >= 0; --t) {
+      if (t >= L) continue;
+      const float d = st.dt[t];
+      float u[PI], gh = 0.f;
+#pragma unroll
+      for (int i = 0; i < PI; ++i) {
+        const float gyv = st.gy[t][w + 8 * i];
+        u[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          G[i][j] = fmaf(a_next, G[i][j], gyv * st.C[t][lane + 32 * j]);
+          u[i] = fmaf(G[i][j], st.B[t][lane + 32 * j], u[i]);
+          gh = fmaf(G[i][j], hb[t][i][j], gh);
+        }
+      }
+      // row sums over the lanes; every lane ends with all of them
+#pragma unroll
+      for (int i = 0; i < PI; ++i)
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          u[i] += __shfl_xor_sync(0xffffffffu, u[i], o);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        gh += __shfl_xor_sync(0xffffffffu, gh, o);
+      float t1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < PI; ++i) {
+        const int p = w + 8 * i;
+        t1 = fmaf(st.x[t][p], u[i], t1);
+        if (lane == i && p < P)
+          g.dx[(((size_t)b * S + s0 + t) * g.H + h) * P + p] = d * u[i];
+      }
+      // column sums over the warp's rows
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float sb = 0.f, sc = 0.f;
+#pragma unroll
+        for (int i = 0; i < PI; ++i) {
+          sb = fmaf(G[i][j], st.x[t][w + 8 * i], sb);
+          sc = fmaf(hb[t + 1][i][j], st.gy[t][w + 8 * i], sc);
+        }
+        dBw[t][w][lane + 32 * j] = sb;
+        dCw[t][w][lane + 32 * j] = sc;
+      }
+      if (lane == 0) {
+        t1w[t][w] = t1;
+        ghw[t][w] = gh;
+      }
+      a_next = st.a[t];
+    }
+    __syncthreads();
+    // the stretch's rows of dB, dC (this head's share), ddt and dA's terms
+    for (int e = threadIdx.x; e < L * N; e += kBThreads) {
+      const int t = e / N, n = e % N;
+      float sb = 0.f, sc = 0.f;
+#pragma unroll
+      for (int ww = 0; ww < kWarps; ++ww) {
+        sb += dBw[t][ww][n];
+        sc += dCw[t][ww][n];
+      }
+      const size_t o = ((size_t)bh * S + s0 + t) * N + n;
+      g.dB_part[o] = st.dt[t] * sb;
+      g.dC_part[o] = sc;
+    }
+    if (threadIdx.x < L) {
+      const int t = threadIdx.x;
+      float t1 = 0.f, gh = 0.f;
+#pragma unroll
+      for (int ww = 0; ww < kWarps; ++ww) {
+        t1 += t1w[t][ww];
+        gh += ghw[t][ww];
+      }
+      g.ddt[((size_t)b * S + s0 + t) * g.H + h] = t1 + A * st.a[t] * gh;
+      g.dA_part[(size_t)bh * S + s0 + t] = st.dt[t] * st.a[t] * gh;
+    }
+  }
+}
+
+// dB, dC (Bb, S, N): the heads' rows added in head order; dA (H,): the
+// batch's and tokens' terms added in order
+__global__ void ssd_bwd_reduce(const float* __restrict__ dB_part,
+                               const float* __restrict__ dC_part,
+                               const float* __restrict__ dA_part,
+                               float* __restrict__ dB, float* __restrict__ dC,
+                               float* __restrict__ dA, int Bb, int S, int H,
+                               int N) {
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long n_bc = (long)Bb * S * N;
+  if (e < n_bc) {
+    const long b = e / ((long)S * N), sn = e % ((long)S * N);
+    float sb = 0.f, sc = 0.f;
+    for (int h = 0; h < H; ++h) {
+      const size_t o = ((size_t)b * H + h) * S * N + sn;
+      sb += dB_part[o];
+      sc += dC_part[o];
+    }
+    dB[e] = sb;
+    dC[e] = sc;
+  } else if (e < n_bc + H) {
+    const int h = (int)(e - n_bc);
+    float sa = 0.f;
+    for (int b = 0; b < Bb; ++b)
+      for (int s = 0; s < S; ++s) sa += dA_part[((size_t)b * H + h) * S + s];
+    dA[h] = sa;
+  }
+}
+
+template <int PI, int NJ>
+int launch(const BwdArgs& a, int Bb, cudaStream_t stream) {
+  ssd_bwd_kernel<PI, NJ><<<Bb * a.H, kBThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ssd_bwd
+
 }  // namespace
 
 extern "C" {
@@ -645,6 +920,61 @@ int ssm_scan_active_clusters(int ranks) {
   if (e != cudaSuccess) return -(int)e;
   return active;
 }
+
+// The backward of ssm_scan: gy like y, gstate (optional: zero) like state,
+// h0 optional as in ssm_scan; dx like x, ddt like dt; dA (H,), dB and dC
+// like B and C; dB_part, dC_part (Bb, H, S, N), dA_part (Bb, H, S) and
+// ckpt (Bb * H, ceil(S / ssm_scan_bwd_stretch()), P * N) float32 scratch.
+// Returns cudaGetLastError() after the launches, 0 on success.
+int ssm_scan_bwd(const void* x, const void* dt, const void* A, const void* B,
+                 const void* C, const void* h0, const void* gy,
+                 const void* gstate, void* dx, void* ddt, void* dA, void* dB,
+                 void* dC, void* dB_part, void* dC_part, void* dA_part,
+                 void* ckpt, int Bb, int S, int H, int P, int N,
+                 void* stream) {
+  if (Bb < 0 || S < 0 || H < 1 || P < 1 || P > kMax || N < 1 || N > kMax)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Bb == 0 || S == 0)
+    return (int)cudaMemsetAsync(dA, 0, sizeof(float) * H, s);
+  ssd_bwd::BwdArgs a{static_cast<const float*>(x),
+                     static_cast<const float*>(dt),
+                     static_cast<const float*>(A),
+                     static_cast<const float*>(B),
+                     static_cast<const float*>(C),
+                     static_cast<const float*>(h0),
+                     static_cast<const float*>(gy),
+                     static_cast<const float*>(gstate),
+                     static_cast<float*>(dx),
+                     static_cast<float*>(ddt),
+                     static_cast<float*>(dB_part),
+                     static_cast<float*>(dC_part),
+                     static_cast<float*>(dA_part),
+                     static_cast<float*>(ckpt),
+                     S, H, P, N};
+  int err;
+  const int pi = (P + 7) / 8;
+  if (N <= 32)
+    err = pi <= 1   ? ssd_bwd::launch<1, 1>(a, Bb, s)
+          : pi <= 2 ? ssd_bwd::launch<2, 1>(a, Bb, s)
+          : pi <= 4 ? ssd_bwd::launch<4, 1>(a, Bb, s)
+                    : ssd_bwd::launch<8, 1>(a, Bb, s);
+  else
+    err = pi <= 1   ? ssd_bwd::launch<1, 2>(a, Bb, s)
+          : pi <= 2 ? ssd_bwd::launch<2, 2>(a, Bb, s)
+          : pi <= 4 ? ssd_bwd::launch<4, 2>(a, Bb, s)
+                    : ssd_bwd::launch<8, 2>(a, Bb, s);
+  if (err != 0) return err;
+  const long total = (long)Bb * S * N + H;
+  ssd_bwd::ssd_bwd_reduce<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(dB_part), static_cast<const float*>(dC_part),
+      static_cast<const float*>(dA_part), static_cast<float*>(dB),
+      static_cast<float*>(dC), static_cast<float*>(dA), Bb, S, H, N);
+  return (int)cudaGetLastError();
+}
+
+// Tokens between two of the backward's saved states.
+int ssm_scan_bwd_stretch() { return ssd_bwd::kK; }
 
 const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

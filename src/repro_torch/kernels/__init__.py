@@ -2,8 +2,8 @@
 
 
 def wrappers():
-    """Every kernel wrapper of the port, by the name its `.launches` counter
-    reports under (imported here, at call time: the wrappers import
+    """Every kernel wrapper of the port (the three backward ones last), by
+    the name its `.launches` counter reports under (imported here, at call time: the wrappers import
     `runtime`, which imports this package)."""
     from repro_torch.kernels.decode_attention import ops as ddops
     from repro_torch.kernels.flash_attention import ops as faops
@@ -16,4 +16,5 @@ def wrappers():
         pops.paged_prefill_attention, dops.paged_decode_attention_quant,
         pops.paged_prefill_attention_ragged_quant,
         pops.paged_prefill_attention_quant, ddops.decode_attention,
-        faops.flash_attention, sops.ssm_scan, rops.rmsnorm)}
+        faops.flash_attention, sops.ssm_scan, rops.rmsnorm,
+        faops.flash_attention_bwd, sops.ssm_scan_bwd, rops.rmsnorm_bwd)}

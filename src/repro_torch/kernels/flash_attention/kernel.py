@@ -11,8 +11,10 @@ from repro_torch.kernels import runtime
 from repro_torch.models.config import HEAD_DIM_MULTIPLE, MAX_HEAD_DIM
 
 NAME = "flash_attention"
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_int] + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                 + [ctypes.c_float] + [ctypes.c_int] + [ctypes.c_void_p])
 # the float32 kernel's query rows per block: its q_per_kv may not exceed
 # it (the bfloat16 kernel splits a larger GQA group over blocks)
 MAX_Q_PER_KV = 64
@@ -22,15 +24,12 @@ def _lib():
     lib = runtime.load(NAME)
     fn = lib.flash_attention
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    bwd = lib.flash_attention_bwd
+    bwd.argtypes, bwd.restype = _BWD_ARGTYPES, ctypes.c_int
     return lib
 
 
-def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
-                         softcap: float = 0.0):
-    """q: (B,S,Hq,hd); k/v: (B,S,Hkv,hd), same dtype as q (float32 or
-    bfloat16). All contiguous on one CUDA device; head_dim a multiple of 4
-    up to 256; q_per_kv up to MAX_Q_PER_KV for float32, any for bfloat16.
-    -> (B,S,Hq,hd)."""
+def _check(q, k, v, window, softcap):
     floats = (torch.float32, torch.bfloat16)
     runtime.check_tensor("q", q, 4, floats)
     runtime.check_tensor("k", k, 4, (q.dtype,))
@@ -48,11 +47,57 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
                          f"{HEAD_DIM_MULTIPLE} in 1..{MAX_HEAD_DIM}")
     if window < 0 or softcap < 0:
         raise ValueError("window and softcap must be >= 0")
+    return B, S, Hq, Hkv, hd
+
+
+def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0, with_lse: bool = False):
+    """q: (B,S,Hq,hd); k/v: (B,S,Hkv,hd), same dtype as q (float32 or
+    bfloat16). All contiguous on one CUDA device; head_dim a multiple of 4
+    up to 256; q_per_kv up to MAX_Q_PER_KV for float32, any for bfloat16.
+    -> (B,S,Hq,hd), or with `with_lse` (out, the log-sum-exp of each query
+    row's kept scores (B,Hq,S) float32), which the backward takes."""
+    B, S, Hq, Hkv, hd = _check(q, k, v, window, softcap)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = _lib()
     code = lib.flash_attention(
-        runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(out), B,
+        runtime.ptr(q), runtime.ptr(k), runtime.ptr(v), runtime.ptr(out),
+        ctypes.c_void_p(None) if lse is None else runtime.ptr(lse), B,
         S, Hq, Hkv, hd, int(bool(causal)), int(window), float(softcap),
         runtime.dtype_code(q.dtype), runtime.stream_ptr())
     runtime.check(lib, NAME, code)
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0):
+    """The backward of `flash_attention_cuda` (scalar float32 arithmetic,
+    any q_per_kv): q, o, do (B,S,Hq,hd); k, v (B,S,Hkv,hd), one dtype, all
+    contiguous; lse (B,Hq,S) float32 from the forward. -> (dq, dk, dv) in
+    the inputs' dtype, the same bits on every run."""
+    B, S, Hq, Hkv, hd = _check(q, k, v, window, softcap)
+    runtime.check_tensor("o", o, 4, (q.dtype,))
+    runtime.check_tensor("do", do, 4, (q.dtype,))
+    runtime.check_tensor("lse", lse, 3, (torch.float32,), align=False)
+    if o.shape != q.shape or do.shape != q.shape \
+            or lse.shape != (B, Hq, S):
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} and lse "
+                         f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dsum = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    # each query head's share of its kv head's dK, dV (q_per_kv > 1)
+    shares = ((torch.empty(q.shape, dtype=torch.float32, device=q.device),
+               torch.empty(q.shape, dtype=torch.float32, device=q.device))
+              if Hq != Hkv else (None, None))
+    lib = _lib()
+    code = lib.flash_attention_bwd(
+        *(runtime.ptr(t) for t in (q, k, v, o, do, lse, dsum)),
+        *(ctypes.c_void_p(None) if t is None else runtime.ptr(t)
+          for t in shares),
+        *(runtime.ptr(t) for t in (dq, dk, dv)),
+        B, S, Hq, Hkv, hd, int(bool(causal)), int(window), float(softcap),
+        runtime.dtype_code(q.dtype), runtime.stream_ptr())
+    runtime.check(lib, NAME, code)
+    return dq, dk, dv

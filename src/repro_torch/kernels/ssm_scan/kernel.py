@@ -120,3 +120,66 @@ def ssm_scan_cuda(x, dt, A, B, C, initial_state=None, ranks=None):
                         runtime.stream_ptr())
     runtime.check(lib, NAME, code)
     return y, state
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _bwd_lib():
+    lib = _lib()
+    fn = lib.ssm_scan_bwd
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    lib.ssm_scan_bwd_stretch.argtypes = []
+    lib.ssm_scan_bwd_stretch.restype = ctypes.c_int
+    return lib
+
+
+def ssm_scan_bwd_cuda(x, dt, A, B, C, gy, gstate=None, initial_state=None):
+    """The backward of `ssm_scan_cuda` (scalar float32, the per-token
+    recurrence): the inputs as there, gy like y, gstate like the final
+    state (None: zero), initial_state a constant start (None: zero). ->
+    (dx, ddt, dA, dB, dC) like x, dt, A, B, C, the same bits on every run.
+    Scratch: the state every `ssm_scan_bwd_stretch()` tokens, Bb H
+    ceil(S / 4) P N floats."""
+    f32 = (torch.float32,)
+    for name, t, nd in (("x", x, 4), ("dt", dt, 3), ("A", A, 1), ("B", B, 3),
+                        ("C", C, 3), ("gy", gy, 4)):
+        runtime.check_tensor(name, t, nd, f32)
+    Bb, S, H, P = x.shape
+    N = B.shape[-1]
+    if dt.shape != (Bb, S, H) or A.shape != (H,) or B.shape != (Bb, S, N) \
+            or C.shape != B.shape or gy.shape != x.shape:
+        raise ValueError(
+            f"shapes do not fit x {tuple(x.shape)}: dt {tuple(dt.shape)}, "
+            f"A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}, "
+            f"gy {tuple(gy.shape)}")
+    for name, d in (("head_dim P", P), ("state N", N)):
+        if not 0 < d <= MAX_DIM:
+            raise ValueError(f"{name} {d} outside 1..{MAX_DIM}")
+    for name, t in (("gstate", gstate), ("initial_state", initial_state)):
+        if t is not None:
+            runtime.check_tensor(name, t, 4, f32)
+            if t.shape != (Bb, H, P, N):
+                raise ValueError(f"{name} must be {(Bb, H, P, N)}, got "
+                                 f"{tuple(t.shape)}")
+    lib = _bwd_lib()
+    k = lib.ssm_scan_bwd_stretch()
+    dev = x.device
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dB_part = torch.empty((Bb, H, S, N), dtype=torch.float32, device=dev)
+    dC_part = torch.empty_like(dB_part)
+    dA_part = torch.empty((Bb, H, S), dtype=torch.float32, device=dev)
+    ckpt = torch.empty((Bb * H, -(-S // k), P * N), dtype=torch.float32,
+                       device=dev)
+    null = ctypes.c_void_p(None)
+    code = lib.ssm_scan_bwd(
+        *(runtime.ptr(t) for t in (x, dt, A, B, C)),
+        null if initial_state is None else runtime.ptr(initial_state),
+        runtime.ptr(gy), null if gstate is None else runtime.ptr(gstate),
+        *(runtime.ptr(t) for t in (dx, ddt, dA, dB, dC, dB_part, dC_part,
+                                   dA_part, ckpt)),
+        Bb, S, H, P, N, runtime.stream_ptr())
+    runtime.check(lib, NAME, code)
+    return dx, ddt, dA, dB, dC

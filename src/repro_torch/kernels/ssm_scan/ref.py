@@ -94,3 +94,50 @@ def ssd_chunked_ref(x, dt, A, B, C, chunk: int = 128, initial_state=None):
         * qdecay[..., None]
     y = (y_intra + y_state).reshape(Bb, S, H, P)
     return y, h
+
+
+def ssd_bwd_ref(x, dt, A, B, C, gy, gstate=None, initial_state=None):
+    """The backward of the scan, written out on the per-token recurrence
+    (`ssd_sequential_ref`), in float32. With a_t = exp(dt_t A) and G_t the
+    gradient reaching h_t (G_S = gstate + gy_S C_S, G_t = a_{t+1} G_{t+1}
+    + gy_t C_t):
+      dx_t   = dt_t G_t B_t
+      ddt_t  = x_t . (G_t B_t) + A a_t <G_t, h_{t-1}>
+      dA     = sum_t dt_t a_t <G_t, h_{t-1}>    (summed over the batch)
+      dB_t   = dt_t sum_h G_t^T x_t              (summed over the heads)
+      dC_t   = sum_h h_t^T gy_t
+    x, gy: (Bb,S,H,P); dt: (Bb,S,H); A: (H,); B/C: (Bb,S,N); gstate
+    (Bb,H,P,N) or None (zero); initial_state h_{-1} or None (zero), taken
+    as a constant. -> (dx, ddt, dA, dB, dC)."""
+    Bb, S, H, P = x.shape
+    N = B.shape[-1]
+    x, dt, A, B, C, gy = _f32(x, dt, A, B, C, gy)
+    h = (x.new_zeros((Bb, H, P, N))
+         if initial_state is None else initial_state.float())
+    states = [h]
+    decays = torch.exp(dt * A[None, None])                       # (Bb,S,H)
+    for t in range(S):
+        h = (h * decays[:, t, :, None, None]
+             + (dt[:, t, :, None] * x[:, t])[..., None]
+             * B[:, t, None, None, :])
+        states.append(h)
+    G = (x.new_zeros((Bb, H, P, N)) if gstate is None
+         else gstate.float().clone())
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dB = torch.empty_like(B)
+    dC = torch.empty_like(C)
+    dA = x.new_zeros((H,))
+    for t in range(S - 1, -1, -1):
+        if t < S - 1:
+            G = G * decays[:, t + 1, :, None, None]
+        G = G + gy[:, t, :, :, None] * C[:, t, None, None, :]
+        u = torch.einsum("bhpn,bn->bhp", G, B[:, t])
+        gh = (G * states[t]).sum(dim=(-1, -2))                     # (Bb,H)
+        dx[:, t] = dt[:, t, :, None] * u
+        ddt[:, t] = ((x[:, t] * u).sum(dim=-1)
+                     + A[None] * decays[:, t] * gh)
+        dA = dA + (dt[:, t] * decays[:, t] * gh).sum(dim=0)
+        dB[:, t] = torch.einsum("bh,bhpn,bhp->bn", dt[:, t], G, x[:, t])
+        dC[:, t] = torch.einsum("bhpn,bhp->bn", states[t + 1], gy[:, t])
+    return dx, ddt, dA, dB, dC

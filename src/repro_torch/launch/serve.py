@@ -1,13 +1,16 @@
 """PICE serving launcher (PyTorch port): build the cloud engine + edge fleet
 on the card and run the progressive pipeline on a stream of requests.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 --train-steps 0 \
-      [--kv-backend {dense,paged}] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 \
+      [--train-steps 150] [--kv-backend {dense,paged}] [--device cpu]
 
-The weights are random from `--seed` (no checkpoint is in the repository),
-so the text is gibberish while the engines do the full work. Training the
-tiny fleet first (`--train-steps > 0`) waits for the training slice. The
-TINY edge fleet is the two dense SLMs and the Mamba2 TINY_EDGE_C.
+As the JAX package's launcher does, each TINY model is first trained on the
+synthetic corpus for `--train-steps` steps (default 150; float32 masters
+from `--seed`, AdamW, the card's backward kernels on a CUDA device), so
+that sketches and expansions mean something and the ROUGE-1 lines score a
+trained fleet; the trained masters are then cast to the engines' working
+dtypes. `--train-steps 0` serves the random weights untrained. The TINY
+edge fleet is the two dense SLMs and the Mamba2 TINY_EDGE_C.
 """
 from __future__ import annotations
 
@@ -20,10 +23,13 @@ from repro_torch.core.profiler import cost_coefficient, profile_engine
 from repro_torch.core.progressive import PICEConfig, PICEPipeline
 from repro_torch.core.scheduler import EdgeModelInfo
 from repro_torch.data import corpus as corpus_lib
+from repro_torch.data.pipeline import PackedDataset
 from repro_torch.models import transformer
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.requests import Request
+from repro_torch.training import optimizer as opt_lib
+from repro_torch.training.train_loop import init_train_state, train
 
 CAPABILITIES = {"tiny-cloud": 0.9, "tiny-edge-a": 0.7, "tiny-edge-b": 0.55,
                 "tiny-edge-c": 0.6, "qwen3-8b": 0.9, "qwen2-1.5b": 0.7,
@@ -31,26 +37,44 @@ CAPABILITIES = {"tiny-cloud": 0.9, "tiny-edge-a": 0.7, "tiny-edge-b": 0.55,
 
 
 def build_engines(train_steps: int = 0, seed: int = 0, names=None,
-                  device=None, kv_backend: str = "paged"):
+                  device=None, kv_backend: str = "paged", log_fn=print):
     """The TINY fleet as `kv_backend` engines on `device` (default the
     card), each config with its own prefill_chunk (monolithic for the TINY
-    fleet, as in the JAX package's launcher). Returns (engines,
-    capabilities)."""
-    if train_steps:
-        raise NotImplementedError(
-            "--train-steps > 0 waits for the training slice; serve with "
-            "--train-steps 0")
+    fleet, as in the JAX package's launcher). With `train_steps`, each
+    model first trains on the synthetic corpus as the JAX launcher's do
+    (`PackedDataset(text, 192, 8, seed)`, AdamW at lr 2e-3 with 20 warmup
+    steps, logs at the middle and the end) and serves its trained masters
+    cast to the working dtypes. Returns (engines, capabilities)."""
     device = resolve_device(device)
+    text = corpus_lib.lm_text(2000, seed)
     pool = [("tiny-cloud", TINY_CLOUD)] + list(TINY_EDGE_CONFIGS.items())
     if names:
         pool = [(n, c) for n, c in pool if n in names]
     engines = {}
     for name, cfg in pool:
-        params = transformer.init_params(cfg, seed, device=device)
+        state = init_train_state(cfg, seed, device=device)
+        if train_steps:
+            ds = PackedDataset(text, 192, 8, seed)
+            opt_cfg = opt_lib.AdamWConfig(lr=2e-3, warmup_steps=20,
+                                          total_steps=train_steps)
+            log_fn(f"-- training {name} for {train_steps} steps")
+            state = train(cfg, state, iter(ds), opt_cfg, train_steps,
+                          log_every=max(train_steps // 2, 1), log_fn=log_fn)
+        params = _detached(transformer.cast_params(cfg, state.params))
         engines[name] = InferenceEngine(cfg, params, max_batch=8,
                                         max_len=1024, name=name,
                                         kv_backend=kv_backend, device=device)
     return engines, CAPABILITIES
+
+
+def _detached(tree):
+    """The working params as plain tensors (no autograd history, no
+    requires_grad), one storage each, for the engines."""
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_detached(v) for v in tree]
+    return tree.detach().clone()
 
 
 def build_pipeline(engines, caps, log_fn=print, profile_lengths=(8, 16, 32),
@@ -79,17 +103,21 @@ def response_line(resp, quality: float) -> str:
             f"rouge1-f1={quality:.3f} | {resp.text[:60]!r}")
 
 
-def main():
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--train-steps", type=int, default=0)
+    ap.add_argument("--train-steps", type=int, default=150)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-backend", choices=("dense", "paged"),
                     default="paged",
                     help="KV cache backend (paged = on-demand page pool)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
-    args = ap.parse_args()
+    return ap.parse_args(argv)
+
+
+def main():
+    args = parse_args()
 
     engines, caps = build_engines(args.train_steps, args.seed,
                                   device=args.device,

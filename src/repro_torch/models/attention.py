@@ -267,8 +267,8 @@ def attention_fwd(cfg: ModelConfig, params: dict, x: torch.Tensor,
 
     The read goes through the flash-attention wrapper (window and softcap
     from cfg). A `segment_mask` (B,1,S,S), which the kernel does not take,
-    runs the plain masked softmax on the CPU and raises on the card until
-    the training slice ports it."""
+    runs the plain masked softmax on the CPU and raises on the card: no
+    path of the JAX package passes one, training included."""
     check_support(cfg)
     S = x.shape[1]
     q, k, v = _project_qkv(cfg, params, x)
@@ -281,8 +281,9 @@ def attention_fwd(cfg: ModelConfig, params: dict, x: torch.Tensor,
     if segment_mask is not None:
         if x.device.type != "cpu":
             raise NotImplementedError(
-                "segment masks wait for the training slice: the flash "
-                "kernel takes none")
+                "segment masks are not on the card: the flash kernel takes "
+                "none, and no path of the JAX package (training included) "
+                "passes one")
         mask = causal_mask(S, S, window=cfg.sliding_window,
                            device=x.device) if causal else torch.ones(
             (1, 1, S, S), dtype=torch.bool, device=x.device)

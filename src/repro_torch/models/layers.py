@@ -25,6 +25,22 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return TORCH_DTYPES[cfg.dtype]
 
 
+# Leaves kept in float32 in the working params, whatever cfg.dtype: norm
+# scales, Mamba2's A_log, D and dt_bias (the JAX package casts them to
+# float32 at use), the xLSTM gate biases and the sLSTM's recurrent weights
+# (which it computes with in float32), and the length head.
+FLOAT32_LEAVES = ("scale", "q_norm", "k_norm", "A_log", "D", "dt_bias",
+                  "norm_scale", "b_i", "b_f", "b_gates", "r_gates",
+                  "length_head")
+
+
+def working_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """The dtype the leaf called `name` (its key in the params) is used in:
+    float32 for FLOAT32_LEAVES, cfg.dtype for the rest (matmul weights,
+    embeddings, biases, Mamba2's conv)."""
+    return torch.float32 if name in FLOAT32_LEAVES else compute_dtype(cfg)
+
+
 # ---------------------------------------------------------------------------
 # Initializers (the JAX package's law: N(0, 1/fan_in) dense, N(0, 0.02^2)
 # embeddings), drawn one tensor at a time in float32 from `gen` and stored

@@ -51,6 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.kernels import runtime
 from repro_torch.models import attention as attn_lib
@@ -62,7 +63,8 @@ from repro_torch.models.config import (ATTN, MAMBA2, MLSTM, SHARED_ATTN,
                                        SLSTM, ModelConfig)
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense_init,
                                        embed, init_embedding, init_mlp, mlp,
-                                       norm, rope_tables, unembed)
+                                       norm, rope_tables, unembed,
+                                       working_dtype)
 
 
 def segments_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -132,18 +134,21 @@ def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
     }
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                master: bool = False) -> dict:
     """Random weights from `seed`, drawn one tensor at a time on `device`
     (default the card; see `kernels.runtime.resolve_device`) and stored in
     their working dtype (matmul weights and embeddings in cfg.dtype; norm
     scales, the length head and the leaves `convert` keeps in float32, in
-    float32)."""
+    float32). With `master`, every leaf stays in float32 (cfg.param_dtype):
+    the training masters, which `cast_params` casts to the working dtypes
+    inside each step; the same draws, unrounded."""
     cfg.validate()
     check_supported(cfg)
     device = runtime.resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    dtype = compute_dtype(cfg)
+    dtype = torch.float32 if master else compute_dtype(cfg)
     p: Dict[str, Any] = {"embed": init_embedding(cfg, gen, dtype, device)}
     segs = []
     for kind, count in segments_of(cfg):
@@ -161,6 +166,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         p["length_head"] = dense_init(gen, (cfg.d_model, cfg.length_buckets),
                                       device=device)
     return p
+
+
+def cast_params(cfg: ModelConfig, params):
+    """Float32 master params -> the working params the model runs on, each
+    leaf in `layers.working_dtype` (the rule `convert` applies). The cast is
+    differentiable, so gradients land on the masters; a leaf already in its
+    working dtype is passed through. The JAX package's `_cast_once`
+    (`launch/steps.py`)."""
+    def cast(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: cast(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v, name) for v in tree]
+        dt = working_dtype(cfg, name)
+        return tree if tree.dtype == dt else tree.to(dt)
+    return cast(params)
 
 
 def _walk(cfg: ModelConfig, params: dict, cache: Optional[dict] = None):
@@ -285,6 +306,17 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
 # Full sequence (scoring)
 # ---------------------------------------------------------------------------
 
+def _layer_fwd(cfg: ModelConfig, kind: str, layer: dict,
+               positions: torch.Tensor, rope, x: torch.Tensor) -> torch.Tensor:
+    """One block over whole sequences (no cache)."""
+    if kind in RECURRENT_KINDS:
+        return _recurrent_block(cfg, kind, layer, x)
+    h = attn_lib.attention_fwd(cfg, layer["attn"],
+                               norm(cfg, layer["norm1"], x), positions,
+                               causal=True, rope=rope)
+    return _mlp_residual(cfg, layer, x + h)
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int -> (logits (B, S, V), aux_loss).
@@ -293,20 +325,27 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
     (causal, with cfg's window and softcap), every Mamba2 layer scans
     through the SSD-scan wrapper, every xLSTM layer runs its plain PyTorch
     cell. The aux loss is the MoE balance loss of
-    the JAX package, zero for the stacks the port serves."""
+    the JAX package, zero for the stacks the port serves.
+
+    Differentiable: on the card the three wrappers' backward kernels carry
+    the gradient through the norms, the attention and the scan. While
+    autograd records (training) and cfg.remat is set, each block is
+    rematerialized in the backward (`torch.utils.checkpoint`, as the JAX
+    package's `jax.checkpoint` over each layer), so only the blocks'
+    inputs stay alive between the two passes."""
     check_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None]
     rope = _rope(cfg, positions)
+    remat = cfg.remat and torch.is_grad_enabled()
     for kind, layer, _ in _walk(cfg, params):
-        if kind in RECURRENT_KINDS:
-            x = _recurrent_block(cfg, kind, layer, x)
-            continue
-        h = attn_lib.attention_fwd(cfg, layer["attn"],
-                                   norm(cfg, layer["norm1"], x), positions,
-                                   causal=True, rope=rope)
-        x = _mlp_residual(cfg, layer, x + h)
+        if remat:
+            x = torch_checkpoint.checkpoint(_layer_fwd, cfg, kind, layer,
+                                            positions, rope, x,
+                                            use_reentrant=False)
+        else:
+            x = _layer_fwd(cfg, kind, layer, positions, rope, x)
     x = norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -757,3 +757,159 @@ def test_moved_leaf_after_capture_raises(gen):
     seg["k_pages"] = seg["k_pages"].clone()
     with pytest.raises(RuntimeError, match="moved"):
         warm.generate([[1, 2, 3]], max_new=4)
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels against torch.autograd through the plain versions
+# ---------------------------------------------------------------------------
+
+# largest difference over the reference gradient's largest magnitude: f32
+# within 2e-5, bf16 within 2e-2. A gradient that is zero in exact
+# arithmetic (dA of a one-token scan from a zero state) is measured against
+# 1 % of the largest magnitude among the call's gradients instead.
+GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _rel(got, want, floor=1e-30):
+    scale = want.float().abs().max().clamp_min(floor)
+    return float((got.float() - want.float()).abs().max() / scale)
+
+
+def _floor(grads):
+    return 1e-2 * max(float(g.float().abs().max()) for g in grads)
+
+
+@pytest.fixture
+def no_tf32():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+def _plain_grads(fn, inputs, grads_out):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    total = sum((o.float() * g.float()).sum() for o, g in zip(outs, grads_out))
+    return torch.autograd.grad(total, leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D", [(1, 128), (37, 96), (1027, 1536),
+                                 (8, 4096), (300, 8192)])
+def test_rmsnorm_bwd_kernel_matches_autograd(gen, no_tf32, dtype, R, D):
+    x = torch.randn(R, D, generator=gen, device="cuda").to(dtype)
+    scale = torch.randn(D, generator=gen, device="cuda")
+    g = torch.randn(R, D, generator=gen, device="cuda").to(dtype)
+    want = _plain_grads(lambda a, s: rref.rmsnorm_ref(a, s, 1e-6), (x, scale),
+                        (g,))
+    before = rops.rmsnorm_bwd.launches
+    got = rops.rmsnorm_bwd(x, scale, g, 1e-6)
+    again = rops.rmsnorm_bwd(x, scale, g, 1e-6)
+    assert rops.rmsnorm_bwd.launches == before + 2
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _rel(a, b) <= GRAD_TOL[dtype], _rel(a, b)
+        assert torch.equal(a, c)            # the same bits on every run
+    # through the autograd.Function of the forward wrapper
+    xl = x.clone().requires_grad_(True)
+    sl = scale.clone().requires_grad_(True)
+    out = rops.rmsnorm(xl, sl, 1e-6)
+    assert type(out.grad_fn).__name__.startswith("_RMSNormFn")
+    dx, ds = torch.autograd.grad((out.float() * g.float()).sum(), (xl, sl))
+    assert _rel(dx, want[0]) <= GRAD_TOL[dtype]
+    assert _rel(ds, want[1]) <= GRAD_TOL[dtype]
+
+
+FLASH_BWD_MASKS = [(True, 0, 0.0), (True, 64, 0.0), (True, 0, 30.0),
+                   (False, 0, 0.0), (True, 16, 5.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", [(2, 37, 4, 4, 32),
+                                           (2, 200, 12, 2, 128),
+                                           (1, 129, 6, 1, 80),
+                                           (1, 70, 2, 2, 256)])
+@pytest.mark.parametrize("mask", FLASH_BWD_MASKS)
+def test_flash_bwd_kernel_matches_autograd(gen, no_tf32, dtype, B, S, Hq,
+                                           Hkv, hd, mask):
+    causal, window, softcap = mask
+    q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = _plain_grads(lambda a, b_, c: faref.flash_attention_ref(a, b_, c,
+                                                                   **kw),
+                        (q, k, v), (do,))
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    f0, b0 = faops.flash_attention.launches, faops.flash_attention_bwd.launches
+    out = faops.flash_attention(ql, kl, vl, **kw)
+    assert type(out.grad_fn).__name__.startswith("_FlashFn")
+    got = torch.autograd.grad(out, (ql, kl, vl), do)
+    assert faops.flash_attention.launches == f0 + 1
+    assert faops.flash_attention_bwd.launches == b0 + 1
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel(a, b) <= GRAD_TOL[dtype], _rel(a, b)
+    # the log-sum-exp the forward hands over, and repeatability
+    o, lse = faops._kernel.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    _, lse_ref = faref.flash_attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, lse_ref, **TOL[dtype])
+    again = faops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    once = faops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for a, b in zip(again, once):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bb,S,H,P,N", [(2, 37, 3, 8, 4), (1, 130, 4, 64, 16),
+                                        (2, 65, 8, 64, 64), (1, 1, 2, 4, 8),
+                                        (1, 300, 80, 64, 64)])
+@pytest.mark.parametrize("initial", [False, True])
+def test_ssd_bwd_kernel_matches_autograd(gen, no_tf32, Bb, S, H, P, N,
+                                         initial):
+    x = torch.randn(Bb, S, H, P, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn(Bb, S, H, generator=gen, device="cuda")) * 0.1
+    A = -torch.exp(torch.randn(H, generator=gen, device="cuda"))
+    B = torch.randn(Bb, S, N, generator=gen, device="cuda") * 0.3
+    C = torch.randn(Bb, S, N, generator=gen, device="cuda") * 0.3
+    h0 = (torch.randn(Bb, H, P, N, generator=gen, device="cuda")
+          if initial else None)
+    gy = torch.randn(Bb, S, H, P, generator=gen, device="cuda")
+    gs = torch.randn(Bb, H, P, N, generator=gen, device="cuda")
+    want = _plain_grads(
+        lambda *t: sref.ssd_chunked_ref(*t, chunk=64, initial_state=h0),
+        (x, dt, A, B, C), (gy, gs))
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, B, C)]
+    b0 = sops.ssm_scan_bwd.launches
+    y, st = sops.ssm_scan(*leaves, initial_state=h0)
+    assert type(y.grad_fn).__name__.startswith("_ScanFn")
+    got = torch.autograd.grad((y * gy).sum() + (st * gs).sum(), leaves)
+    assert sops.ssm_scan_bwd.launches == b0 + 1
+    floor = _floor(want)
+    for name, a, b in zip("x dt A B C".split(), got, want):
+        assert a.shape == b.shape
+        assert _rel(a, b, floor) <= 2e-5, (name, _rel(a, b, floor))
+    again = sops.ssm_scan_bwd(x, dt, A, B, C, gy, gs, initial_state=h0)
+    once = sops.ssm_scan_bwd(x, dt, A, B, C, gy, gs, initial_state=h0)
+    for a, b in zip(again, once):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ssd_initial_state_gradient_raises(gen):
+    x = torch.randn(1, 8, 2, 4, device="cuda", requires_grad=True)
+    dt = torch.full((1, 8, 2), 0.1, device="cuda")
+    A = -torch.ones(2, device="cuda")
+    B = torch.randn(1, 8, 4, device="cuda")
+    h0 = torch.zeros(1, 2, 4, 4, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        sops.ssm_scan(x, dt, A, B, B.clone(), initial_state=h0)
