@@ -26,7 +26,9 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      37 and 40, NaN or the extreme value past each length, with one and
      with two key groups a block; for the dense decode
      kernel ragged lengths from 1 to S with NaN past each length and a slot
-     of length 0; for the flash kernel window 0/64, softcap 0/30, causal
+     of length 0, and a sliding-window ring laid out as the port's prefill
+     lays it (w = 64, totals short of, at and past the window, NaN in the
+     rows no position reached) against the JAX package's plain ring mask; for the flash kernel window 0/64, softcap 0/30, causal
      and not, S of 200 and 300, and its tensor-core kernel (bf16) at
      q_per_kv 1/4/6/16/72, head_dim 64/80/128/256, S 1/37/200/1000 under
      six masks, in each of its launch shapes; zamba2's attention (head_dim
@@ -84,7 +86,13 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      int8 pool; then TINY_CLOUD on chunked paged engines whose pool (6 pages
      of 8) cannot hold its 4 requests, resumed by host swap, by replay and
      under the serial scheduler, at the first tolerance (every engine must
-     evict; swap-outs = swap-ins on the swapping ones);
+     evict; swap-outs = swap-ins on the swapping ones); then, at the
+     first tolerance and the configs' own capacity factor 1.25 (so MoE
+     assignments drop), qwen3-moe-30b-a3b.reduced() and a top-8 variant
+     on the dense, monolithic paged and chunked paged engines,
+     mixtral-8x7b.reduced(sliding_window=64) on the dense engine with
+     prompts padded past the window, and granite-3-8b.reduced() and
+     minitron-8b.reduced() on the chunked paged engine;
   5. at full width — qwen3-8b in the cloud, the JAX package's edge fleet
      (qwen2-1.5b, xlstm-1.3b at 48 layers and zamba2-2.7b), random bf16
      weights from a seed: the PICE pipeline on paged engines (chunked for
@@ -150,10 +158,29 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      on a fixed batch before and after (it must fall), and the mean
      ROUGE-1 F1 of the trained fleet's pipeline beside the untrained one's
      over 4 corpus requests;
-  12. one JSON line of the kernels (with their launches on the paths of
-     phases 7 and 9 under "eviction_paths"; the backward kernels' from
-     phase 11's full-width training), the card's name and power limit,
-     and the final {"ok": true, ...} line.
+  12. the other families at full width, random bf16 weights, one model
+     on the card at a time, launch counters set to 0 before each path:
+     granite-3-8b and minitron-8b on chunked paged engines (page 32, 8
+     slots, max_len 1,024), cold and warmed, phase 6's batch (4 x 256-token
+     prompts, 32 new tokens): tokens/s, the decode step cold and warmed,
+     finite logits, the unembedding's device time, peak memory;
+     qwen3-moe-30b-a3b at full depth on chunked paged engines over a bf16
+     and an int8 pool, the same batch cold and warmed, its dropped
+     assignments, the experts a decode step routes against the expert
+     bytes it reads, one MoE layer's device time split into router and
+     top-k, dispatch, expert products and combine (CUDA events),
+     `score()` of 1,024 tokens, peak memory; mixtral-8x7b cut to 16 of its
+     32 layers on the dense engine (max_len 8,192): one 4,200-token prompt
+     (bucket 8,192, past the 4,096 window) and 64 new tokens at capacity
+     factor 8.0, each token's logprob within MIXTRAL_LOGPROB_ATOL of
+     teacher-forced `forward`, then phase 6's batch at its own 1.25 with
+     its drops; the reduced qwen3-moe and mixtral configs trained 3 steps
+     card against CPU at phase 11's gates, the aux term logged;
+  13. one JSON line of the kernels (with their launches on the paths of
+     phases 7 and 9 under "eviction_paths" and of phase 12 under
+     "family_paths"; the backward kernels' from phase 11's full-width
+     training), the card's name and power limit, and the final {"ok":
+     true, ...} line.
 
 Each phase logs the seconds it took.
 
@@ -697,6 +724,10 @@ def phase_kernels_vs_plain(torch):
             log(f"{nf} cases of the tensor-core flash kernel passed")
             n += nf
         n += dense_kernel_cases(torch, gen, dtype, tol)
+        nr = ring_decode_cases(torch, gen, dtype, tol)
+        log(f"{dtype} query: {nr} cases of the dense decode kernel over a "
+            f"sliding-window ring (w = 64) passed")
+        n += nr
         nq = quant_kernel_cases(torch, gen, dtype, tol)
         log(f"{dtype} query: {nq} cases of the _quant kernels over int8 and "
             f"fp8 pools passed")
@@ -933,6 +964,43 @@ def dense_kernel_cases(torch, gen, dtype, tol):
                 got.float(), faref.flash_attention_ref(q, k, v, **kw).float(),
                 **tol)
             n += 1
+    return n
+
+
+def ring_decode_cases(torch, gen, dtype, tol):
+    """The dense decode kernel (#8) over a sliding-window ring laid out as
+    the port's prefill lays it (`cache.ring_positions`: each slot's last w
+    positions, position p in row p % w; rows no position reached hold NaN)
+    at w = 64, totals short of, at and past the window, read over
+    min(total, w) rows; against the JAX package's plain ring mask (every
+    row's position rebuilt, the window admitted) on the card, with the NaN
+    rows zeroed for the mask."""
+    from repro_torch.kernels.decode_attention import ops as ddops
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import cache as cache_lib
+    w, n = 64, 0
+    totals = torch.tensor([1, 2, 31, 63, 64, 65, 130, 1000, 4097],
+                          device="cuda")
+    B = totals.shape[0]
+    pos = cache_lib.ring_positions(totals, w)                 # (B, w)
+    for Hq, Hkv, hd in ((32, 8, 128), (8, 2, 64), (32, 4, 128)):
+        k = torch.randn(B, w, Hkv, hd, generator=gen, device="cuda")
+        v = torch.randn(B, w, Hkv, hd, generator=gen, device="cuda")
+        stale = (pos < 0)[:, :, None, None]
+        k = k.masked_fill(stale, float("nan")).to(dtype)
+        v = v.masked_fill(stale, float("nan")).to(dtype)
+        q = torch.randn(B, 1, Hq, hd, generator=gen, device="cuda").to(dtype)
+        got = ddops.decode_attention(q, k, v,
+                                     totals.clamp(max=w).to(torch.int32))
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), "a stale ring row was read"
+        qpos = (totals - 1)[:, None]
+        mask = (pos <= qpos) & (pos > qpos - w) & (pos >= 0)
+        want = attn_lib._grouped_sdpa(q, k.nan_to_num(0.0),
+                                      v.nan_to_num(0.0),
+                                      mask[:, None, None], Hq // Hkv)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        n += 1
     return n
 
 
@@ -1419,6 +1487,53 @@ def phase_tiny_parity(torch):
             f"equal, logprobs within atol 1e-2")
     ssm_tiny_parity(torch, prompts)
     tiny_eviction_parity(torch)
+    family_tiny_parity(torch, prompts)
+
+
+def family_tiny_parity(torch, prompts):
+    """The families of phase 12 reduced, float32, card against CPU at the
+    first tolerance, each at its config's own capacity factor (1.25, so
+    assignments drop): qwen3-moe-30b-a3b.reduced() and a top-8 variant (16
+    experts, k = 8) on the dense, monolithic paged and chunked paged
+    engines; mixtral-8x7b.reduced(sliding_window=64) on the dense engine
+    (the paged cache refuses a window) with prompts of 70 and 100 tokens
+    padded to 128, past the window; granite-3-8b.reduced() and
+    minitron-8b.reduced() on the chunked paged engine."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import InferenceEngine
+    f32 = dict(dtype="float32", remat=False)
+    qwen = get_config("qwen3-moe-30b-a3b").reduced(**f32)
+    long_prompts = prompts + [[(3 * i) % 97 + 1 for i in range(70)],
+                              [(5 * i) % 89 + 1 for i in range(100)]]
+    runs = [("qwen3-moe", qwen, prompts, (("dense", 0), ("paged", 0),
+                                          ("paged", 16))),
+            ("qwen3-moe-top8", qwen.with_(n_experts=16, experts_per_token=8),
+             prompts, (("dense", 0), ("paged", 0), ("paged", 16))),
+            ("mixtral-w64", get_config("mixtral-8x7b").reduced(
+                sliding_window=64, **f32), long_prompts, (("dense", 0),)),
+            ("granite", get_config("granite-3-8b").reduced(**f32), prompts,
+             (("paged", 16),)),
+            ("minitron", get_config("minitron-8b").reduced(**f32), prompts,
+             (("paged", 16),))]
+    for name, cfg, ps, variants in runs:
+        cpu_params = transformer.init_params(cfg, seed=0, device="cpu")
+        cuda_params = _to(cpu_params, "cuda")
+        for backend, chunk in variants:
+            def engine(device):
+                return InferenceEngine(
+                    cfg.with_(prefill_chunk=chunk),
+                    cuda_params if device == "cuda" else cpu_params,
+                    max_batch=3, max_len=256, page_size=16,
+                    kv_backend=backend, device=device)
+            got = engine("cuda").generate(ps, max_new=12)
+            want = engine("cpu").generate(ps, max_new=12)
+            _same_greedy(torch, got, want, lambda: engine("cpu"), ps,
+                         (name, backend, chunk))
+            log(f"{name} {backend} prefill_chunk={chunk} (capacity factor "
+                f"{cfg.capacity_factor}, window {cfg.sliding_window}): "
+                f"{len(ps)} requests, greedy tokens equal, logprobs within "
+                f"rtol 1e-4 atol 1e-5")
 
 
 def tiny_eviction_parity(torch):
@@ -1693,6 +1808,31 @@ def run_pipeline(torch, engines, n_requests, label):
     return launches, generated
 
 
+class FiniteLogits:
+    """Counts non-finite entries of every logits row the engines sample
+    from (through `token_logprob`) on the device inside the `with`; read
+    once at the end."""
+
+    def __init__(self, torch):
+        from repro_torch.serving import engine as engine_mod
+        self.mod = engine_mod
+        self.bad = torch.zeros((), dtype=torch.int64, device="cuda")
+        self.rows = 0
+
+    def __enter__(self):
+        inner = self.inner = self.mod.token_logprob
+
+        def checked(logits, toks):
+            self.bad.add_((~logits.isfinite()).sum())
+            self.rows += logits.shape[0]
+            return inner(logits, toks)
+        self.mod.token_logprob = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.token_logprob = self.inner
+
+
 def phase_full_width(torch):
     """Phase 5: the full-width paths, each with its own launch counts."""
     import math
@@ -1754,18 +1894,9 @@ def phase_full_width(torch):
         f"states {state_bytes(xlstm, ('slstm',))} B for {kw['max_batch']} "
         f"slots ({state_bytes(xlstm) / kw['max_batch'] / 1e6:.1f} MB a "
         f"slot)")
-    # every sampled logits row passes token_logprob: count non-finite
-    # entries on the device, read once at the end
-    nonfinite = torch.zeros((), dtype=torch.int64, device="cuda")
-    logprob = engine_mod.token_logprob
-
-    def checked(logits, toks):
-        nonfinite.add_((~torch.isfinite(logits)).sum())
-        return logprob(logits, toks)
-    engine_mod.token_logprob = checked
     torch.cuda.reset_peak_memory_stats()
     paths = {}
-    try:
+    with FiniteLogits(torch) as finite:
         paths["chunked paged pipeline"], made = run_pipeline(
             torch, engines, 3, "chunked paged")
         assert made["zamba2-2.7b"] > 0, "zamba2 expanded nothing"
@@ -1821,9 +1952,7 @@ def phase_full_width(torch):
                 f"attention layers, SSD scan launches "
                 f"{launches['ssm_scan']} = Mamba2 layers, RMSNorm launches "
                 f"{launches['rmsnorm']}")
-    finally:
-        engine_mod.token_logprob = logprob
-    assert int(nonfinite) == 0, f"{int(nonfinite)} non-finite logits"
+    assert int(finite.bad) == 0, f"{int(finite.bad)} non-finite logits"
     log("logits finite on every path")
     log(f"max memory allocated: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -1882,9 +2011,10 @@ def recurrent_norms(cfg):
 
 
 def attention_layers(cfg):
-    """Attention blocks a model call runs (a hybrid's shared block once per
-    application)."""
-    return sum(k in ("attn", "shared_attn") for k in cfg.block_pattern())
+    """Attention blocks a model call runs (a MoE block's attention, a
+    hybrid's shared block once per application)."""
+    return sum(k in ("attn", "moe", "shared_attn")
+               for k in cfg.block_pattern())
 
 
 def state_bytes(eng, kinds=None):
@@ -2494,6 +2624,73 @@ def decode_step_ms(torch, eng, plen, steps=16):
     return ms
 
 
+def warm_engine(torch, name, eng, max_context, plen):
+    """`eng.warmup()` for contexts up to `max_context` and prompts of
+    `plen`: its seconds, dispatches, captured decode graphs and the device
+    memory it left reserved logged. -> eng."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    count = eng.warmup(max_context=max_context, prompt_lens=(plen,))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log(f"{name}: warmup() {secs:.2f} s, {count} dispatches, "
+        f"{len(eng._graphs)} graphs (live widths {sorted(eng._graphs)}), "
+        f"{torch.cuda.memory_reserved() - reserved} B of device memory left "
+        f"reserved (the graphs' pool, buffers and workspaces)")
+    assert eng._graphs, f"{name}: warmup captured no graph"
+    return eng
+
+
+def warm_against_cold(torch, name, cold, warm, prompts, new):
+    """`prompts` through a cold engine, then through a warmed one over the
+    same weights: the same greedy tokens, logprobs within phase 4's
+    tolerance (the largest difference logged), the same launches of every
+    wrapper, and every decode step of the warmed engine a graph replay (none
+    dispatched eagerly). -> {"cold_s", "warm_s": each run's host wall
+    (synchronized), "launches": the cold run's launches}."""
+    decode = ("paged_decode_attention_quant" if cold.cfg.kv_quantized
+              else "paged_decode_attention")
+    t0 = time.perf_counter()
+    want, n_cold = counted(torch, lambda: cold.generate(prompts, max_new=new))
+    cold_s = time.perf_counter() - t0
+    replays = warm.graph_replays
+    eager = []
+    decode_sample = warm._decode_sample
+    warm._decode_sample = lambda *a, **kw: (eager.append(1),
+                                            decode_sample(*a, **kw))[1]
+    try:
+        t0 = time.perf_counter()
+        got, n_warm = counted(
+            torch, lambda: warm.generate(prompts, max_new=new))
+        warm_s = time.perf_counter() - t0
+    finally:
+        # the wrapper closes a reference cycle through the engine, whose
+        # graphs the cyclic collector could then free during a later
+        # capture, which a capture does not allow
+        del warm._decode_sample
+    replays = warm.graph_replays - replays
+    assert not eager, f"{name}: {len(eager)} decode steps ran eagerly"
+    worst = 0.0
+    for i, ((tg, lg), (tc, lc)) in enumerate(zip(got, want)):
+        assert tg == tc, f"{name}: request {i}'s greedy tokens differ " \
+            "warmed and cold"
+        torch.testing.assert_close(torch.tensor(lg), torch.tensor(lc),
+                                   rtol=1e-4, atol=1e-5)
+        worst = max(worst, max(abs(a - b) for a, b in zip(lg, lc)))
+    assert n_warm == n_cold, (n_warm, n_cold)
+    layers = attention_layers(cold.cfg)
+    assert replays > 0 and n_warm[decode] == replays * layers, \
+        f"{name}: a decode step ran outside the captured graphs"
+    log(f"  greedy, {new} new tokens: tokens equal, largest logprob "
+        f"difference {worst:.3g}, launches equal "
+        f"({ {k: n for k, n in n_warm.items() if n} }), {replays} graph "
+        f"replays")
+    return {"cold_s": cold_s, "warm_s": warm_s, "launches": n_cold}
+
+
 def phase_graphs(torch, engines, cold_rows):
     """Phase 10: `warmup()` on the card, and a warmed engine, which replays
     a captured CUDA graph for each decode step, against a cold one. For
@@ -2518,8 +2715,6 @@ def phase_graphs(torch, engines, cold_rows):
         new = PROFILE_DEPTH.get(name, 32)
         plen = PROFILE_PROMPT.get(name, 256)
         prompts = profile_prompts(plen)
-        decode = ("paged_decode_attention_quant" if cold.cfg.kv_quantized
-                  else "paged_decode_attention")
 
         def make(**kw):
             return InferenceEngine(
@@ -2528,56 +2723,9 @@ def phase_graphs(torch, engines, cold_rows):
                 device="cuda", **kw)
 
         def warmed(**kw):
-            eng = make(**kw)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved()
-            t0 = time.perf_counter()
-            count = eng.warmup(max_context=plen + new, prompt_lens=(plen,))
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            torch.cuda.empty_cache()
-            log(f"{name}: warmup() {secs:.2f} s, {count} dispatches, "
-                f"{len(eng._graphs)} graphs (live widths "
-                f"{sorted(eng._graphs)}), "
-                f"{torch.cuda.memory_reserved() - reserved} B of device "
-                f"memory left reserved (the graphs' pool, buffers and "
-                f"workspaces)")
-            assert eng._graphs, f"{name}: warmup captured no graph"
-            return eng
+            return warm_engine(torch, name, make(**kw), plen + new, plen)
         warm = warmed()
-        want, n_cold = counted(
-            torch, lambda: cold.generate(prompts, max_new=new))
-        replays = warm.graph_replays
-        eager = []
-        decode_sample = warm._decode_sample
-        warm._decode_sample = lambda *a, **kw: (eager.append(1),
-                                                decode_sample(*a, **kw))[1]
-        try:
-            got, n_warm = counted(
-                torch, lambda: warm.generate(prompts, max_new=new))
-        finally:
-            # the wrapper closes a reference cycle through the engine,
-            # whose graphs the cyclic collector could then free during a
-            # later capture, which a capture does not allow
-            del warm._decode_sample
-        replays = warm.graph_replays - replays
-        assert not eager, f"{name}: {len(eager)} decode steps ran eagerly"
-        worst = 0.0
-        for i, ((tg, lg), (tc, lc)) in enumerate(zip(got, want)):
-            assert tg == tc, f"{name}: request {i}'s greedy tokens differ " \
-                "warmed and cold"
-            torch.testing.assert_close(torch.tensor(lg), torch.tensor(lc),
-                                       rtol=1e-4, atol=1e-5)
-            worst = max(worst, max(abs(a - b) for a, b in zip(lg, lc)))
-        assert n_warm == n_cold, (n_warm, n_cold)
-        layers = attention_layers(cold.cfg)
-        assert replays > 0 and n_warm[decode] == replays * layers, \
-            f"{name}: a decode step ran outside the captured graphs"
-        log(f"  greedy, {new} new tokens: tokens equal, largest logprob "
-            f"difference {worst:.3g}, launches equal "
-            f"({ {k: n for k, n in n_warm.items() if n} }), {replays} graph "
-            f"replays")
+        warm_against_cold(torch, name, cold, warm, prompts, new)
         log(f"  a decode-only step (4 live slots): "
             f"{decode_step_ms(torch, cold, plen):.2f} ms cold, "
             f"{decode_step_ms(torch, warm, plen):.2f} ms warmed, on the "
@@ -2906,6 +3054,79 @@ def train_steps_on(torch, cfg, masters, batches, n, opt_cfg, per_step=None):
     return params, [float(x) for x in losses]
 
 
+def train_card_vs_cpu(torch, name, cfg, batches, opt_cfg):
+    """Card against CPU from the same masters and batches: the first step's
+    gradients leaf by leaf (within 5e-4 of each leaf's largest magnitude,
+    floored at 1 % of the model's largest gradient: the recurrent stacks'
+    float32 activations already differ by about 1e-4 between the two
+    devices), then 3 AdamW steps: losses within rtol 1e-4, every element
+    within 3 lr (Adam moves one by about lr whatever its gradient's size,
+    so one whose gradient is float noise may go the other way), the whole
+    update (params - masters) within 5 % in norm. The first step's aux
+    term (the MoE balance loss) is logged. -> (the card's params after the
+    steps, the card's masters)."""
+    import numpy as np
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer
+    from repro_torch.training import tree as tree_lib
+    cpu = transformer.init_params(cfg, 0, device="cpu", master=True)
+    card = _to(cpu, "cuda")
+    grads, aux = {}, {}
+    for dev, p in (("cuda", card), ("cpu", cpu)):
+        tok, tgt = batches[0]
+        _, metrics, grads[dev] = steps_lib.value_and_grad(
+            cfg, tree_lib.tree_map(lambda t: t.detach().clone(), p),
+            {"tokens": torch.from_numpy(tok).long().to(dev),
+             "targets": torch.from_numpy(tgt).long().to(dev)})
+        aux[dev] = float(metrics["aux"])
+    flat_c = tree_lib.leaves(grads["cuda"])
+    flat_h = tree_lib.leaves(grads["cpu"])
+    top = max(float(g.abs().max()) for g in flat_h if g is not None)
+    g_worst = 0.0
+    for a, b in zip(flat_c, flat_h):
+        if b is None:
+            assert a is None
+            continue
+        err = float((a.cpu() - b).abs().max()) / max(
+            float(b.abs().max()), 1e-2 * top)
+        g_worst = max(g_worst, err)
+    assert g_worst <= 5e-4, (name, g_worst)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    got, got_l = train_steps_on(torch, cfg, card, batches, 3, opt_cfg)
+    torch.cuda.synchronize()
+    launches = {k: counters[k].launches for k in FWD_KERNELS + BWD_KERNELS}
+    want, want_l = train_steps_on(torch, cfg, cpu, batches, 3, opt_cfg)
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-4)
+    far = total = 0
+    worst = num = den = 0.0
+    for a, b, p0 in zip(tree_lib.leaves(got), tree_lib.leaves(want),
+                        tree_lib.leaves(cpu)):
+        a, b = a.detach().cpu(), b.detach()
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        far += int((d > 1e-4).sum())
+        total += d.numel()
+        num += float(d.square().sum())
+        den += float((b - p0).square().sum())
+    upd = (num / den) ** 0.5
+    assert worst <= 3 * TRAIN_LR and upd <= 0.05, (name, worst, upd)
+    kinds = {k for k, _ in transformer.segments_of(cfg)}
+    assert launches["rmsnorm_bwd"] > 0
+    assert (launches["flash_attention_bwd"] > 0) == bool(
+        kinds & {"attn", "moe", "shared_attn"})
+    assert (launches["ssm_scan_bwd"] > 0) == ("mamba2" in kinds)
+    log(f"{name}: first-step gradients within {g_worst:.3g} of each "
+        f"leaf's scale; 3 steps card vs CPU, losses {got_l} vs {want_l} "
+        f"(rtol 1e-4), params max diff {worst:.3g} "
+        f"({worst / TRAIN_LR:.2f} lr), update within {upd:.4f} in norm, "
+        f"{far} of {total} elements past 1e-4; launches {launches}")
+    log(f"{name}: first-step aux term {aux['cuda']:.6f} on the card, "
+        f"{aux['cpu']:.6f} on the CPU")
+    return got, card
+
+
 def phase_training(torch):
     """Card against CPU, repeatability, full width, and the launcher."""
     import numpy as np
@@ -2918,76 +3139,17 @@ def phase_training(torch):
     log("== phase 11: training (float32 masters, the backward kernels)")
     text = corpus_lib.lm_text(400, 0)
     opt_cfg = topt.AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=3)
-    # 1. card against CPU from the same masters and batches: the first
-    # step's gradients leaf by leaf (within 5e-4 of each leaf's largest
-    # magnitude, floored at 1 % of the model's largest gradient: the
-    # recurrent stacks' float32 activations already differ by about 1e-4
-    # between the two devices), then 3 AdamW steps: losses within rtol
-    # 1e-4, every element within 3 lr (Adam moves one by about lr whatever
-    # its gradient's size, so one whose gradient is float noise may go the
-    # other way), the whole update (params - masters) within 5 % in norm.
-    from repro_torch.launch import steps as steps_lib
-    rep_params = None
+    # 1. card against CPU from the same masters and batches
+    rep = None
     for name, cfg in train_cfgs().items():
         ds = iter(PackedDataset(text, 64, 4, 0))
         batches = [next(ds) for _ in range(3)]
-        cpu = transformer.init_params(cfg, 0, device="cpu", master=True)
-        card = _to(cpu, "cuda")
-        grads = {}
-        for dev, p in (("cuda", card), ("cpu", cpu)):
-            tok, tgt = batches[0]
-            grads[dev] = steps_lib.value_and_grad(
-                cfg, tree_lib.tree_map(lambda t: t.detach().clone(), p),
-                {"tokens": torch.from_numpy(tok).long().to(dev),
-                 "targets": torch.from_numpy(tgt).long().to(dev)})[2]
-        flat_c = tree_lib.leaves(grads["cuda"])
-        flat_h = tree_lib.leaves(grads["cpu"])
-        top = max(float(g.abs().max()) for g in flat_h if g is not None)
-        g_worst = 0.0
-        for a, b in zip(flat_c, flat_h):
-            if b is None:
-                assert a is None
-                continue
-            err = float((a.cpu() - b).abs().max()) / max(
-                float(b.abs().max()), 1e-2 * top)
-            g_worst = max(g_worst, err)
-        assert g_worst <= 5e-4, (name, g_worst)
-        counters = kernel_counters()
-        for c in counters.values():
-            c.launches = 0
-        got, got_l = train_steps_on(torch, cfg, card, batches, 3, opt_cfg)
-        torch.cuda.synchronize()
-        launches = {k: counters[k].launches for k in FWD_KERNELS + BWD_KERNELS}
-        want, want_l = train_steps_on(torch, cfg, cpu, batches, 3, opt_cfg)
-        np.testing.assert_allclose(got_l, want_l, rtol=1e-4)
-        far = total = 0
-        worst = num = den = 0.0
-        for a, b, p0 in zip(tree_lib.leaves(got), tree_lib.leaves(want),
-                            tree_lib.leaves(cpu)):
-            a, b = a.detach().cpu(), b.detach()
-            d = (a - b).abs()
-            worst = max(worst, float(d.max()))
-            far += int((d > 1e-4).sum())
-            total += d.numel()
-            num += float(d.square().sum())
-            den += float((b - p0).square().sum())
-        upd = (num / den) ** 0.5
-        assert worst <= 3 * TRAIN_LR and upd <= 0.05, (name, worst, upd)
-        kinds = {k for k, _ in transformer.segments_of(cfg)}
-        assert launches["rmsnorm_bwd"] > 0
-        assert (launches["flash_attention_bwd"] > 0) == bool(
-            kinds & {"attn", "shared_attn"})
-        assert (launches["ssm_scan_bwd"] > 0) == ("mamba2" in kinds)
-        log(f"{name}: first-step gradients within {g_worst:.3g} of each "
-            f"leaf's scale; 3 steps card vs CPU, losses {got_l} vs {want_l} "
-            f"(rtol 1e-4), params max diff {worst:.3g} "
-            f"({worst / TRAIN_LR:.2f} lr), update within {upd:.4f} in norm, "
-            f"{far} of {total} elements past 1e-4; launches {launches}")
+        got, card = train_card_vs_cpu(torch, name, cfg, batches, opt_cfg)
         if name == "zamba2-4l":
-            rep_params, rep = got, (cfg, card, batches)
+            rep = (cfg, card, batches, got)
     # 2. repeatability: the hybrid (flash, scan and norms, forward and
     # backward) again on the card, bitwise equal
-    cfg, card, batches = rep
+    cfg, card, batches, rep_params = rep
     again, _ = train_steps_on(torch, cfg, card, batches, 3, opt_cfg)
     assert all(torch.equal(a, b) for a, b in
                zip(tree_lib.leaves(again), tree_lib.leaves(rep_params)))
@@ -3173,6 +3335,381 @@ def launcher_training(torch):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the other families at full width
+# ---------------------------------------------------------------------------
+
+# random bf16 weights from a seed; chunked paged engines as phase 5's
+FAMILY_ENGINE = dict(max_batch=8, max_len=1024, page_size=32, device="cuda")
+FAMILY_NEW = 32
+# mixtral-8x7b's 32 layers (46.70 B parameters, 93.4 GB in bf16) do not fit
+# one 80 GB card: its phase runs 16 of them at full width (47.0 GB)
+MIXTRAL_LAYERS = 16
+MIXTRAL_PROMPT, MIXTRAL_NEW, MIXTRAL_MAX_LEN = 4200, 64, 8192
+# bf16 logprobs of the engine's tokens (monolithic prefill through the
+# flash kernel, decode through the ring and the dense decode kernel)
+# against teacher-forced `forward` over the same tokens (the flash kernel
+# with the window): two bf16 evaluations of one function over 16 layers
+MIXTRAL_LOGPROB_ATOL = 0.1
+
+
+def draw_params(torch, name, cfg, seed):
+    """Random bf16 weights from `seed`, drawn on the card one tensor at a
+    time; their count and bytes logged. -> params."""
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine as engine_mod
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=seed, device="cuda")
+    tensors = list(engine_mod._tensors(params))
+    log(f"{name}: {sum(t.numel() for t in tensors) / 1e9:.3f} B parameters "
+        f"in its tensors "
+        f"({sum(t.numel() * t.element_size() for t in tensors) / 1e9:.2f} "
+        f"GB), drawn in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def free_card(torch):
+    """Collect what earlier phases left and return the card's cached blocks,
+    so that the next model starts from an empty card; the peak counter
+    starts anew."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"card before the next model: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
+
+
+class MoECalls:
+    """Records every MoE dispatch inside the `with` (eager calls only: a
+    replayed graph runs no Python): the call's token count, its dropped
+    assignments (from the keep mask) and its expert choices, read after the
+    run."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        inner = self.inner = self.moe.dispatch
+
+        def spy(cfg, top_e, C):
+            plan = inner(cfg, top_e, C)
+            self.calls.append((top_e.shape[0], (~plan["keep"]).sum(),
+                               top_e.detach().clone()))
+            return plan
+        self.moe.dispatch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch = self.inner
+
+    def summary(self, cfg, decode_T):
+        """Per kind of model call (decode: T == decode_T; ingest or prefill:
+        the rest): model calls, tokens, dropped assignments; and per decode
+        step the experts its rows route to, summed over the layers."""
+        n_layers = cfg.block_pattern().count("moe")
+        out = {}
+        for kind in ("decode", "ingest"):
+            rows = [(T, int(d)) for T, d, _ in self.calls
+                    if (T == decode_T) == (kind == "decode")]
+            out[kind] = {"calls": len(rows) // n_layers,
+                         "tokens": sum(T for T, _ in rows) // n_layers,
+                         "assignments": sum(T for T, _ in rows)
+                         * cfg.experts_per_token,
+                         "dropped": sum(d for _, d in rows)}
+        distinct = [int(e.unique().numel()) for T, _, e in self.calls
+                    if T == decode_T]
+        steps = max(len(distinct) // n_layers, 1)
+        out["routed_experts_a_step"] = sum(distinct) / steps
+        return out
+
+
+def expert_bytes(cfg, n_experts):
+    """Bytes of `n_experts` experts' three weight matrices in bf16."""
+    return n_experts * 3 * cfg.d_model * cfg.expert_d_ff * 2
+
+
+def moe_split(torch, cfg, layer, T, flush):
+    """One MoE layer's device time split into its steps at T tokens (random
+    bf16 inputs at the residual stream's scale, the layer's own weights):
+    router and top-k, dispatch (positions, the plan, the buffer's gather),
+    the expert products, the combine; each step timed alone by CUDA events
+    on a flushed L2 (`device_ms`). -> {step: ms}."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(T)
+    xf = torch.randn(T, cfg.d_model, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    p = layer["moe"]
+    C = moe.moe_capacity(T, cfg)
+    top_w, top_e, _ = moe.route(cfg, p, xf)
+    plan = moe.dispatch(cfg, top_e, C)
+    buf = moe.expert_inputs(cfg, xf, plan)
+    y = moe.experts_fwd(p, buf)
+    return {"router and top-k": device_ms(
+                torch, lambda: moe.route(cfg, p, xf), flush),
+            "dispatch": device_ms(torch, lambda: moe.expert_inputs(
+                cfg, xf, moe.dispatch(cfg, top_e, C)), flush),
+            "expert products": device_ms(
+                torch, lambda: moe.experts_fwd(p, buf), flush),
+            "combine": device_ms(
+                torch, lambda: moe.combine(y, plan, top_w), flush)}
+
+
+def unembed_ms(torch, cfg, params, flush):
+    """Device time of the unembedding of one decode step's 8 rows (CUDA
+    events, L2 flushed) beside its byte bound: the (d_model, vocab) bf16
+    weight read once."""
+    from repro_torch.models.layers import unembed
+    h = torch.randn(FAMILY_ENGINE["max_batch"], 1, cfg.d_model,
+                    device="cuda").to(torch.bfloat16)
+    ms = device_ms(torch, lambda: unembed(cfg, params["embed"], h), flush)
+    nbytes = cfg.d_model * cfg.vocab_size * 2
+    return ms, nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def serve_family(torch, name, cfg, params, flush):
+    """Phase 6's batch (4 requests of a 256-token prompt, FAMILY_NEW new
+    tokens) on a cold chunked paged engine and on a warmed one over the
+    same weights (`warm_against_cold`): tokens/s, the decode step cold and
+    warmed, launches. -> the cold run's launches."""
+    from repro_torch.serving.engine import InferenceEngine
+    prompts = profile_prompts()
+    cold = InferenceEngine(cfg, params, name=name, **FAMILY_ENGINE)
+    warm = warm_engine(torch, name, InferenceEngine(cfg, params, name=name,
+                                                    **FAMILY_ENGINE),
+                       256 + FAMILY_NEW, 256)
+    r = warm_against_cold(torch, name, cold, warm, prompts, FAMILY_NEW)
+    toks = len(prompts) * FAMILY_NEW
+    log(f"  {name}: 4 x 256-token prompts, {FAMILY_NEW} new tokens each: "
+        f"cold {r['cold_s']:.3f} s ({toks / r['cold_s']:.1f} tokens/s), "
+        f"warmed {r['warm_s']:.3f} s ({toks / r['warm_s']:.1f} tokens/s), "
+        f"host clock, first run of each engine")
+    log(f"  {name}: a decode-only step (4 live slots): "
+        f"{decode_step_ms(torch, cold, 256):.2f} ms cold, "
+        f"{decode_step_ms(torch, warm, 256):.2f} ms warmed, host clock")
+    return r["launches"]
+
+
+def dense_family(torch, arch, seed, flush):
+    """granite-3-8b or minitron-8b at full width."""
+    from repro_torch.configs.registry import get_config
+    free_card(torch)
+    cfg = get_config(arch).with_(prefill_chunk=128)
+    log(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}")
+    params = draw_params(torch, arch, cfg, seed)
+    with FiniteLogits(torch) as fin:
+        launches = serve_family(torch, arch, cfg, params, flush)
+    assert int(fin.bad) == 0, f"{arch}: {int(fin.bad)} non-finite logits"
+    ms, bound_ms, nbytes = unembed_ms(torch, cfg, params, flush)
+    log(f"  {arch}: logits finite ({fin.rows} rows sampled); the "
+        f"unembedding of 8 decode rows {ms:.4f} ms on the device, its "
+        f"{nbytes / 1e9:.3f} GB weight read once {bound_ms:.4f} ms at "
+        f"3.35 TB/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return {f"{arch} chunked paged": launches}
+
+
+def qwen3_moe_family(torch, flush):
+    """qwen3-moe-30b-a3b at full depth and width over a bf16 and an int8
+    pool: warmed against cold, drops, the MoE layer's split, the expert
+    bytes a decode step reads, score(), peak memory."""
+    import math
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import InferenceEngine
+    free_card(torch)
+    arch = "qwen3-moe-30b-a3b"
+    cfg = get_config(arch).with_(prefill_chunk=128)
+    all_experts = cfg.n_layers * expert_bytes(cfg, cfg.n_experts)
+    log(f"{arch}: {cfg.n_layers} layers, {cfg.n_experts} experts, top-"
+        f"{cfg.experts_per_token}, expert d_ff {cfg.expert_d_ff}, capacity "
+        f"factor {cfg.capacity_factor}; the experts "
+        f"{all_experts / 1e9:.2f} GB")
+    params = draw_params(torch, arch, cfg, 22)
+    paths = {}
+    with FiniteLogits(torch) as fin:
+        for label, c in (("bf16 pool", cfg),
+                         ("int8 pool", cfg.with_(kv_dtype="int8"))):
+            paths[f"{arch} chunked paged, {label}"] = serve_family(
+                torch, f"{arch} ({label})", c, params, flush)
+        # drops and routed experts on one more cold run, at the config's
+        # capacity factor
+        eng = InferenceEngine(cfg, params, name=arch, **FAMILY_ENGINE)
+        with MoECalls() as spy:
+            eng.generate(profile_prompts(), max_new=FAMILY_NEW)
+        torch.cuda.synchronize()
+        seq = [(13 * i) % 251 + 1 for i in range(1024)]
+        t0 = time.perf_counter()
+        (mean, gold), launches = counted(torch, lambda: eng.score(seq))
+        score_s = time.perf_counter() - t0
+    assert int(fin.bad) == 0, f"{arch}: {int(fin.bad)} non-finite logits"
+    assert math.isfinite(mean) and np.isfinite(gold).all()
+    assert launches["flash_attention"] == cfg.n_layers, launches
+    paths[f"score {arch}"] = launches
+    st = spy.summary(cfg, FAMILY_ENGINE["max_batch"])
+    for kind in ("decode", "ingest"):
+        d = st[kind]
+        log(f"  {arch} {kind} calls: {d['calls']} model calls of "
+            f"{d['tokens']} tokens in all, {d['dropped']} of "
+            f"{d['assignments']} expert assignments dropped "
+            f"({d['dropped'] / max(d['calls'], 1):.1f} a call)")
+    routed = st["routed_experts_a_step"]
+    log(f"  {arch} expert weights a decode step: {all_experts / 1e9:.2f} GB "
+        f"read by the batched products (every expert of every layer; "
+        f"{all_experts / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s), "
+        f"against {routed:.1f} experts routed by the step's 8 rows over "
+        f"the {cfg.n_layers} layers, "
+        f"{expert_bytes(cfg, routed) / 1e9:.2f} GB "
+        f"({expert_bytes(cfg, routed) / HBM_BYTES_PER_S * 1e3:.2f} ms)")
+    layer = params["segments"][0][0]
+    for T, what in ((FAMILY_ENGINE["max_batch"], "a decode step's 8 rows"),
+                    (4 * 128, "a ragged ingest call of 4 x 128 rows")):
+        split = moe_split(torch, cfg, layer, T, flush)
+        total = sum(split.values())
+        log(f"  {arch} one MoE layer at {what} (T = {T}, C = "
+            f"{moe.moe_capacity(T, cfg)}), device time by "
+            f"step (CUDA events, L2 flushed, median of 21): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+            + f"; {total:.4f} ms a layer, {total * cfg.n_layers:.2f} ms "
+            f"over the {cfg.n_layers} layers; the expert products' bytes "
+            f"{expert_bytes(cfg, cfg.n_experts) / HBM_BYTES_PER_S * 1e3:.4f}"
+            f" ms a layer at 3.35 TB/s")
+    log(f"  {arch} score() of a 1024-token sequence: {score_s:.3f} s (host "
+        f"clock, cold), mean logprob {mean:.4f}, launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    log(f"  {arch}: logits finite ({fin.rows} rows sampled); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return paths
+
+
+def mixtral_family(torch):
+    """mixtral-8x7b, 16 of its 32 layers at full width, on the dense
+    engine: one 4,200-token prompt (bucket 8,192, past the 4,096 window)
+    and 64 new tokens at capacity factor 8.0, each generated token's
+    logprob held to teacher-forced `forward`; then a batch at the
+    config's own 1.25, whose drops are logged."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import InferenceEngine
+    free_card(torch)
+    arch = "mixtral-8x7b"
+    full = get_config(arch)
+    cfg = full.with_(n_layers=MIXTRAL_LAYERS, capacity_factor=8.0)
+    log(f"{arch}: {MIXTRAL_LAYERS} of its {full.n_layers} layers at full "
+        f"width (the whole stack, {full.param_count() / 1e9:.2f} B "
+        f"parameters by param_count(), does not fit one card), window "
+        f"{cfg.sliding_window}, {cfg.n_experts} experts, top-"
+        f"{cfg.experts_per_token}")
+    params = draw_params(torch, arch, cfg, 23)
+    eng = InferenceEngine(cfg, params, kv_backend="dense", max_batch=8,
+                          max_len=MIXTRAL_MAX_LEN, device="cuda", eos_id=-1,
+                          name=arch)
+    ring = sum(seg[k].numel() * seg[k].element_size()
+               for seg in eng.cache["segments"] for k in seg)
+    prompt = [(7 * i) % (cfg.vocab_size - 1) + 1
+              for i in range(MIXTRAL_PROMPT)]
+    paths = {}
+    with FiniteLogits(torch) as fin:
+        t0 = time.perf_counter()
+        [(toks, lps)], launches = counted(
+            torch, lambda: eng.generate([prompt], max_new=MIXTRAL_NEW))
+        wall = time.perf_counter() - t0
+    assert int(fin.bad) == 0, f"{arch}: {int(fin.bad)} non-finite logits"
+    assert len(toks) == MIXTRAL_NEW
+    assert launches["flash_attention"] == MIXTRAL_LAYERS, launches
+    assert launches["decode_attention"] >= \
+        MIXTRAL_LAYERS * (MIXTRAL_NEW - 1), launches
+    assert launches["decode_attention"] % MIXTRAL_LAYERS == 0, launches
+    paths[f"{arch} dense, ring"] = launches
+    with torch.no_grad():
+        seq = torch.tensor([prompt + toks[:-1]], device="cuda")
+        logits, _ = transformer.forward(cfg, params, seq)
+        logp = torch.log_softmax(logits[0, len(prompt) - 1:].float(), -1)
+        del logits
+    want = logp.gather(-1, torch.tensor(toks, device="cuda")[:, None])[:, 0]
+    diff = (torch.tensor(lps, device="cuda") - want).abs()
+    top2 = logp.topk(2, dim=-1).values
+    parted = [i for i, t in enumerate(toks)
+              if int(logp[i].argmax()) != t]
+    log(f"  {arch}: one {MIXTRAL_PROMPT}-token prompt (bucket "
+        f"{min(1 << (MIXTRAL_PROMPT - 1).bit_length(), MIXTRAL_MAX_LEN)}, "
+        f"past the window) and {MIXTRAL_NEW} new tokens in {wall:.2f} s "
+        f"(host clock, cold), ring cache {ring / 1e9:.3f} GB for 8 slots "
+        f"({ring / 8 / 1e6:.1f} MB a slot), launches "
+        f"{ {k: n for k, n in launches.items() if n} }, at capacity "
+        f"factor {cfg.capacity_factor} (no assignment drops, so the "
+        f"engine's calls and forward's route alike whatever their token "
+        f"counts)")
+    log(f"  {arch}: engine logprobs against teacher-forced forward (flash "
+        f"with the window) over the same {len(prompt) + len(toks) - 1} "
+        f"tokens: largest difference {float(diff.max()):.4f}, mean "
+        f"{float(diff.mean()):.4f} (tolerance {MIXTRAL_LOGPROB_ATOL}); the "
+        f"engine's token is forward's argmax at {len(toks) - len(parted)} "
+        f"of {len(toks)} positions, the others at forward's top-2 margins "
+        f"{[round(float(top2[i, 0] - top2[i, 1]), 4) for i in parted]}")
+    assert float(diff.max()) <= MIXTRAL_LOGPROB_ATOL, float(diff.max())
+    del eng, logp
+    # the config's own capacity factor: phase 6's batch on a dense engine
+    own = cfg.with_(capacity_factor=full.capacity_factor)
+    eng = InferenceEngine(own, params, kv_backend="dense", max_batch=8,
+                          max_len=1024, device="cuda", name=arch)
+    with MoECalls() as spy, FiniteLogits(torch) as fin:
+        t0 = time.perf_counter()
+        _, launches = counted(torch, lambda: eng.generate(
+            profile_prompts(), max_new=FAMILY_NEW))
+        wall = time.perf_counter() - t0
+    assert int(fin.bad) == 0, f"{arch}: {int(fin.bad)} non-finite logits"
+    paths[f"{arch} dense, capacity factor 1.25"] = launches
+    st = spy.summary(own, 8)
+    for kind in ("decode", "ingest"):
+        d = st[kind]
+        log(f"  {arch} at capacity factor {own.capacity_factor}, {kind} "
+            f"calls: {d['calls']} model calls of {d['tokens']} tokens in "
+            f"all, {d['dropped']} of {d['assignments']} expert assignments "
+            f"dropped")
+    log(f"  {arch}: 4 x 256-token prompts, {FAMILY_NEW} new tokens in "
+        f"{wall:.2f} s (host clock, cold); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return paths
+
+
+def phase_families(torch):
+    """Phase 12: granite-3-8b, minitron-8b, qwen3-moe-30b-a3b and
+    mixtral-8x7b (16 of 32 layers) at full width, one model on the card at
+    a time, launch counters set to 0 before each path; then the reduced
+    MoE configs trained card against CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import corpus as corpus_lib
+    from repro_torch.data.pipeline import PackedDataset
+    from repro_torch.training import optimizer as topt
+    log("== phase 12: the other families at full width (random bf16 "
+        "weights, one model on the card at a time)")
+    flush = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32,
+                        device="cuda")
+    paths = {}
+    for seed, arch in enumerate(("granite-3-8b", "minitron-8b")):
+        paths.update(dense_family(torch, arch, 20 + seed, flush))
+    paths.update(qwen3_moe_family(torch, flush))
+    paths.update(mixtral_family(torch))
+    del flush
+    free_card(torch)
+    text = corpus_lib.lm_text(400, 0)
+    opt_cfg = topt.AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=3)
+    for arch in ("qwen3-moe-30b-a3b", "mixtral-8x7b"):
+        ds = iter(PackedDataset(text, 64, 4, 0))
+        batches = [next(ds) for _ in range(3)]
+        train_card_vs_cpu(torch, f"{arch} reduced",
+                          get_config(arch).reduced(dtype="float32"),
+                          batches, opt_cfg)
+    return paths
+
+
 # the full-width path each kernel's `launches` is read from (phase 5)
 MAIN_PATH = {"paged_decode_attention": "chunked paged pipeline",
              "paged_prefill_attention_ragged": "chunked paged pipeline",
@@ -3239,6 +3776,7 @@ def main() -> int:
     timed("phase 10", phase_graphs, torch, engines, cold_rows)
     del engines, weights
     paths.update(timed("phase 11", phase_training, torch))
+    families = timed("phase 12", phase_families, torch)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         path = MAIN_PATH[name]
@@ -3246,7 +3784,9 @@ def main() -> int:
                  "replaces": replaces, "main_path": path,
                  "launches": paths[path][name],
                  "eviction_paths": {p: n[name] for p, n in other.items()
-                                    if n[name]}}
+                                    if n[name]},
+                 "family_paths": {p: n[name] for p, n in families.items()
+                                  if n[name]}}
         # the top-level numbers are the first timing row's (the cloud
         # model's, qwen3-8b, for attention; zamba2's prefill for the SSD
         # scan); the other rows' follow under their own names

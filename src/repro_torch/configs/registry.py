@@ -2,8 +2,10 @@
 
 Each config module `repro_torch.configs.<id>` exposes CONFIG, the full-size
 configuration with its source. Only the architectures whose families the port
-runs are listed: the dense GQA decoders of the PICE cloud/edge pairing, the
-xLSTM stack and the Mamba2 + shared-attention hybrid of its edge fleet.
+runs are listed: the dense GQA decoders (the PICE cloud/edge pairing,
+granite-3-8b, minitron-8b), the MoE decoders (qwen3-moe-30b-a3b, and
+mixtral-8x7b with its sliding window), the xLSTM stack and the Mamba2 +
+shared-attention hybrid of its edge fleet.
 """
 from __future__ import annotations
 
@@ -18,6 +20,10 @@ ALIASES = {
     "qwen2-1.5b": "qwen2_1p5b",
     "xlstm-1.3b": "xlstm_1p3b",
     "zamba2-2.7b": "zamba2_2p7b",
+    "granite-3-8b": "granite_3_8b",
+    "minitron-8b": "minitron_8b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "mixtral-8x7b": "mixtral_8x7b",
 }
 
 

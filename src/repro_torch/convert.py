@@ -11,7 +11,10 @@ w_in, w_out, conv_w and conv_b in `cfg.dtype`. An xLSTM layer keeps the
 gate biases (the mLSTM's b_i and b_f, the sLSTM's b_gates), the sLSTM's
 recurrent weights r_gates and its norm scales in float32, which the JAX
 package computes with (a bf16 r_gates would round the recurrence at every
-token), and its projections in `cfg.dtype`. A hybrid's shared block
+token), and its projections in `cfg.dtype`. A MoE layer's "moe" leaves
+(router (D, E), w_gate / w_up (E, D, F), w_down (E, F, D)) keep the JAX
+package's shapes, unstacked from the layer axis, in `cfg.dtype`. A
+hybrid's shared block
 (`ref["shared"]`, unstacked) converts as one layer, and its SHARED_ATTN
 segments, empty in the pytree, become empty lists. Give this module the
 pytree as numpy arrays (`jax.tree.map(np.asarray, params)`), so the port

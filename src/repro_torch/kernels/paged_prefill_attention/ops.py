@@ -27,7 +27,7 @@ def paged_prefill_attention_ragged(q, k_pages, v_pages, block_rows, offsets,
     K/V already written); k/v_pages: (n_pages, page_size, Hkv, hd);
     block_rows: (R, P) int32 (-1 = unmapped), pre-trimmed to the shared
     live width; offsets/lens: (R,) int32. Row r positions past lens[r] are
-    unspecified, as are padding rows (lens == 0)."""
+    zeros, as are padding rows (lens == 0), on both routes."""
     if not runtime.use_kernel(q, k_pages, v_pages, block_rows, offsets,
                               lens):
         return _ref.paged_prefill_attention_ragged_ref(
@@ -42,7 +42,7 @@ def paged_prefill_attention(q, k_pages, v_pages, block_row, offset,
                             chunk_len):
     """One slot's chunk: q (1, C, Hq, hd); block_row (P,) int32; offset /
     chunk_len: ints or (1,) int32 tensors on q's device. Rows past
-    chunk_len are unspecified."""
+    chunk_len are zeros."""
     offset = _scalar(offset, q.device)
     chunk_len = _scalar(chunk_len, q.device)
     if not runtime.use_kernel(q, k_pages, v_pages, block_row, offset,

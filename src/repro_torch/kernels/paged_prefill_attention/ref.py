@@ -7,7 +7,10 @@ the way), then run causal masked attention — the numerics contract for the
 CUDA kernel, written as the JAX package's oracles
 (`repro/kernels/paged_prefill_attention/ref.py`) are. Keys at or past a
 row's offset + len are zeroed before the products, as the kernels never
-load them.
+load them, and query rows past a row's len come out as zeros, as the
+kernels write them. (The JAX package leaves those rows unspecified; a MoE
+layer routes them, and their values decide which later tokens of the call
+fit an expert's capacity, so the card and the CPU must agree on them.)
 """
 from __future__ import annotations
 
@@ -41,8 +44,11 @@ def _attend_chunks(q, gk, gv, offsets, lens):
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     dt = torch.promote_types(q.dtype, v.dtype)
-    return torch.einsum("bnqk,bknh->bqnh", probs.to(dt),
-                        v.to(dt)).to(q.dtype)
+    out = torch.einsum("bnqk,bknh->bqnh", probs.to(dt), v.to(dt))
+    dead = (torch.arange(C, device=q.device)[None, :]
+            >= lens[:, None])[:, :, None, None]
+    return torch.where(dead, torch.zeros((), dtype=dt, device=q.device),
+                       out).to(q.dtype)
 
 
 def paged_prefill_attention_ragged_ref(q, k_pages, v_pages, block_rows,
@@ -50,7 +56,7 @@ def paged_prefill_attention_ragged_ref(q, k_pages, v_pages, block_rows,
     """q: (R, C, Hq, hd) — row r is one slot's chunk queries (RoPE applied,
     chunk K/V already written); block_rows: (R, P) per-row block-table rows;
     offsets/lens: (R,). Returns (R, C, Hq, hd); row r positions past lens[r]
-    are unspecified, as is every position of padding rows (lens[r] == 0)."""
+    are zeros, as is every position of padding rows (lens[r] == 0)."""
     return _attend_chunks(q, pc.gather_sequence(k_pages, block_rows),
                           pc.gather_sequence(v_pages, block_rows), offsets,
                           lens)
@@ -60,7 +66,7 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_row, offset,
                                 chunk_len):
     """One slot's chunk: q (1, C, Hq, hd); block_row (P,); offset/chunk_len
     (1,) int32 tensors. Returns (1, C, Hq, hd); rows past chunk_len are
-    unspecified."""
+    zeros."""
     return paged_prefill_attention_ragged_ref(
         q, k_pages, v_pages, block_row[None], offset.reshape(1),
         chunk_len.reshape(1))

@@ -309,17 +309,27 @@ class DenseCall(NamedTuple):
 def dense_decode_call(cfg: ModelConfig, lengths: torch.Tensor, T: int,
                       S: int, live_rows: Optional[int] = None) -> DenseCall:
     """The write plan, RoPE tables and read lengths of T new tokens at
-    `lengths` in an S-row cache. `live_rows` (every slot whose output is
-    kept holds at most that many rows after the write) narrows the
-    one-token read to the cache's first rows, so that the kernel splits
-    only the rows that hold keys; dropped rows past every kept slot's
-    length carry no weight."""
+    `lengths` in an S-row cache (a ring of S = cfg.sliding_window rows for
+    a windowed stack). `live_rows` (every slot whose output is kept holds
+    at most that many rows after the write) narrows the one-token read to
+    the cache's first rows, so that the kernel splits only the rows that
+    hold keys; dropped rows past every kept slot's length carry no weight.
+
+    In a ring, a one-token read covers min(length + 1, w) rows: after the
+    write they hold exactly the positions the window admits (q - w + 1 ..
+    q, or 0 .. q before the ring fills), whatever their order, and RoPE was
+    applied when each was written."""
     positions = lengths[:, None] + torch.arange(T, device=lengths.device)
     rope = None
     if cfg.use_rope:
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    return DenseCall(cache_lib.write_plan(lengths, T, S), rope, positions,
-                     (lengths + 1).to(torch.int32), live_rows)
+    w = cfg.sliding_window
+    read_lens = lengths + 1
+    if w:
+        read_lens = read_lens.clamp(max=w)
+        live_rows = w if live_rows is None else min(live_rows, w)
+    return DenseCall(cache_lib.write_plan(lengths, T, S, w), rope, positions,
+                     read_lens.to(torch.int32), live_rows)
 
 
 def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -329,18 +339,25 @@ def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode step. x: (B, T, D) with T new tokens (usually 1).
 
-    layer_k/layer_v: (B, Scache, n_kv, hd), updated in place; lengths: (B,)
+    layer_k/layer_v: (B, Scache, n_kv, hd), updated in place (a ring of
+    Scache = cfg.sliding_window rows for a windowed stack); lengths: (B,)
     int32 tokens already cached; `call` the model call's shared state
     (`dense_decode_call`, built here when absent). Writes the new K/V at
-    `lengths` (clamped to fit, see `cache.write_plan`), then reads
-    positions <= each query's own: one token through the decode-attention
-    wrapper, several through the plain grouped softmax, as the JAX package
-    does. Returns (out, layer_k, layer_v).
+    `lengths` (clamped to fit, or wrapped in a ring; see
+    `cache.write_plan`), then reads positions <= each query's own, and
+    inside the window: one token through the decode-attention wrapper,
+    several through the plain grouped softmax, as the JAX package does.
+    Returns (out, layer_k, layer_v).
+
+    A ring's one-token read on the card runs the decode-attention kernel
+    over its first min(length + 1, w) rows (`dense_decode_call`), where
+    the JAX package sends windowed decode to plain jnp; on the CPU it runs
+    the JAX package's plain ring mask, which reconstructs each row's
+    position.
 
     The JAX package's kernel path (use_pallas) drops the logit softcap on
     one-token decode; the port serves no config with a softcap and raises
-    on one. The sliding-window ring (the JAX package's `window`) is not
-    ported: `init_cache` refuses a windowed config."""
+    on one."""
     check_support(cfg)
     if cfg.attn_logit_softcap:
         raise NotImplementedError(
@@ -355,14 +372,20 @@ def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
         k = apply_rope(k, tables=call.rope)
     layer_k, layer_v = cache_lib.update_layer_kv(layer_k, layer_v, lengths,
                                                  k, v, call.dest)
-    if T == 1:
+    w = cfg.sliding_window
+    if T == 1 and not (w and x.device.type == "cpu"):
         live = slice(None, call.live_rows)
         out = da_ops.decode_attention(q.contiguous(), layer_k[:, live],
                                       layer_v[:, live], call.read_lens)
     else:
-        ki = torch.arange(layer_k.shape[1], device=x.device)[None, None, :]
-        mask = (ki <= call.positions[:, :, None])[:, None]
-        out = _grouped_sdpa(q, layer_k, layer_v, mask, cfg.q_per_kv)
+        qpos = call.positions[:, :, None]                      # (B, T, 1)
+        if w:
+            abs_pos = cache_lib.ring_positions(lengths + T, w)[:, None]
+            mask = (abs_pos <= qpos) & (abs_pos > qpos - w) & (abs_pos >= 0)
+        else:
+            ki = torch.arange(layer_k.shape[1], device=x.device)
+            mask = ki[None, None, :] <= qpos
+        out = _grouped_sdpa(q, layer_k, layer_v, mask[:, None], cfg.q_per_kv)
     return _out_proj(params, out), layer_k, layer_v
 
 
@@ -500,8 +523,8 @@ def attention_prefill_chunk_paged(cfg: ModelConfig, params: dict,
     offset: tokens already written for this slot. Writes the chunk's K/V at
     offset..offset+chunk_len-1, then attends each chunk query causally
     within the chunk and against everything the slot already holds, through
-    the single-slot paged prefill wrapper. Rows past chunk_len are
-    unspecified."""
+    the single-slot paged prefill wrapper. Rows past chunk_len come out of
+    the attention as zeros."""
     check_paged_support(cfg)
     if call is None:
         call = chunk_call(cfg, block_row[None], offset, chunk_len,
@@ -534,8 +557,9 @@ def attention_prefill_ragged_paged(cfg: ModelConfig, params: dict,
     (R, P); offsets/lens: (R,). Writes every row's chunk K/V (distinct slots
     own distinct pages), then attends each row's queries causally within
     its chunk and against everything that slot holds, through the ragged
-    paged prefill wrapper. Row r positions past lens[r] are unspecified, as
-    are padding rows (lens == 0)."""
+    paged prefill wrapper. Row r positions past lens[r] come out of the
+    attention as zeros, as do padding rows (lens == 0): a MoE layer routes
+    them, so their values must not depend on the route."""
     check_paged_support(cfg)
     if call is None:
         call = chunk_call(cfg, block_rows, offsets, lens, x.shape[1],

@@ -1,6 +1,6 @@
 """Decoder stacks (PyTorch) over a dense or a paged KV cache: dense
-attention, Mamba2 (SSM), xLSTM (mLSTM and sLSTM blocks) and the Mamba2 +
-shared-attention hybrid (zamba2).
+attention, MoE, Mamba2 (SSM), xLSTM (mLSTM and sLSTM blocks) and the
+Mamba2 + shared-attention hybrid (zamba2).
 
 The port of the JAX package's `models/transformer.py` for the segments the
 PICE serving path runs: init; the full-sequence `forward` (scoring); the
@@ -9,10 +9,11 @@ with monolithic `prefill_paged`, one prompt chunk, batched ragged chunks
 (attention-only stacks), the decode step, the COW fork copy and the
 host-swap promote. Dense and monolithic paged prefill share
 `_prefill_block`, whose `kv_writer` hook alone differs, so both produce the
-same activations. The MoE and encoder families wait for their slices.
+same activations. The encoder-decoder family waits for its slice.
 
 Layers come in segments (`segments_of`): runs of one block kind. ATTN is an
-attention + MLP block, MAMBA2 a Mamba2 block (`models/ssm.py`) and
+attention + MLP block, MOE an attention + MoE FFN block (`models/moe.py`),
+MAMBA2 a Mamba2 block (`models/ssm.py`) and
 SHARED_ATTN an application of the one weight-tied attention + MLP block of
 a hybrid, whose weights live once in params["shared"] while every
 application has its own cache segment. MLSTM and SLSTM are the xLSTM
@@ -22,7 +23,9 @@ kinds: each keeps O(1) per-slot states in place of K/V.
 Params: {"embed": {"tok", "unembed"}, "segments": [[layer, ...], ...],
 "shared"?: layer, "final_norm": {"scale"}, "length_head"?}; an attention
 layer is {"norm1": {"scale"}, "attn": {...}, "norm2": {"scale"}, "mlp":
-{...}} (see attention.py for the weight layout), a Mamba2 layer {"norm1":
+{...}} (see attention.py for the weight layout), a MoE layer the same with
+"moe": {"router", "w_gate", "w_up", "w_down"} in place of "mlp", a Mamba2
+layer {"norm1":
 {"scale"}, "mamba": {...}}, an xLSTM layer {"norm1": {"scale"}, "mlstm" or
 "slstm": {...}}, and a SHARED_ATTN segment's list is empty. The
 paged cache is {"lengths": (B,) int32, "block_table": (B, P) int32,
@@ -31,7 +34,8 @@ paged cache is {"lengths": (B,) int32, "block_table": (B, P) int32,
 page that dropped writes land in (see paged_cache.py), and a quantized pool
 (cfg.kv_quantized) adds "k_scale", "v_scale": (count, n_pages + 1, n_kv)
 f32. The dense cache is {"lengths": (B,) int32, "segments": [...]} with
-{"k", "v": (count, B, max_len, n_kv, hd)} for an attention segment. A
+{"k", "v": (count, B, max_len, n_kv, hd)} for an attention segment, or
+(count, B, w, n_kv, hd) rings for a sliding window w (`models/cache.py`). A
 recurrent segment holds the same per-slot states in both caches: Mamba2
 {"conv": (count, B, ssm_conv - 1, inner) in cfg.dtype, "ssd": (count, B,
 H, P, N) f32}; mLSTM {"C": (count, B, H, hd, hd), "n": (count, B, H, hd),
@@ -43,7 +47,10 @@ cache in place and returns it.
 The recurrent states follow the JAX package with one departure: a decode
 step with an `active` mask leaves inactive rows' states as they were (the
 JAX package advances every row, which corrupts a parked prefix that later
-forks copy; see `ssm.mamba2_decode`, `xlstm.mlstm_decode`).
+forks copy; see `ssm.mamba2_decode`, `xlstm.mlstm_decode`). The ring of a
+windowed stack departs too: prefill fills it from each row's own prompt
+length, where the JAX package takes the last w rows of the padded buffer
+and loses the window of a prompt padded past it (`_ring_writer`).
 """
 from __future__ import annotations
 
@@ -56,11 +63,12 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch.kernels import runtime
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import cache as cache_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import paged_cache as pc
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.config import (ATTN, MAMBA2, MLSTM, SHARED_ATTN,
-                                       SLSTM, ModelConfig)
+from repro_torch.models.config import (ATTN, MAMBA2, MLSTM, MOE,
+                                       SHARED_ATTN, SLSTM, ModelConfig)
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense_init,
                                        embed, init_embedding, init_mlp, mlp,
                                        norm, rope_tables, unembed,
@@ -78,13 +86,13 @@ def segments_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return segs
 
 
-SUPPORTED_KINDS = (ATTN, MAMBA2, MLSTM, SLSTM, SHARED_ATTN)
+SUPPORTED_KINDS = (ATTN, MOE, MAMBA2, MLSTM, SLSTM, SHARED_ATTN)
 # the kinds with per-slot recurrent states, and each one's params key
 RECURRENT_KINDS = {MAMBA2: "mamba", MLSTM: "mlstm", SLSTM: "slstm"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves stacks of attention, Mamba2, xLSTM and
+    """The port serves stacks of attention, MoE, Mamba2, xLSTM and
     shared-attention blocks."""
     kinds = {kind for kind, _ in segments_of(cfg)}
     if not kinds <= set(SUPPORTED_KINDS):
@@ -126,12 +134,16 @@ def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
                 SLSTM: xlstm_lib.init_slstm}[kind]
         return {"norm1": {"scale": torch.ones(d, device=device)},
                 RECURRENT_KINDS[kind]: init(cfg, gen, dtype, device)}
-    return {
+    layer = {
         "norm1": {"scale": torch.ones(d, device=device)},
         "attn": attn_lib.init_attention(cfg, gen, dtype, device),
         "norm2": {"scale": torch.ones(d, device=device)},
-        "mlp": init_mlp(gen, d, cfg.d_ff, dtype, device),
     }
+    if kind == MOE:
+        layer["moe"] = moe_lib.init_moe(cfg, gen, dtype, device)
+    else:
+        layer["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, device)
+    return layer
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
@@ -241,9 +253,20 @@ def _recurrent_states(cfg: ModelConfig, kind: str, count: int, batch: int,
 # Shared layer bodies
 # ---------------------------------------------------------------------------
 
-def _mlp_residual(cfg: ModelConfig, layer: dict, x: torch.Tensor
+def _ffn_aux(cfg: ModelConfig, layer: dict, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x + the layer's FFN on norm2(x): the SwiGLU MLP, or for a MOE layer
+    the MoE FFN, whose balance loss comes second (None for an MLP)."""
+    xin = norm(cfg, layer["norm2"], x)
+    if "moe" in layer:
+        h, aux = moe_lib.moe_fwd(cfg, layer["moe"], xin)
+        return x + h, aux
+    return x + mlp(cfg, layer["mlp"], xin), None
+
+
+def _ffn_residual(cfg: ModelConfig, layer: dict, x: torch.Tensor
                   ) -> torch.Tensor:
-    return x + mlp(cfg, layer["mlp"], norm(cfg, layer["norm2"], x))
+    return _ffn_aux(cfg, layer, x)[0]
 
 
 def _recurrent_block(cfg: ModelConfig, kind: str, layer: dict,
@@ -307,14 +330,16 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def _layer_fwd(cfg: ModelConfig, kind: str, layer: dict,
-               positions: torch.Tensor, rope, x: torch.Tensor) -> torch.Tensor:
-    """One block over whole sequences (no cache)."""
+               positions: torch.Tensor, rope, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block over whole sequences (no cache) -> (x, the MoE balance
+    loss or None)."""
     if kind in RECURRENT_KINDS:
-        return _recurrent_block(cfg, kind, layer, x)
+        return _recurrent_block(cfg, kind, layer, x), None
     h = attn_lib.attention_fwd(cfg, layer["attn"],
                                norm(cfg, layer["norm1"], x), positions,
                                causal=True, rope=rope)
-    return _mlp_residual(cfg, layer, x + h)
+    return _ffn_aux(cfg, layer, x + h)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
@@ -324,8 +349,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
     Every attention layer reads through the flash-attention wrapper
     (causal, with cfg's window and softcap), every Mamba2 layer scans
     through the SSD-scan wrapper, every xLSTM layer runs its plain PyTorch
-    cell. The aux loss is the MoE balance loss of
-    the JAX package, zero for the stacks the port serves.
+    cell, every MoE FFN routes through `moe.moe_fwd`. The aux loss is the
+    sum of the MoE layers' balance losses, as in the JAX package (zero
+    for a stack without MoE layers).
 
     Differentiable: on the card the three wrappers' backward kernels carry
     the gradient through the norms, the attention and the scan. While
@@ -339,16 +365,19 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
     positions = torch.arange(S, device=x.device)[None]
     rope = _rope(cfg, positions)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, layer, _ in _walk(cfg, params):
         if remat:
-            x = torch_checkpoint.checkpoint(_layer_fwd, cfg, kind, layer,
-                                            positions, rope, x,
-                                            use_reentrant=False)
+            x, aux = torch_checkpoint.checkpoint(_layer_fwd, cfg, kind, layer,
+                                                 positions, rope, x,
+                                                 use_reentrant=False)
         else:
-            x = _layer_fwd(cfg, kind, layer, positions, rope, x)
+            x, aux = _layer_fwd(cfg, kind, layer, positions, rope, x)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -358,9 +387,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
     """{"lengths": (batch,) int32, "segments": [...]}, zeros: an attention
-    segment's {"k", "v": (count, batch, max_len, n_kv, hd)} in cfg.dtype
-    (`cache.init_kv_cache`; the sliding-window ring is not ported), a
-    recurrent segment's per-slot states."""
+    segment's {"k", "v": (count, batch, max_len, n_kv, hd)} in cfg.dtype,
+    rings of cfg.sliding_window rows for a windowed stack
+    (`cache.init_kv_cache`), a recurrent segment's per-slot states."""
     check_supported(cfg)
     segs = []
     for kind, count in segments_of(cfg):
@@ -396,7 +425,7 @@ def _prefill_block(cfg: ModelConfig, layer: dict, x: torch.Tensor, rope,
     h = attn_lib.prefill_attention(cfg, q, k, v, prompt_lengths)
     x = x + attn_lib._out_proj(layer["attn"], h)
     kv_writer(k, v)
-    return _mlp_residual(cfg, layer, x)
+    return _ffn_residual(cfg, layer, x)
 
 
 def _dense_writer(ck: torch.Tensor, cv: torch.Tensor) -> KVWriter:
@@ -411,6 +440,28 @@ def _dense_writer(ck: torch.Tensor, cv: torch.Tensor) -> KVWriter:
     return write
 
 
+def _ring_writer(ck: torch.Tensor, cv: torch.Tensor,
+                 prompt_lengths: torch.Tensor, window: int) -> KVWriter:
+    """The ring of each row b holds positions [max(0, L - w), L) of its own
+    prompt length L = prompt_lengths[b], position p in row p % w, and zeros
+    in the rows no position has reached (decode never reads them: it reads
+    min(length + 1, w) rows, or masks by position).
+
+    A departure from the JAX package, which keeps the last w rows of the
+    padded buffer: a prompt padded to S >= w loses positions L - w .. S - w
+    - 1 there, and pad rows take their ring rows."""
+    pos = cache_lib.ring_positions(prompt_lengths, window)      # (B, w)
+    valid = (pos >= 0)[:, :, None, None]
+    src = pos.clamp(min=0)
+
+    def write(k, v):
+        idx = src[:, :, None, None].expand(-1, -1, *k.shape[2:])
+        for c, new in ((ck, k), (cv, v)):
+            ring = torch.gather(new, 1, idx)
+            c.copy_(torch.where(valid, ring, ring.new_zeros(())).to(c.dtype))
+    return write
+
+
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             cache: dict, prompt_lengths=None) -> Tuple[torch.Tensor, dict]:
     """Process right-padded prompts (tokens: (B, S)), fill the dense cache's
@@ -418,8 +469,9 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     prompt_lengths: (B,) valid counts (default S). The cache may be a view
     of some rows of a larger one (the engine passes one slot's rows): the
-    rows are written in place, K/V at positions [0, S) and zeros past S,
-    the recurrent states after all S positions from the initial state
+    rows are written in place, K/V at positions [0, S) and zeros past S
+    (a ring: each row's last w positions of its own prompt length, see
+    `_ring_writer`), the recurrent states after all S positions from the initial state
     (padding included, as in the JAX package: the engine prefills a
     recurrent stack unpadded), and its lengths are set to
     prompt_lengths."""
@@ -434,8 +486,9 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         if kind in RECURRENT_KINDS:
             x = _recurrent_block(cfg, kind, layer, x, c)
             continue
-        x = _prefill_block(cfg, layer, x, rope, plens,
-                           _dense_writer(c["k"], c["v"]))
+        writer = (_ring_writer(c["k"], c["v"], plens, cfg.sliding_window)
+                  if cfg.sliding_window else _dense_writer(c["k"], c["v"]))
+        x = _prefill_block(cfg, layer, x, rope, plens, writer)
     logits = _logits_at(cfg, params, x, plens)
     cache["lengths"].copy_(plens)
     return logits, cache
@@ -476,7 +529,7 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         h, _, _ = attn_lib.attention_decode(
             cfg, layer["attn"], norm(cfg, layer["norm1"], x), c["k"], c["v"],
             lengths, call=call)
-        x = _mlp_residual(cfg, layer, x + h)
+        x = _ffn_residual(cfg, layer, x + h)
     x = norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)[:, 0]
     _advance_lengths(lengths, active)
@@ -600,7 +653,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             cfg, layer["attn"], norm(cfg, layer["norm1"], x), c["k_pages"],
             c["v_pages"], row, call.offsets, call.lens, call=call,
             k_scales=c.get("k_scale"), v_scales=c.get("v_scale"))
-        x = _mlp_residual(cfg, layer, x + h)
+        x = _ffn_residual(cfg, layer, x + h)
     logits = _logits_at(cfg, params, x, call.lens)
     cache["lengths"][slot] = (call.offsets + call.lens)[0]
     return logits, cache
@@ -638,7 +691,7 @@ def prefill_ragged_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             cfg, layer["attn"], norm(cfg, layer["norm1"], x), c["k_pages"],
             c["v_pages"], block_rows, call.offsets, call.lens, call=call,
             k_scales=c.get("k_scale"), v_scales=c.get("v_scale"))
-        x = _mlp_residual(cfg, layer, x + h)
+        x = _ffn_residual(cfg, layer, x + h)
     logits = _logits_at(cfg, params, x, call.lens)
     # padding rows target index `batch` of a one-longer copy and drop
     ext = torch.cat([cache["lengths"], cache["lengths"].new_zeros(1)])
@@ -676,7 +729,7 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             cfg, layer["attn"], norm(cfg, layer["norm1"], x), c["k_pages"],
             c["v_pages"], table, lengths, call=call,
             k_scales=c.get("k_scale"), v_scales=c.get("v_scale"))
-        x = _mlp_residual(cfg, layer, x + h)
+        x = _ffn_residual(cfg, layer, x + h)
     x = norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)[:, 0]
     _advance_lengths(lengths, active)

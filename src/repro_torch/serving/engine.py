@@ -648,10 +648,11 @@ class InferenceEngine:
 
     def _live_rows(self, active: List[int]) -> int:
         """Dense read width for this decode step: the cache rows of every
-        active slot plus the token being written. Not bucketed: the port
-        compiles nothing per shape, and the kernel takes any width."""
+        active slot plus the token being written, at most the ring's w rows
+        for a sliding window. Not bucketed: the port compiles nothing per
+        shape, and the kernel takes any width."""
         return min(max(self.slots[i].ctx_len for i in active) + 1,
-                   self.max_len)
+                   self.cfg.sliding_window or self.max_len)
 
     # ------------------------------------------------------------------
     def free_slots(self) -> List[int]:
@@ -1383,15 +1384,17 @@ class InferenceEngine:
 
     def _warm_dense_decode(self) -> None:
         """A dense engine's decode-and-sample dispatch with every row
-        inactive. Its K/V writes land at each slot's length (clamped, as
-        `cache.write_plan` does), so those rows are restored after it."""
+        inactive. Its K/V writes land at each slot's length (clamped, or
+        wrapped in a ring, as `cache.write_plan` does), so those rows are
+        restored after it."""
         dev, B = self.device, self.max_batch
         attn = transformer.attention_segments(self.cfg, self.cache)
         kept = []
         if attn:
             S = attn[0]["k"].shape[2]
             rows = torch.arange(B, device=dev)
-            at = self.cache["lengths"].long().clamp(0, S - 1)
+            at = self.cache["lengths"].long()
+            at = at % S if self.cfg.sliding_window else at.clamp(0, S - 1)
             kept = [(leaf, leaf[:, rows, at].clone()) for seg in attn
                     for leaf in seg.values()]
         self._decode_sample(torch.zeros((B, 1), dtype=torch.int64, device=dev),

@@ -3,6 +3,7 @@ the same configs on both sides, and JAX params converted for the port."""
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -12,6 +13,7 @@ from repro_torch import convert
 from repro_torch.configs.pice_cloud_edge import (TINY_CLOUD, TINY_EDGE_A,
                                                  TINY_EDGE_B, TINY_EDGE_C)
 from repro_torch.configs.registry import get_config
+from repro_torch.models import transformer as ttransformer
 from repro_torch.models.config import ModelConfig
 
 # the xdist workers share the machine's cores
@@ -84,3 +86,54 @@ def assert_same_replay(a, b):
     for i, ((ta, la), (tb, lb)) in enumerate(zip(a, b)):
         assert list(ta) == list(tb), f"request {i}: tokens diverge"
         assert_close(la, lb, err_msg=f"request {i}: logprobs diverge")
+
+
+# The paged cache state of the model-level tests: B slots over N_PAGES pages
+# of PAGE rows, P block-table columns a slot.
+B, N_PAGES, PAGE, P = 3, 14, 8, 6
+
+
+def paged_caches(cfg, seed):
+    """The same pre-filled pool state, lengths and block table on both
+    sides: slot 0 holds 11 tokens, slot 1 holds 0, slot 2 holds 17 tokens
+    and shares slot 0's first page (a COW fork)."""
+    rng = np.random.default_rng(seed)
+    tc = ttransformer.init_paged_cache(cfg, B, N_PAGES, PAGE, P, device="cpu")
+    jc = jtransformer.init_paged_cache(jax_config(cfg), B, N_PAGES, PAGE, P)
+    # the port's pools carry one scratch page; the JAX side takes the same
+    # random pools, extra page included, as plain pages it never maps
+    table = np.full((B, P), -1, np.int32)
+    table[0, :3] = [4, 1, 9]
+    table[1, :2] = [2, 7]
+    table[2, :4] = [4, 3, 11, 12]
+    lengths = np.array([11, 0, 17], np.int32)
+    tc["block_table"].copy_(torch.from_numpy(table))
+    tc["lengths"].copy_(torch.from_numpy(lengths))
+    jc["block_table"], jc["lengths"] = jnp.asarray(table), jnp.asarray(lengths)
+    for tseg, jseg in zip(tc["segments"], jc["segments"]):
+        for k in ("k_pages", "v_pages"):
+            a = rng.standard_normal(tuple(tseg[k].shape)).astype(np.float32)
+            tseg[k].copy_(torch.from_numpy(a))
+            jseg[k] = jnp.asarray(a)
+    return tc, jc
+
+
+def assert_same_pools(tc, jc):
+    """Equal lengths and pools, apart from the port's scratch page (the
+    last page of each pool, where dropped writes land)."""
+    np.testing.assert_array_equal(tc["lengths"].numpy(),
+                                  np.asarray(jc["lengths"]))
+    for tseg, jseg in zip(tc["segments"], jc["segments"]):
+        for k in ("k_pages", "v_pages"):
+            assert_close(tseg[k][:, :-1], np.asarray(jseg[k])[:, :-1],
+                         err_msg=k, atol=STACK_ATOL)
+
+
+def teacher_forced(cfg, tp, prompt, toks):
+    """forward's greedy tokens and logprobs along prompt + toks."""
+    logits, _ = ttransformer.forward(
+        cfg, tp, torch.tensor([list(prompt) + list(toks)]))
+    lp = torch.log_softmax(logits[0].float(), dim=-1)
+    rows = lp[len(prompt) - 1:len(prompt) - 1 + len(toks)]
+    return (rows.argmax(-1).tolist(),
+            rows.gather(-1, torch.tensor(toks)[:, None])[:, 0].tolist())

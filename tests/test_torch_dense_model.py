@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from _torch_common import (CONFIGS, STACK_ATOL, TINY, assert_close,
-                           jax_config, params_pair)
+                           assert_same_pools, jax_config, paged_caches,
+                           params_pair)
 from repro.models import attention as ja
 from repro.models import cache as jcache
 from repro.models import transformer as jt
@@ -54,10 +55,27 @@ def test_update_layer_kv_clamps_at_capacity(T):
 
 
 def test_window_ring_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tcache.init_kv_cache(1, 1, 8, 1, 8, window=4)
-    with pytest.raises(NotImplementedError):
-        tt.init_cache(TINY.with_(sliding_window=16), 1, 8)
+    """(Named for the refusal it checked before the ring was ported.) The
+    ring of a window W holds W rows whatever max_len is, and its writes
+    wrap, as the JAX package's `update_layer_kv(window=W)` does."""
+    W, T = 4, 2
+    ring = tcache.init_kv_cache(1, 1, 8, 1, 8, window=W)
+    assert ring["k"].shape == jcache.init_kv_cache(1, 1, 8, 1, 8,
+                                                   window=W)["k"].shape
+    c = tt.init_cache(TINY.with_(sliding_window=16), 1, 64)
+    assert c["segments"][0]["k"].shape[2] == 16
+    k, v = _x(4, W, 2, 8), _x(4, W, 2, 8)
+    nk, nv = _x(4, T, 2, 8), _x(4, T, 2, 8)
+    lens = np.array([0, 3, 5, 9], np.int32)
+    dest = tcache.write_plan(torch.from_numpy(lens), T, W, window=W)
+    tk, tv = tcache.update_layer_kv(*[torch.from_numpy(a.copy())
+                                      for a in (k, v, lens, nk, nv)],
+                                    dest=dest)
+    jk, jv = jcache.update_layer_kv(*[jnp.asarray(a)
+                                      for a in (k, v, lens, nk, nv)],
+                                    window=W)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
 # ---------------------------------------------------------------------------
@@ -255,9 +273,8 @@ def test_decode_step_live_rows(setup, live_rows):
 def test_prefill_paged(setup):
     """One padded prompt into slot 1's pages; the padding is dropped (the
     port's scratch page) and the other slots' pages are untouched."""
-    from test_torch_model import _caches, _same_cache
     cfg, jp, tp = setup
-    tc, jc = _caches(cfg, 7)
+    tc, jc = paged_caches(cfg, 7)
     table = np.asarray(jc["block_table"]).copy()
     table[1, :3] = [5, 13, 6]
     tc["block_table"].copy_(torch.from_numpy(table))
@@ -267,4 +284,4 @@ def test_prefill_paged(setup):
     jl, jc = jt.prefill_paged(jax_config(cfg), jp, jnp.asarray(toks), jc, 1,
                               19)
     assert_close(tl, jl, atol=STACK_ATOL)
-    _same_cache(tc, jc)
+    assert_same_pools(tc, jc)

@@ -28,10 +28,9 @@ import pytest
 import torch
 
 from _torch_common import (SSM_CONFIGS, SSM_TOL, assert_same_replay,
-                           jax_config, params_pair)
+                           jax_config, params_pair, teacher_forced)
 from repro.serving.engine import InferenceEngine as JEngine
 from repro_torch.launch import serve
-from repro_torch.models import transformer as tt
 from repro_torch.serving.engine import InferenceEngine
 
 
@@ -76,22 +75,13 @@ def test_bucket_length_prompts_match_jax(setup, backend):
     assert_same_replay(got, want)
 
 
-def _teacher_forced(cfg, tp, prompt, toks):
-    """forward's greedy tokens and logprobs along prompt + toks."""
-    logits, _ = tt.forward(cfg, tp, torch.tensor([list(prompt) + list(toks)]))
-    lp = torch.log_softmax(logits[0].float(), dim=-1)
-    rows = lp[len(prompt) - 1:len(prompt) - 1 + len(toks)]
-    return (rows.argmax(-1).tolist(),
-            rows.gather(-1, torch.tensor(toks)[:, None])[:, 0].tolist())
-
-
 @pytest.mark.parametrize("backend", ["dense", "paged"])
 def test_any_prompt_length_matches_teacher_forced_forward(setup, backend):
     cfg, _, tp = setup
     prompts = [_prompt(5, 4), _prompt(37, 5), [9]]
     out = _engine(cfg, tp, backend, eos_id=-1).generate(prompts, max_new=8)
     for p, (toks, lps) in zip(prompts, out):
-        want_toks, want_lps = _teacher_forced(cfg, tp, p, toks)
+        want_toks, want_lps = teacher_forced(cfg, tp, p, toks)
         assert toks == want_toks
         _close(lps, want_lps)
 

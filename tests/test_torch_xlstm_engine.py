@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from _torch_common import (SSM_TOL, XLSTM, assert_same_replay, jax_config,
-                           params_pair)
+                           params_pair, teacher_forced)
 from repro.configs import pice_cloud_edge as jfleet
 from repro.serving.engine import InferenceEngine as JEngine
 from repro_torch.configs import pice_cloud_edge as fleet
@@ -75,15 +75,6 @@ def test_bucket_length_prompts_match_jax(setup, backend):
     assert_same_replay(got, want)
 
 
-def _teacher_forced(cfg, tp, prompt, toks):
-    """forward's greedy tokens and logprobs along prompt + toks."""
-    logits, _ = tt.forward(cfg, tp, torch.tensor([list(prompt) + list(toks)]))
-    lp = torch.log_softmax(logits[0].float(), dim=-1)
-    rows = lp[len(prompt) - 1:len(prompt) - 1 + len(toks)]
-    return (rows.argmax(-1).tolist(),
-            rows.gather(-1, torch.tensor(toks)[:, None])[:, 0].tolist())
-
-
 @pytest.mark.parametrize("backend", ["dense", "paged"])
 def test_any_prompt_length_matches_teacher_forced_forward(setup, backend):
     cfg, _, tp = setup
@@ -92,7 +83,7 @@ def test_any_prompt_length_matches_teacher_forced_forward(setup, backend):
     assert eng.recurrent and eng.prefill_chunk == 0
     out = eng.generate(prompts, max_new=8)
     for p, (toks, lps) in zip(prompts, out):
-        want_toks, want_lps = _teacher_forced(cfg, tp, p, toks)
+        want_toks, want_lps = teacher_forced(cfg, tp, p, toks)
         assert toks == want_toks
         _close(lps, want_lps)
 
