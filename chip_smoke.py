@@ -29,7 +29,10 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      of length 0, and a sliding-window ring laid out as the port's prefill
      lays it (w = 64, totals short of, at and past the window, NaN in the
      rows no position reached) against the JAX package's plain ring mask; for the flash kernel window 0/64, softcap 0/30, causal
-     and not, S of 200 and 300, and its tensor-core kernel (bf16) at
+     and not, S of 200 and 300, whisper-tiny's encoder (B 1 and 8 x S
+     1,500, 6 heads of 64, not causal) and decoder (B 8 x S 256, causal)
+     and internvl2-2b's prefill (B 8 x S 288, 16 query over 8 KV heads of
+     128, causal) in float32 and bfloat16, and its tensor-core kernel (bf16) at
      q_per_kv 1/4/6/16/72, head_dim 64/80/128/256, S 1/37/200/1000 under
      six masks, in each of its launch shapes; zamba2's attention (head_dim
      80, q_per_kv 1) through the paged, dense-decode, flash and int8 decode
@@ -47,7 +50,10 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      against torch.autograd through the plain versions, at tiny and
      full-width shapes (qwen2-1.5b's B 8 x S 256 rows and heads, zamba2's
      head_dim 80 at q_per_kv 1 and its 80 SSD heads at B 2 x S 256),
-     flash with and without window and softcap at q_per_kv 1 and 6, the
+     flash with and without window and softcap at q_per_kv 1 and 6, and
+     at whisper-tiny's training shapes (B 8 x S 256 causal and not, B 8 x
+     S 1,500 not causal; 6 heads of 64) and internvl2-2b's (B 4 x S 512,
+     16 query over 8 KV heads of 128, causal), the
      scan at S 37 and 300 and from an initial state; float32 within 2e-5
      and bfloat16 within 2e-2 of each gradient's largest magnitude, each
      backward twice, bitwise equal; an initial_state that requires a
@@ -68,7 +74,9 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      zamba2's widths, qwen3-8b's decode (8 x 4096) and q-norm (8192 x 128)
      rows
      beside `torch.nn.functional.rms_norm`; the flash kernel also at phase
-     6's monolithic prefill (qwen3-8b, B 4, S 256); the backward kernels at
+     6's monolithic prefill (qwen3-8b, B 4, S 256) and at whisper-tiny's
+     encoder (B 8 x S 1,500, not causal, beside SDPA without is_causal);
+     the backward kernels at
      the training shapes: #7b at qwen2-1.5b's B 8, S 256 beside SDPA's
      backward (its forward and backward less its forward), #10b over 2,048
      rows of 1,536 beside `F.rms_norm`'s backward, #9b at zamba2's B 2, S
@@ -92,7 +100,12 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      on the dense, monolithic paged and chunked paged engines,
      mixtral-8x7b.reduced(sliding_window=64) on the dense engine with
      prompts padded past the window, and granite-3-8b.reduced() and
-     minitron-8b.reduced() on the chunked paged engine;
+     minitron-8b.reduced() on the chunked paged engine; then
+     whisper-tiny.reduced() (64 stub frames) and internvl2-2b.reduced() (16
+     stub patch embeddings), float32: `encode`, `forward`, dense prefill of
+     prompts of 12 and 37 padded to 64 and 8 greedy decode steps through
+     the step builders (tokens equal, the first tolerance), and 3 train
+     steps with the stub inputs at phase 11's gates;
   5. at full width — qwen3-8b in the cloud, the JAX package's edge fleet
      (qwen2-1.5b, xlstm-1.3b at 48 layers and zamba2-2.7b), random bf16
      weights from a seed: the PICE pipeline on paged engines (chunked for
@@ -176,8 +189,31 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      teacher-forced `forward`, then phase 6's batch at its own 1.25 with
      its drops; the reduced qwen3-moe and mixtral configs trained 3 steps
      card against CPU at phase 11's gates, the aux term logged;
-  13. one JSON line of the kernels (with their launches on the paths of
-     phases 7 and 9 under "eviction_paths" and of phase 12 under
+  13. the encoder-decoder and VLM families at full width, random bf16
+     weights and stub inputs from a seed, one model on the card at a time:
+     whisper-tiny (its encoder over 8 x 1,500 frames, wall and flash
+     launches; prompts of 4-32 tokens padded to 32 and 64 greedy decode
+     steps over the dense cache through the step builders, each logprob
+     within STUB_LOGPROB_ATOL of teacher-forced `forward` on the same
+     frames; the 4 cached cross-attentions' share of a decode step's device
+     time; 3 training steps of B 8 x S 256 with frames, the encoder's
+     flash backward launches, none causal); internvl2-2b (dense prefill of
+     8 rows of 256 patch embeddings and the same prompts, 32 greedy decode
+     steps held to `forward` the same way; phase 6's batch text-only on
+     chunked paged engines, cold and warmed; 2 training steps of B 4 x (256
+     patches + 256 tokens), the loss dropping the patch positions; peak
+     memory);
+  14. the §IV-D fine-tuning pipeline: on TINY_CLOUD in float32, SFT and
+     the reward model 20 steps each on the card and on the CPU from the
+     same masters (logged losses within rtol 1e-4), `label_pair` on 8
+     corpus examples through an SFT engine, RLAIF 3 steps at batch 2 twice
+     on the card (equal histories, step 1's KL 0, the SFT params
+     unchanged); then on qwen2-1.5b at full width (float32 masters, bf16
+     compute): 2 SFT steps of 8 x 192, 2 reward-model steps of 8 x 160, 1
+     RLAIF step at batch 2 with 64-token sketches, each part's wall,
+     launches and peak memory;
+  15. one JSON line of the kernels (with their launches on the paths of
+     phases 7 and 9 under "eviction_paths" and of phases 12-14 under
      "family_paths"; the backward kernels' from phase 11's full-width
      training), the card's name and power limit, and the final {"ok":
      true, ...} line.
@@ -964,6 +1000,27 @@ def dense_kernel_cases(torch, gen, dtype, tol):
                 got.float(), faref.flash_attention_ref(q, k, v, **kw).float(),
                 **tol)
             n += 1
+    # whisper-tiny: its encoder over 1,500 frames (no tile divides it), not
+    # causal, at B 1 and 8; its decoder's causal prefill at S 256; 6 heads
+    # of 64 at q_per_kv 1. internvl2-2b: phase 13's prefill (256 patches +
+    # 32 tokens), 16 query heads over 8 KV heads of 128, causal
+    for B, S, Hq, Hkv, hd, causal in ((8, 1500, 6, 6, 64, False),
+                                      (1, 1500, 6, 6, 64, False),
+                                      (8, 256, 6, 6, 64, True),
+                                      (8, 288, 16, 8, 128, True)):
+        q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(B, S, Hkv, hd, generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        got = faops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got.float(),
+            faref.flash_attention_ref(q, k, v, causal=causal).float(), **tol)
+        if dtype == torch.bfloat16:
+            log(f"flash B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
+                f"causal={causal}: launch shape "
+                f"{flash_launch_shape(torch, B, S, Hq, Hkv, hd)}")
+        n += 1
     return n
 
 
@@ -1280,8 +1337,9 @@ def time_quant_kernels(torch, gen, flush, models, rows):
 
 def time_dense_kernels(torch, gen, flush, models, rows):
     """The flash kernel at B = 1, S = 1024, causal (bf16, head_dim 128),
-    and at phase 6's monolithic prefill (qwen3-8b, B = 4, S = 256). Bound
-    inputs are logged beside each time."""
+    at phase 6's monolithic prefill (qwen3-8b, B = 4, S = 256) and at
+    whisper-tiny's encoder (phase 13's B = 8 x 1,500 frames, 6 heads of
+    64, not causal). Bound inputs are logged beside each time."""
     hd = 128
     for model, (Hq, Hkv) in models.items():
         rows[("flash_attention", model)] = flash_row(
@@ -1290,6 +1348,12 @@ def time_dense_kernels(torch, gen, flush, models, rows):
     rows[("flash_attention", "qwen3-8b B=4 S=256")] = flash_row(
         torch, gen, flush, "qwen3-8b B=4 S=256", 4, 256,
         *models["qwen3-8b"], hd)
+    rows[("flash_attention", WHISPER_ENCODER_ROW)] = flash_row(
+        torch, gen, flush, WHISPER_ENCODER_ROW, 8, 1500, 6, 6, 64,
+        causal=False)
+
+
+WHISPER_ENCODER_ROW = "whisper-tiny encoder B=8 S=1500"
 
 
 # The decode kernels' timed shapes (B = 8 slots): label suffix, each slot's
@@ -1396,10 +1460,11 @@ def time_decode_kernels(torch, gen, flush, models, rows):
                 f" dense cache of {S} rows read over {live}")
 
 
-def flash_row(torch, gen, flush, label, B, S, Hq, Hkv, hd):
-    """#7 at (B, S), causal, bf16: kernel, plain and SDPA (over
-    head-repeated K/V, is_causal) times, the bound by 4 * hd flops a kept
-    (query, key) pair against q, k, v and out read or written once."""
+def flash_row(torch, gen, flush, label, B, S, Hq, Hkv, hd, causal=True):
+    """#7 at (B, S), causal or not, bf16: kernel, plain and SDPA (over
+    head-repeated K/V, is_causal as the kernel's) times, the bound by 4 * hd
+    flops a kept (query, key) pair against q, k, v and out read or written
+    once."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as faops
     from repro_torch.kernels.flash_attention import ref as faref
@@ -1407,27 +1472,29 @@ def flash_row(torch, gen, flush, label, B, S, Hq, Hkv, hd):
     q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dt)
     k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dt)
     v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dt)
-    got = faops.flash_attention(q, k, v)
-    want = faref.flash_attention_ref(q, k, v)
+    got = faops.flash_attention(q, k, v, causal=causal)
+    want = faref.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
-    flops = 4 * hd * Hq * B * S * (S + 1) // 2
+    pairs = B * S * (S + 1) // 2 if causal else B * S * S
+    flops = 4 * hd * Hq * pairs
     nbytes = (2 * q.numel() + 2 * k.numel()) * esz
     log(f"flash_attention bound inputs [{label}]: {flops} flops "
-        f"(4 * hd * Hq * B * S(S+1)/2); q/out {2 * q.numel() * esz} B + "
+        f"(4 * hd * Hq * {'B * S(S+1)/2' if causal else 'B * S * S'}); q/out {2 * q.numel() * esz} B + "
         f"k/v {2 * k.numel() * esz} B; launch shape (rows, key groups) "
         f"{flash_launch_shape(torch, B, S, Hq, Hkv, hd)}")
     qs = q.transpose(1, 2)
     ks = k.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
     vs = v.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
     return dict(
-        shape=f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} hd={hd}",
+        shape=f"B={B} S={S} {'causal' if causal else 'not causal'} Hq={Hq} "
+              f"Hkv={Hkv} hd={hd}",
         max_abs_err=(got.float() - want.float()).abs().max().item(),
         ms=device_ms(torch, functools.partial(
-            faops.flash_attention, q, k, v), flush),
+            faops.flash_attention, q, k, v, causal=causal), flush),
         plain_ms=device_ms(torch, functools.partial(
-            faref.flash_attention_ref, q, k, v), flush),
+            faref.flash_attention_ref, q, k, v, causal=causal), flush),
         library_ms=device_ms(torch, functools.partial(
-            F.scaled_dot_product_attention, qs, ks, vs, is_causal=True),
+            F.scaled_dot_product_attention, qs, ks, vs, is_causal=causal),
             flush),
         bound=bound(nbytes, flops))
 
@@ -1488,6 +1555,82 @@ def phase_tiny_parity(torch):
     ssm_tiny_parity(torch, prompts)
     tiny_eviction_parity(torch)
     family_tiny_parity(torch, prompts)
+    stub_input_tiny_parity(torch)
+
+
+# phase 4's gate on logits and logprobs, card against CPU
+TINY_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def stub_input_tiny_parity(torch):
+    """whisper-tiny.reduced() (a 2-layer encoder over 64 stub frames) and
+    internvl2-2b.reduced() (16 stub patch embeddings), float32, card
+    against CPU at the first tolerance: `encode`, `forward`, dense
+    `prefill` of prompts of 12 and 37 padded to 64 and 8 greedy decode
+    steps through the step builders (tokens equal), and 3 train steps at
+    phase 11's gates."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.training import optimizer as topt
+    f32 = dict(dtype="float32", remat=False)
+    rng = np.random.default_rng(0)
+    toks = np.zeros((2, 64), np.int64)
+    toks[0, :12] = rng.integers(1, 512, 12)
+    toks[1, :37] = rng.integers(1, 512, 37)
+    plens = np.array([12, 37], np.int32)
+    for arch in ("whisper-tiny", "internvl2-2b"):
+        cfg = get_config(arch).reduced(**f32)
+        if cfg.family == "encdec":
+            key, width, n = "enc_frames", cfg.encoder.d_model, \
+                cfg.encoder.n_ctx
+        else:
+            key, width, n = "prefix_embeds", cfg.d_model, cfg.n_prefix_tokens
+        stub = rng.standard_normal((2, n, width)).astype(np.float32)
+        cpu = transformer.init_params(cfg, seed=0, device="cpu")
+        card = _to(cpu, "cuda")
+        out = {}
+        for dev, params in (("cuda", card), ("cpu", cpu)):
+            extra = {key: torch.from_numpy(stub).to(dev)}
+            tok = torch.from_numpy(toks).to(dev)
+            r = {}
+            if cfg.family == "encdec":
+                r["encode"] = transformer.encode(cfg, params["encoder"],
+                                                 extra[key])
+            r["forward"], _ = transformer.forward(cfg, params, tok[:, :40],
+                                                  **extra)
+            cache = transformer.init_cache(cfg, 2, 128, device=dev)
+            logits, cache = steps.make_prefill_step(cfg)(
+                params, tok, cache, plens, **extra)
+            decode = steps.make_decode_step(cfg)
+            steps_out, gen = [logits], []
+            for _ in range(8):
+                nxt = steps_out[-1].argmax(-1)[:, None]
+                gen.append(nxt)
+                logits, cache = decode(params, nxt, cache)
+                steps_out.append(logits)
+            r["prefill+decode"] = torch.stack(steps_out)
+            r["tokens"] = torch.cat(gen, 1)
+            out[dev] = {k: v.cpu() for k, v in r.items()}
+        assert torch.equal(out["cuda"]["tokens"], out["cpu"]["tokens"]), arch
+        for k in out["cpu"]:
+            if k != "tokens":
+                torch.testing.assert_close(out["cuda"][k], out["cpu"][k],
+                                           **TINY_TOL)
+        log(f"{arch} reduced: {', '.join(k for k in out['cpu'] if k != 'tokens')}"
+            f" with {key} {tuple(stub.shape)}, card against CPU within rtol "
+            f"1e-4 atol 1e-5, greedy tokens equal")
+        batches = []
+        for i in range(3):
+            b = np.random.default_rng(10 + i)
+            batches.append((b.integers(1, 512, (2, 48)),
+                            b.integers(1, 512, (2, 48)),
+                            {key: b.standard_normal((2, n, width)).astype(
+                                np.float32)}))
+        opt_cfg = topt.AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                                   total_steps=3)
+        train_card_vs_cpu(torch, f"{arch} reduced", cfg, batches, opt_cfg)
 
 
 def family_tiny_parity(torch, prompts):
@@ -2099,10 +2242,12 @@ def _leaves(tree):
         yield tree
 
 
-# New tokens of each engine's profiled batch in phase 6: the rows earlier
-# PRs measured at 32 run 8 (the profiler's trace processing, about a
-# minute an engine at 32, kept the script inside its time).
-PROFILE_DEPTH = {"qwen3-8b-int8": 8, "qwen2-1.5b": 8, "qwen3-8b-dense": 8}
+# New tokens of each engine's profiled batch in phases 6 and 10: the rows
+# earlier PRs measured at 32 run 8 (the profiler's trace processing, about
+# a minute an engine at 32, kept the script inside its time); zamba2's and
+# xlstm's trace processing took 50-80 s each at 32.
+PROFILE_DEPTH = {"qwen3-8b-int8": 8, "qwen2-1.5b": 8, "qwen3-8b-dense": 8,
+                 "zamba2-2.7b": 8, "xlstm-1.3b": 8}
 # Prompt length of each engine's profiled batch where it is not 256: the
 # sLSTM scan launches about 17 kernels a token and layer, and the
 # profiler's trace processing of 4 x 256 prompts (about 100 k launches)
@@ -2827,9 +2972,13 @@ def backward_kernel_cases(torch, gen):
                 f"repeat bitwise equal")
             n += 1
         # flash: tiny GQA, q_per_kv 6 (qwen2-1.5b) and 1 (zamba2, head_dim
-        # 80), with and without window and softcap
+        # 80), with and without window and softcap; then whisper-tiny's
+        # training shapes: its decoder (B 8 x S 256, 6 heads of 64, causal
+        # and not) and its encoder (S 1,500, not causal); internvl2-2b's
+        # (B 4 x S 512, 16 query over 8 KV heads of 128, causal)
         shapes = [(2, 37, 4, 4, 32), (1, 70, 6, 1, 24), (8, 256, 12, 2, 128),
                   (2, 256, 32, 32, 80)]
+        cases = []
         for B, S, Hq, Hkv, hd in shapes:
             for causal, window, softcap in ((True, 0, 0.0), (True, 64, 0.0),
                                             (True, 0, 30.0),
@@ -2837,29 +2986,35 @@ def backward_kernel_cases(torch, gen):
                 full = B * S > 1000
                 if full and (window or softcap or not causal):
                     continue
-                q = torch.randn(B, S, Hq, hd, **kw).to(dtype)
-                k = torch.randn(B, S, Hkv, hd, **kw).to(dtype)
-                v = torch.randn(B, S, Hkv, hd, **kw).to(dtype)
-                do = torch.randn(B, S, Hq, hd, **kw).to(dtype)
-                mk = dict(causal=causal, window=window, softcap=softcap)
-                want = autograd_plain(
-                    torch, lambda a, b_, c: faref.flash_attention_ref(
-                        a, b_, c, **mk), (q, k, v), (do,))
-                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-                out = faops.flash_attention(*leaves, **mk)
-                assert out.grad_fn is not None
-                got = torch.autograd.grad(out, leaves, do)
-                worst = check_grads(torch, f"flash_attention_bwd {B, S, Hq, Hkv, hd} "
-                                    f"{mk} {dtype}", got, want, dtype)
-                o, lse = faops._kernel.flash_attention_cuda(
-                    q, k, v, with_lse=True, **mk)
-                a1 = faops.flash_attention_bwd(q, k, v, o, lse, do, **mk)
-                a2 = faops.flash_attention_bwd(q, k, v, o, lse, do, **mk)
-                assert all(torch.equal(a, b) for a, b in zip(a1, a2))
-                log(f"flash_attention_bwd B={B} S={S} Hq={Hq} Hkv={Hkv} "
-                    f"hd={hd} {mk} {dtype}: {worst:.3g} of scale, repeat "
-                    f"bitwise equal")
-                n += 1
+                cases.append(((B, S, Hq, Hkv, hd), (causal, window, softcap)))
+        cases += [((8, 256, 6, 6, 64), (True, 0, 0.0)),
+                  ((8, 256, 6, 6, 64), (False, 0, 0.0)),
+                  ((8, 1500, 6, 6, 64), (False, 0, 0.0)),
+                  ((4, 512, 16, 8, 128), (True, 0, 0.0))]
+        for (B, S, Hq, Hkv, hd), (causal, window, softcap) in cases:
+            q = torch.randn(B, S, Hq, hd, **kw).to(dtype)
+            k = torch.randn(B, S, Hkv, hd, **kw).to(dtype)
+            v = torch.randn(B, S, Hkv, hd, **kw).to(dtype)
+            do = torch.randn(B, S, Hq, hd, **kw).to(dtype)
+            mk = dict(causal=causal, window=window, softcap=softcap)
+            want = autograd_plain(
+                torch, lambda a, b_, c: faref.flash_attention_ref(
+                    a, b_, c, **mk), (q, k, v), (do,))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = faops.flash_attention(*leaves, **mk)
+            assert out.grad_fn is not None
+            got = torch.autograd.grad(out, leaves, do)
+            worst = check_grads(torch, f"flash_attention_bwd {B, S, Hq, Hkv, hd} "
+                                f"{mk} {dtype}", got, want, dtype)
+            o, lse = faops._kernel.flash_attention_cuda(
+                q, k, v, with_lse=True, **mk)
+            a1 = faops.flash_attention_bwd(q, k, v, o, lse, do, **mk)
+            a2 = faops.flash_attention_bwd(q, k, v, o, lse, do, **mk)
+            assert all(torch.equal(a, b) for a, b in zip(a1, a2))
+            log(f"flash_attention_bwd B={B} S={S} Hq={Hq} Hkv={Hkv} "
+                f"hd={hd} {mk} {dtype}: {worst:.3g} of scale, repeat "
+                f"bitwise equal")
+            n += 1
     # the SSD scan (float32): S not a multiple of 64, TINY_EDGE_C's heads,
     # zamba2's training batch and a longer sequence, with and without an
     # initial state
@@ -3032,6 +3187,17 @@ def train_cfgs():
                 n_layers=4, dtype="float32")}
 
 
+def train_batch(torch, b, dev):
+    """A train step's batch on `dev` from (tokens, targets[, {name: stub
+    embeddings}]) numpy arrays: whisper's enc_frames, a VLM's
+    prefix_embeds."""
+    batch = {"tokens": torch.from_numpy(b[0]).long().to(dev),
+             "targets": torch.from_numpy(b[1]).long().to(dev)}
+    for k, v in (b[2] if len(b) > 2 else {}).items():
+        batch[k] = torch.from_numpy(v).to(dev)
+    return batch
+
+
 def train_steps_on(torch, cfg, masters, batches, n, opt_cfg, per_step=None):
     """n train steps from a copy of `masters`; -> (params, losses)."""
     from repro_torch.launch import steps
@@ -3043,9 +3209,7 @@ def train_steps_on(torch, cfg, masters, batches, n, opt_cfg, per_step=None):
     dev = tree_lib.leaves(params)[0].device
     losses = []
     for i in range(n):
-        tok, tgt = batches[i]
-        batch = {"tokens": torch.from_numpy(tok).long().to(dev),
-                 "targets": torch.from_numpy(tgt).long().to(dev)}
+        batch = train_batch(torch, batches[i], dev)
         if per_step is None:
             params, opt, m = step(params, opt, batch)
         else:
@@ -3073,11 +3237,9 @@ def train_card_vs_cpu(torch, name, cfg, batches, opt_cfg):
     card = _to(cpu, "cuda")
     grads, aux = {}, {}
     for dev, p in (("cuda", card), ("cpu", cpu)):
-        tok, tgt = batches[0]
         _, metrics, grads[dev] = steps_lib.value_and_grad(
             cfg, tree_lib.tree_map(lambda t: t.detach().clone(), p),
-            {"tokens": torch.from_numpy(tok).long().to(dev),
-             "targets": torch.from_numpy(tgt).long().to(dev)})
+            train_batch(torch, batches[0], dev))
         aux[dev] = float(metrics["aux"])
     flat_c = tree_lib.leaves(grads["cuda"])
     flat_h = tree_lib.leaves(grads["cpu"])
@@ -3113,7 +3275,8 @@ def train_card_vs_cpu(torch, name, cfg, batches, opt_cfg):
     upd = (num / den) ** 0.5
     assert worst <= 3 * TRAIN_LR and upd <= 0.05, (name, worst, upd)
     kinds = {k for k, _ in transformer.segments_of(cfg)}
-    assert launches["rmsnorm_bwd"] > 0
+    # every norm is an RMSNorm but whisper's LayerNorms (plain PyTorch)
+    assert (launches["rmsnorm_bwd"] > 0) == (not cfg.use_layernorm)
     assert (launches["flash_attention_bwd"] > 0) == bool(
         kinds & {"attn", "moe", "shared_attn"})
     assert (launches["ssm_scan_bwd"] > 0) == ("mamba2" in kinds)
@@ -3229,6 +3392,8 @@ def training_breakdown(torch, name, cfg, params, opt_cfg, batch):
     dev = {"tokens": torch.from_numpy(tok).long().cuda(),
            "targets": torch.from_numpy(tgt).long().cuda()}
     flat = tree_lib.leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.enable_grad():
@@ -3236,6 +3401,8 @@ def training_breakdown(torch, name, cfg, params, opt_cfg, batch):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    for p in flat:
+        p.requires_grad_(False)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     topt.adamw_update(opt_cfg, params, tree_lib.unflatten(params,
@@ -3710,6 +3877,491 @@ def phase_families(torch):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the encoder-decoder and VLM families at full width
+# ---------------------------------------------------------------------------
+
+# bf16 logprobs of the decoded tokens against teacher-forced `forward` over
+# the same tokens and stub inputs (mixtral's gate, phase 12)
+STUB_LOGPROB_ATOL = 0.1
+WHISPER_NEW, VLM_NEW = 64, 32
+
+
+def prompt_batch(torch, cfg, seed):
+    """8 prompts of 4, 8, ..., 32 tokens, right-padded to 32, on the card.
+    -> (tokens (8, 32), lengths)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    toks = torch.randint(1, cfg.vocab_size, (8, 32), generator=gen,
+                         device="cuda")
+    plens = [4 * (i + 1) for i in range(8)]
+    for b, n in enumerate(plens):
+        toks[b, n:] = 0
+    return toks, plens
+
+
+def greedy_decode(torch, cfg, params, toks, plens, n_new, max_len, **extra):
+    """Dense prefill of `toks` with the stub inputs, then `n_new` greedy
+    decode steps through the step builders. -> (tokens (B, n_new),
+    logprobs (B, n_new), the decode loop's host wall in s, launches)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+
+    def run():
+        cache = transformer.init_cache(cfg, toks.shape[0], max_len,
+                                       device="cuda")
+        logits, cache = steps.make_prefill_step(cfg)(
+            params, toks, cache, plens, **extra)
+        decode = steps.make_decode_step(cfg)
+        out, lps = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_new):
+            logp = torch.log_softmax(logits.float(), -1)
+            nxt = logp.argmax(-1)
+            out.append(nxt)
+            lps.append(logp.gather(-1, nxt[:, None])[:, 0])
+            logits, cache = decode(params, nxt[:, None], cache)
+        torch.cuda.synchronize()
+        return (torch.stack(out, 1), torch.stack(lps, 1),
+                time.perf_counter() - t0)
+    with torch.no_grad():
+        (gen, lps, wall), launches = counted(torch, run)
+    return gen, lps, wall, launches
+
+
+def teacher_forced_gap(torch, cfg, params, toks, plens, gen, lps, stub_key,
+                       stub):
+    """Each row's decoded logprobs against `forward` over its prompt and
+    decoded tokens with its own stub input. -> (largest gap, mean gap,
+    positions whose token is forward's argmax, of all)."""
+    from repro_torch.models import transformer
+    gaps, agree = [], 0
+    n_new = gen.shape[1]
+    with torch.no_grad():
+        for b, n in enumerate(plens):
+            seq = torch.cat([toks[b, :n], gen[b, :-1]])[None]
+            logits, _ = transformer.forward(
+                cfg, params, seq, **{stub_key: stub[b:b + 1]})
+            logp = torch.log_softmax(logits[0, -n_new:].float(), -1)
+            want = logp.gather(-1, gen[b][:, None])[:, 0]
+            gaps.append((lps[b] - want).abs())
+            agree += int((logp.argmax(-1) == gen[b]).sum())
+    gaps = torch.cat(gaps)
+    return float(gaps.max()), float(gaps.mean()), agree, gaps.numel()
+
+
+def stub_train_steps(torch, name, cfg, seed, n_steps, B, S, stub_key,
+                     stub_shape):
+    """n_steps AdamW steps at full width on float32 masters (bf16 compute,
+    remat) with a random stub input a batch: each step's loss, wall and
+    forward / backward launches, the peak memory. -> {kernel: launches}
+    over the steps."""
+    from repro_torch.launch import steps
+    from repro_torch.models import layers, transformer
+    import numpy as np
+    from repro_torch.training import optimizer as topt
+    free_card(torch)
+    masters = transformer.init_params(cfg, seed=seed, device="cuda",
+                                      master=True)
+    opt = topt.init_opt_state(masters)
+    step = steps.make_train_step(cfg, topt.AdamWConfig(
+        lr=1e-3, warmup_steps=20, total_steps=100))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    # in the compute dtype, which the encoder requires of its frames
+    dtype = layers.compute_dtype(cfg)
+    total = {}
+    for i in range(n_steps):
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (B, S),
+                                         generator=gen, device="cuda"),
+                 "targets": torch.randint(1, cfg.vocab_size, (B, S),
+                                          generator=gen, device="cuda"),
+                 stub_key: (0.02 * torch.randn(*stub_shape, generator=gen,
+                                               device="cuda")).to(dtype)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (masters, opt, m), launches = counted(
+            torch, lambda: step(masters, opt, batch))
+        wall = time.perf_counter() - t0
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        log(f"  {name} train step {i + 1}: loss {float(m['loss']):.4f}, "
+            f"grad norm {float(m['grad_norm']):.4f}, {wall:.3f} s (host "
+            f"clock), launches "
+            f"{ {k: launches[k] for k in FWD_KERNELS + BWD_KERNELS} }")
+        assert np.isfinite(float(m["loss"]))
+    log(f"  {name} training: B {B} x S {S} tokens with {stub_key} "
+        f"{tuple(stub_shape)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return total
+
+
+def whisper_family(torch, flush):
+    """whisper-tiny at full width: the encoder over 8 x 1,500 random bf16
+    frames (its wall and #7 launches), 32-token prompts and 64 greedy
+    decode steps over the dense cache held to teacher-forced `forward`,
+    the cross-attention's share of a decode step, then 3 training steps of
+    B 8 x S 256 with frames."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import norm
+    free_card(torch)
+    arch = "whisper-tiny"
+    cfg = get_config(arch)
+    e = cfg.encoder
+    log(f"{arch}: a {e.n_layers}-layer encoder over {e.n_ctx} frames of "
+        f"{e.d_model}, a {cfg.n_layers}-layer decoder ({cfg.n_heads} heads "
+        f"of {cfg.resolved_head_dim}), dec_pos {cfg.max_seq_len} x "
+        f"{cfg.d_model}; {cfg.param_count() / 1e6:.1f} M parameters by "
+        f"param_count()")
+    params = draw_params(torch, arch, cfg, 30)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(30)
+    frames = torch.randn(8, e.n_ctx, e.d_model, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    paths = {}
+    with torch.no_grad():
+        enc, launches = counted(
+            torch, lambda: transformer.encode(cfg, params["encoder"], frames))
+        assert launches["flash_attention"] == e.n_layers, launches
+        assert torch.isfinite(enc).all()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            transformer.encode(cfg, params["encoder"], frames)
+        torch.cuda.synchronize()
+        enc_s = (time.perf_counter() - t0) / 5
+    paths[f"{arch} encode"] = launches
+    log(f"  {arch} encode of 8 x {e.n_ctx} frames: {enc_s * 1e3:.2f} ms "
+        f"(host clock, mean of 5), {launches['flash_attention']} flash "
+        f"launches (not causal, one an encoder layer)")
+    toks, plens = prompt_batch(torch, cfg, 30)
+    new, lps, wall, launches = greedy_decode(
+        torch, cfg, params, toks, plens, WHISPER_NEW, 128, enc_frames=frames)
+    paths[f"{arch} prefill + decode"] = launches
+    assert launches["flash_attention"] == e.n_layers + cfg.n_layers
+    assert launches["decode_attention"] == cfg.n_layers * WHISPER_NEW
+    assert launches["rmsnorm"] == 0, "whisper's norms are LayerNorms"
+    worst, mean, agree, total = teacher_forced_gap(
+        torch, cfg, params, toks, plens, new, lps, "enc_frames", frames)
+    log(f"  {arch}: prefill of 8 prompts of 4-32 tokens padded to 32, "
+        f"{WHISPER_NEW} greedy decode steps in {wall:.3f} s "
+        f"({wall / WHISPER_NEW * 1e3:.2f} ms a step, host clock, the "
+        f"logprob reads included); launches "
+        f"{ {k: n for k, n in launches.items() if n} }; logprobs against "
+        f"teacher-forced forward: largest gap {worst:.4f}, mean {mean:.4f} "
+        f"(tolerance {STUB_LOGPROB_ATOL}); the decoded token is forward's "
+        f"argmax at {agree} of {total} positions")
+    assert worst <= STUB_LOGPROB_ATOL, worst
+    # the cross-attention's share of a decode step (CUDA events, L2
+    # flushed): the 4 layers' cached cross-attention against the step
+    cache = transformer.init_cache(cfg, 8, 128, device="cuda")
+    with torch.no_grad():
+        transformer.prefill(cfg, params, toks, cache, plens,
+                            enc_frames=frames)
+        nxt = toks[:, :1]
+        step_ms = device_ms(torch, lambda: transformer.decode_step(
+            cfg, params, nxt, cache), flush)
+        x = torch.randn(8, 1, cfg.d_model, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        layers = [(lay, c) for _, lay, c in transformer._walk(
+            cfg, params, cache)]
+
+        def cross():
+            for lay, c in layers:
+                attn_lib.cross_attention_cached(
+                    cfg, lay["xattn"], norm(cfg, lay["norm_x"], x),
+                    c["cross_k"], c["cross_v"])
+        cross_ms = device_ms(torch, cross, flush)
+    cross_bytes = sum(c[k].numel() * 2 for _, c in layers
+                      for k in ("cross_k", "cross_v"))
+    log(f"  {arch} one decode step (8 rows) on the device: {step_ms:.4f} ms;"
+        f" its {cfg.n_layers} cached cross-attentions (plain PyTorch) "
+        f"{cross_ms:.4f} ms ({100 * cross_ms / step_ms:.1f} %), their "
+        f"{cross_bytes / 1e6:.2f} MB of cross K/V read once "
+        f"{cross_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s "
+        f"(CUDA events, L2 flushed, median of 21)")
+    del params, cache, enc
+    launches = stub_train_steps(torch, arch, cfg, 32, 3, 8, 256,
+                                "enc_frames", (8, e.n_ctx, e.d_model))
+    paths[f"{arch} training"] = launches
+    assert launches["flash_attention_bwd"] == 3 * (e.n_layers + cfg.n_layers)
+    # the encoder's own backward: its flash backward launches, none causal
+    masters = transformer.init_params(cfg, seed=32, device="cuda",
+                                      master=True)
+    working = transformer.cast_params(cfg, masters)
+    f = frames.clone().requires_grad_(True)
+
+    def enc_bwd():
+        out = transformer.encode(cfg, working["encoder"], f)
+        torch.autograd.grad(out.float().square().sum(), f)
+    _, launches = counted(torch, enc_bwd)
+    assert launches["flash_attention_bwd"] == e.n_layers, launches
+    log(f"  {arch}: {launches['flash_attention_bwd']} of each step's "
+        f"{e.n_layers + cfg.n_layers} flash backward launches "
+        f"are the encoder's (not causal, S {e.n_ctx}), the rest the "
+        f"decoder's (causal, S 256)")
+    return paths
+
+
+def internvl_family(torch, flush):
+    """internvl2-2b at full width: dense prefill of 8 rows of 256 random
+    patch embeddings and 32-token prompts, 32 greedy decode steps held to
+    teacher-forced `forward`; the text-only chunked paged engine on phase
+    6's batch, cold and warmed; 2 training steps of B 4 x (256 patches +
+    256 tokens)."""
+    from repro_torch.configs.registry import get_config
+    free_card(torch)
+    arch = "internvl2-2b"
+    cfg = get_config(arch).with_(prefill_chunk=128)
+    n = cfg.n_prefix_tokens
+    log(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} over {cfg.n_kv_heads} heads, {n} patch embeddings, "
+        f"vocabulary {cfg.vocab_size}; {cfg.param_count() / 1e9:.3f} B "
+        f"parameters by param_count()")
+    params = draw_params(torch, arch, cfg, 31)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    # stub patch embeddings at the token embeddings' scale (std 0.02)
+    patches = (0.02 * torch.randn(8, n, cfg.d_model, generator=gen,
+                                  device="cuda")).to(torch.bfloat16)
+    toks, plens = prompt_batch(torch, cfg, 31)
+    paths = {}
+    with FiniteLogits(torch) as fin:
+        new, lps, wall, launches = greedy_decode(
+            torch, cfg, params, toks, plens, VLM_NEW, n + 32 + VLM_NEW,
+            prefix_embeds=patches)
+        paths[f"{arch} dense prefill + decode"] = launches
+        assert launches["flash_attention"] == cfg.n_layers
+        assert launches["decode_attention"] == cfg.n_layers * VLM_NEW
+        worst, mean, agree, total = teacher_forced_gap(
+            torch, cfg, params, toks, plens, new, lps, "prefix_embeds",
+            patches)
+        log(f"  {arch}: prefill of 8 rows of {n} patches + 4-32 tokens "
+            f"(padded to 32), {VLM_NEW} greedy decode steps in {wall:.3f} s "
+            f"({wall / VLM_NEW * 1e3:.2f} ms a step, host clock); launches "
+            f"{ {k: c for k, c in launches.items() if c} }; logprobs "
+            f"against teacher-forced forward: largest gap {worst:.4f}, mean "
+            f"{mean:.4f} (tolerance {STUB_LOGPROB_ATOL}); forward's argmax "
+            f"at {agree} of {total} positions")
+        assert worst <= STUB_LOGPROB_ATOL, worst
+        paths[f"{arch} chunked paged (text only)"] = serve_family(
+            torch, arch, cfg, params, flush)
+    assert int(fin.bad) == 0, f"{arch}: {int(fin.bad)} non-finite logits"
+    log(f"  {arch} serving: logits finite ({fin.rows} rows sampled); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del params
+    paths[f"{arch} training"] = stub_train_steps(
+        torch, arch, cfg, 33, 2, 4, 256, "prefix_embeds", (4, n, cfg.d_model))
+    return paths
+
+
+def phase_stub_families(torch):
+    """Phase 13: whisper-tiny and internvl2-2b at full width, random bf16
+    weights and stub inputs from a seed, one model on the card at a
+    time."""
+    log("== phase 13: the encoder-decoder and VLM families at full width")
+    flush = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32,
+                        device="cuda")
+    paths = whisper_family(torch, flush)
+    paths.update(internvl_family(torch, flush))
+    del flush
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the §IV-D fine-tuning pipeline
+# ---------------------------------------------------------------------------
+
+def _logged_losses(lines):
+    return [float(re.search(r"loss=([0-9.]+)", s).group(1)) for s in lines
+            if "loss=" in s]
+
+
+def masters_card_vs_cpu(name, got, want, start, lr, steps):
+    """Phase 11's gates on masters trained on the card and on the CPU from
+    the same `start`: every element within `steps` x lr (Adam moves one by
+    about lr a step whatever its gradient's size; phase 11 gates 3 steps at
+    3 lr), the whole update (masters - start) within 5 % in norm."""
+    from repro_torch.training import tree as tree_lib
+    worst = num = den = 0.0
+    for a, b, p0 in zip(tree_lib.leaves(got), tree_lib.leaves(want),
+                        tree_lib.leaves(start)):
+        a, b = a.detach().cpu(), b.detach()
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        num += float(d.square().sum())
+        den += float((b - p0).square().sum())
+    upd = (num / den) ** 0.5
+    assert worst <= steps * lr and upd <= 0.05, (name, worst, upd)
+    log(f"{name}: masters card vs CPU max diff {worst:.3g} "
+        f"({worst / lr:.2f} lr over {steps} steps), update within "
+        f"{upd:.4f} in norm")
+
+
+def tiny_finetune(torch):
+    """The JAX example's pipeline on TINY_CLOUD in float32: SFT (20 steps)
+    and the reward model (20 steps) on the card and on the CPU from the
+    same CPU-drawn masters and the same batches, the trained masters within
+    phase 11's gates (`masters_card_vs_cpu`) and the logged losses within
+    its rtol 1e-4; `label_pair` on 8 corpus examples through an SFT engine
+    on the card; RLAIF 3 steps at batch 2 twice on the card."""
+    import numpy as np
+    from repro_torch.configs.pice_cloud_edge import TINY_CLOUD
+    from repro_torch.data import corpus as corpus_lib
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.finetune import reward_model as rm_lib
+    from repro_torch.finetune.preference import label_pair
+    from repro_torch.finetune.rlaif import RLAIFConfig, run_rlaif
+    from repro_torch.finetune.sft import run_sft
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_loop
+    from repro_torch.training import tree as tree_lib
+    cfg = TINY_CLOUD.with_(dtype="float32")
+
+    def copy_to(tree, dev):
+        return tree_lib.tree_map(lambda t: t.detach().clone().to(dev), tree)
+    start = train_loop.init_train_state(cfg, 0, device="cpu").params
+    states, logs = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = copy_to(start, dev)
+        st = train_loop.TrainState(params=p, opt_state=topt.init_opt_state(p))
+        logs[dev] = []
+        t0 = time.perf_counter()
+        states[dev] = run_sft(cfg, n_steps=20, state=st,
+                              log_fn=logs[dev].append)
+        log(f"tiny-cloud SFT on {dev}: 20 steps of 8 x 192 in "
+            f"{time.perf_counter() - t0:.2f} s: {logs[dev]}")
+    np.testing.assert_allclose(_logged_losses(logs["cuda"]),
+                               _logged_losses(logs["cpu"]), rtol=1e-4)
+    masters_card_vs_cpu("tiny-cloud SFT, 20 steps", states["cuda"].params,
+                        states["cpu"].params, start, 1e-3, 20)
+    params = states["cuda"].params
+    engine = InferenceEngine(cfg, transformer.serving_params(cfg, params),
+                             max_batch=4, max_len=768, kv_backend="dense",
+                             device="cuda")
+
+    def expand(x, r):
+        (out, _), = engine.generate(
+            [tok.encode(f"Q: {x[:80]}\nS: {r}\nE:")], max_new=96)
+        return tok.decode(out)
+    t0 = time.perf_counter()
+    triples = [label_pair(ex.answer[:160], ex.answer, ex.sketch,
+                          ex.answer[: 2 * len(ex.sketch)], expand)
+               for ex in corpus_lib.corpus(8, seed=9)]
+    log(f"tiny-cloud: labeled {len(triples)} pairs through the SFT engine in "
+        f"{time.perf_counter() - t0:.2f} s (concise sketch preferred in "
+        f"{sum(t.r_w != t.x for t in triples)}; scores "
+        f"{[round(t.score_w - t.score_l, 3) for t in triples]})")
+    # both devices start from the CPU's draw: the card's own generator
+    # (Philox) would give other weights than the CPU's (MT19937)
+    rm_start = rm_lib.init_reward_model(cfg, 0, "cpu")
+    drawn = rm_lib.init_reward_model
+    rms = {}
+    try:
+        rm_lib.init_reward_model = \
+            lambda cfg_, seed, device: copy_to(rm_start, device)
+        for dev in ("cuda", "cpu"):
+            logs[dev] = []
+            rms[dev] = rm_lib.train_reward_model(cfg, triples, n_steps=20,
+                                                 device=dev,
+                                                 log_fn=logs[dev].append)
+    finally:
+        rm_lib.init_reward_model = drawn
+    np.testing.assert_allclose(_logged_losses(logs["cuda"]),
+                               _logged_losses(logs["cpu"]), rtol=1e-4)
+    log(f"tiny-cloud reward model, 20 steps: card {logs['cuda']}, CPU "
+        f"{logs['cpu']} (rtol 1e-4)")
+    masters_card_vs_cpu("tiny-cloud reward model, 20 steps", rms["cuda"],
+                        rms["cpu"], rm_start, 1e-3, 20)
+    before = [t.clone() for t in tree_lib.leaves(params)]
+    hists = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _, hist = run_rlaif(cfg, params, params, cfg, rms["cuda"],
+                            RLAIFConfig(n_steps=3, batch=2),
+                            log_fn=lambda s: None)
+        hists.append(hist)
+        log(f"tiny-cloud RLAIF, 3 steps at batch 2: "
+            f"{time.perf_counter() - t0:.2f} s, history {hist}")
+    assert hists[0] == hists[1], "one seed must give one history"
+    assert hists[0][0]["kl"] == 0.0, hists[0]
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_lib.leaves(params), before)), "sft_params moved"
+    log("tiny-cloud RLAIF: two runs equal, step 1's KL 0, the SFT params "
+        "unchanged")
+
+
+def qwen2_finetune(torch):
+    """The pipeline at full width on qwen2-1.5b (float32 masters, bf16
+    compute, remat): 2 SFT steps of 8 x 192, 2 reward-model steps of 8 x
+    160, 1 RLAIF step at batch 2 with 64-token sketches; each part's wall,
+    launches and peak memory. The SFT optimizer state is freed before the
+    reward model, whose own is freed on return. -> {path: launches}."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import corpus as corpus_lib
+    from repro_torch.finetune import reward_model as rm_lib
+    from repro_torch.finetune.preference import PreferenceTriple
+    from repro_torch.finetune.rlaif import RLAIFConfig, run_rlaif
+    from repro_torch.finetune.sft import run_sft
+    free_card(torch)
+    arch = "qwen2-1.5b"
+    cfg = get_config(arch)
+    paths = {}
+
+    def part(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, launches = counted(torch, fn)
+        wall = time.perf_counter() - t0
+        paths[f"{arch} {label}"] = launches
+        log(f"  {arch} {label}: {wall:.2f} s (host clock), launches "
+            f"{ {k: launches[k] for k in FWD_KERNELS + BWD_KERNELS + ('decode_attention',) if launches[k]} }"
+            f", peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+            f" GiB, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held "
+            f"after")
+        return out
+    logs = []
+    state = part("SFT, 2 steps of 8 x 192", lambda: run_sft(
+        cfg, n_steps=2, seq_len=192, batch=8, n_pairs=200, device="cuda",
+        log_fn=logs.append))
+    log(f"  {arch} SFT: {logs}")
+    state.opt_state = None
+    free_card(torch)
+    triples = [PreferenceTriple(ex.answer[:120], ex.sketch,
+                                " ".join(reversed(ex.answer.split()[:30])),
+                                1.0, 0.0)
+               for ex in corpus_lib.corpus(32, seed=3)]
+    logs = []
+    rm = part("reward model, 2 steps of 8 x 160",
+              lambda: rm_lib.train_reward_model(cfg, triples, n_steps=2,
+                                                device="cuda",
+                                                log_fn=logs.append))
+    log(f"  {arch} reward model: {logs}")
+    free_card(torch)
+    _, hist = part("RLAIF, 1 step at batch 2, 64-token sketches",
+                   lambda: run_rlaif(cfg, state.params, state.params, cfg,
+                                     rm, RLAIFConfig(n_steps=1, batch=2),
+                                     log_fn=lambda s: None))
+    log(f"  {arch} RLAIF: {hist}")
+    assert hist[0]["kl"] == 0.0 and np.isfinite(hist[0]["mean_reward"])
+    return paths
+
+
+def phase_finetune(torch):
+    """Phase 14: the §IV-D fine-tuning pipeline (SFT, preference labels,
+    reward model, RLAIF) on TINY_CLOUD card against CPU, then on
+    qwen2-1.5b at full width."""
+    log("== phase 14: fine-tuning (SFT, preferences, reward model, RLAIF)")
+    tiny_finetune(torch)
+    return qwen2_finetune(torch)
+
+
 # the full-width path each kernel's `launches` is read from (phase 5)
 MAIN_PATH = {"paged_decode_attention": "chunked paged pipeline",
              "paged_prefill_attention_ragged": "chunked paged pipeline",
@@ -3735,7 +4387,7 @@ TIMING_ROWS = {"paged_decode_attention": DECODE_ROWS,
                "decode_attention": DECODE_ROWS,
                "ssm_scan": ("zamba2-2.7b", "zamba2-2.7b S=256"),
                "flash_attention": ("qwen3-8b", "qwen2-1.5b",
-                                   "qwen3-8b B=4 S=256"),
+                                   "qwen3-8b B=4 S=256", WHISPER_ENCODER_ROW),
                "rmsnorm": ("qwen3-8b", "zamba2-2.7b", "qwen3-8b decode",
                            "qwen3-8b q-norm"),
                "flash_attention_bwd": ("qwen2-1.5b",),
@@ -3777,6 +4429,8 @@ def main() -> int:
     del engines, weights
     paths.update(timed("phase 11", phase_training, torch))
     families = timed("phase 12", phase_families, torch)
+    families.update(timed("phase 13", phase_stub_families, torch))
+    families.update(timed("phase 14", phase_finetune, torch))
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         path = MAIN_PATH[name]

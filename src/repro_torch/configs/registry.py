@@ -1,11 +1,12 @@
 """Registry of the configurations the PyTorch port serves.
 
 Each config module `repro_torch.configs.<id>` exposes CONFIG, the full-size
-configuration with its source. Only the architectures whose families the port
-runs are listed: the dense GQA decoders (the PICE cloud/edge pairing,
-granite-3-8b, minitron-8b), the MoE decoders (qwen3-moe-30b-a3b, and
-mixtral-8x7b with its sliding window), the xLSTM stack and the Mamba2 +
-shared-attention hybrid of its edge fleet.
+configuration with its source. All ten architectures of the JAX package are
+listed: the dense GQA decoders (the PICE cloud/edge pairing, granite-3-8b,
+minitron-8b), the MoE decoders (qwen3-moe-30b-a3b, and mixtral-8x7b with
+its sliding window), the xLSTM stack and the Mamba2 + shared-attention
+hybrid of its edge fleet, the encoder-decoder whisper-tiny (over stub frame
+embeddings) and the VLM internvl2-2b (over stub patch embeddings).
 """
 from __future__ import annotations
 
@@ -24,12 +25,14 @@ ALIASES = {
     "minitron-8b": "minitron_8b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "whisper-tiny": "whisper_tiny",
+    "internvl2-2b": "internvl2_2b",
 }
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ALIASES:
-        raise KeyError(f"{arch!r} is not ported yet; ported: "
+        raise KeyError(f"unknown architecture {arch!r}; known: "
                        f"{sorted(ALIASES)}")
     mod = importlib.import_module(f"repro_torch.configs.{ALIASES[arch]}")
     return mod.CONFIG

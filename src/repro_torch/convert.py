@@ -16,7 +16,13 @@ token), and its projections in `cfg.dtype`. A MoE layer's "moe" leaves
 package's shapes, unstacked from the layer axis, in `cfg.dtype`. A
 hybrid's shared block
 (`ref["shared"]`, unstacked) converts as one layer, and its SHARED_ATTN
-segments, empty in the pytree, become empty lists. Give this module the
+segments, empty in the pytree, become empty lists. An encoder-decoder's
+encoder converts its stacked `blocks` into one dict per layer beside its
+`pos` and `final_norm`; `dec_pos`, the decoder's `xattn` and `norm_x`,
+LayerNorm biases (kept in float32, as the scales) and the ungated MLP's
+b_up / b_down (in `cfg.dtype`) carry across as the other leaves do. A
+reward model's top-level `reward_head` stays in float32, as the length
+head does. Give this module the
 pytree as numpy arrays (`jax.tree.map(np.asarray, params)`), so the port
 itself never imports JAX.
 """
@@ -64,17 +70,33 @@ def params_from_reference(cfg: ModelConfig, ref: Dict[str, Any],
     dtype = torch.float32 if master else compute_dtype(cfg)
     segments = []
     for (kind, count), stacked in zip(segments_of(cfg), ref["segments"]):
-        segments.append([] if kind == SHARED_ATTN else [
-            _convert(_take(stacked, i), dtype, device) for i in range(count)])
+        segments.append([] if kind == SHARED_ATTN else
+                        _unstack(stacked, count, dtype, device))
     out = {"embed": _convert(ref["embed"], dtype, device),
            "segments": segments,
            "final_norm": _convert(ref["final_norm"], dtype, device)}
     if "shared" in ref:
         out["shared"] = _convert(ref["shared"], dtype, device)
-    if "length_head" in ref:
-        out["length_head"] = torch.from_numpy(
-            np.array(ref["length_head"], np.float32)).to(device)
+    if "encoder" in ref:
+        enc = ref["encoder"]
+        out["encoder"] = {
+            "pos": _convert(enc["pos"], dtype, device),
+            "blocks": _unstack(enc["blocks"], cfg.encoder.n_layers, dtype,
+                               device),
+            "final_norm": _convert(enc["final_norm"], dtype, device)}
+    if "dec_pos" in ref:
+        out["dec_pos"] = _convert(ref["dec_pos"], dtype, device)
+    for head in ("length_head", "reward_head"):
+        if head in ref:
+            out[head] = torch.from_numpy(
+                np.array(ref[head], np.float32)).to(device)
     return out
+
+
+def _unstack(stacked, count: int, dtype, device) -> list:
+    """A stacked segment (leading layer axis) -> one converted dict a
+    layer."""
+    return [_convert(_take(stacked, i), dtype, device) for i in range(count)]
 
 
 def _take(tree, i: int):

@@ -60,21 +60,11 @@ def build_engines(train_steps: int = 0, seed: int = 0, names=None,
             log_fn(f"-- training {name} for {train_steps} steps")
             state = train(cfg, state, iter(ds), opt_cfg, train_steps,
                           log_every=max(train_steps // 2, 1), log_fn=log_fn)
-        params = _detached(transformer.cast_params(cfg, state.params))
+        params = transformer.serving_params(cfg, state.params)
         engines[name] = InferenceEngine(cfg, params, max_batch=8,
                                         max_len=1024, name=name,
                                         kv_backend=kv_backend, device=device)
     return engines, CAPABILITIES
-
-
-def _detached(tree):
-    """The working params as plain tensors (no autograd history, no
-    requires_grad), one storage each, for the engines."""
-    if isinstance(tree, dict):
-        return {k: _detached(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_detached(v) for v in tree]
-    return tree.detach().clone()
 
 
 def build_pipeline(engines, caps, log_fn=print, profile_lengths=(8, 16, 32),

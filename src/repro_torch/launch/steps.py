@@ -11,7 +11,7 @@ the host: the metrics stay device scalars.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -29,11 +29,15 @@ def _prefix_len(cfg: ModelConfig) -> int:
 def loss_fn(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
             masked: bool = False) -> Tuple[torch.Tensor, dict]:
     """The training loss of master params on a batch {tokens, targets[,
-    mask]}: `lm_loss` (the JAX package's `make_train_step`), or with
-    `masked` the masked cross entropy plus the aux term (its
+    mask][, prefix_embeds][, enc_frames]}: `lm_loss` (the JAX package's
+    `make_train_step`; a VLM's loss drops its n_prefix patch positions),
+    or with `masked` the masked cross entropy plus the aux term (its
     `train(masked=True)`). -> (loss, metrics)."""
     working = transformer.cast_params(cfg, params)
-    logits, aux = transformer.forward(cfg, working, batch["tokens"])
+    logits, aux = transformer.forward(
+        cfg, working, batch["tokens"],
+        prefix_embeds=batch.get("prefix_embeds"),
+        enc_frames=batch.get("enc_frames"))
     if masked:
         loss, _ = losses_lib.cross_entropy(logits, batch["targets"],
                                            batch["mask"])
@@ -42,18 +46,28 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor],
                               prefix_len=_prefix_len(cfg))
 
 
-def value_and_grad(cfg: ModelConfig, params: dict,
-                   batch: Dict[str, torch.Tensor], masked: bool = False):
-    """(loss, metrics, grads): grads a tree like params, None where the loss
-    does not reach a leaf (the length head)."""
+def grad_of(fn: Callable, params):
+    """fn(params) -> (loss, aux): -> (loss, aux, grads), detached; grads a
+    tree like params, None where the loss does not reach a leaf (the
+    length head). The leaves record autograd only inside the call."""
     flat = tree_lib.leaves(params)
     with torch.enable_grad():
         for p in flat:
             p.requires_grad_(True)
-        loss, metrics = loss_fn(cfg, params, batch, masked)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return loss.detach(), metrics, tree_lib.unflatten(params, list(grads))
+        try:
+            loss, aux = fn(params)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        finally:
+            for p in flat:
+                p.requires_grad_(False)
+    return (loss.detach(), tree_lib.tree_map(torch.Tensor.detach, aux),
+            tree_lib.unflatten(params, list(grads)))
+
+
+def value_and_grad(cfg: ModelConfig, params: dict,
+                   batch: Dict[str, torch.Tensor], masked: bool = False):
+    """(loss, metrics, grads) of `loss_fn` (`grad_of`)."""
+    return grad_of(lambda p: loss_fn(cfg, p, batch, masked), params)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig,
@@ -61,7 +75,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig,
     """(params, opt_state, batch) -> (params, opt_state, metrics); params and
     the moments are updated in place.
 
-    batch: {tokens, targets[, mask]} on the params' device."""
+    batch: {tokens, targets[, mask][, prefix_embeds][, enc_frames]} on the
+    params' device."""
     def train_step(params, opt_state, batch):
         loss, metrics, grads = value_and_grad(cfg, params, batch, masked)
         params, opt_state, opt_metrics = opt_lib.adamw_update(
@@ -72,9 +87,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig,
 
 
 def make_prefill_step(cfg: ModelConfig):
-    def prefill_step(params, tokens, cache, prompt_lengths=None):
+    def prefill_step(params, tokens, cache, prompt_lengths=None,
+                     enc_frames=None, prefix_embeds=None):
         return transformer.prefill(cfg, params, tokens, cache,
-                                   prompt_lengths=prompt_lengths)
+                                   prompt_lengths=prompt_lengths,
+                                   prefix_embeds=prefix_embeds,
+                                   enc_frames=enc_frames)
     return prefill_step
 
 

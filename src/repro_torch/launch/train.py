@@ -19,7 +19,12 @@ from repro_torch.training.checkpoint import save
 from repro_torch.training.train_loop import init_train_state, train
 
 
-def main():
+# families whose forward takes stub embeddings beside the tokens
+STUB_INPUTS = {"encdec": "enc_frames (stub frame embeddings)",
+               "vlm": "prefix_embeds (stub patch embeddings)"}
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--steps", type=int, default=100)
@@ -30,10 +35,16 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = registry.get_config(args.arch).reduced(remat=False)
+    if cfg.family in STUB_INPUTS:
+        raise ValueError(
+            f"{args.arch} needs {STUB_INPUTS[cfg.family]} in every batch, "
+            "which the synthetic text pipeline does not make (the JAX "
+            "launcher cannot train it either); train it through "
+            "launch/steps.make_train_step with those inputs in the batch")
+    device = resolve_device(args.device)
     print(f"training reduced {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
           f"family={cfg.family} on {device}")
     text = corpus_lib.lm_text(3000, args.seed)

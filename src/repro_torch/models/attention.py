@@ -14,6 +14,10 @@ CPU: gather the block table into the contiguous layout, dequantizing a
 quantized pool on the way, then masked softmax). Monolithic prefill on the
 CPU and multi-token dense decode stay plain PyTorch, as they are plain jnp
 in the JAX package. K/V writes update the cache and the pools in place.
+Cross-attention (whisper's decoder over its encoder's output, and over the
+cross K/V that prefill stores in the dense cache) is plain softmax
+attention with float32 logits on every device, as the JAX package's plain
+jnp; it has no mask.
 
 Projection weights are 2-D: wq (d, Hq*hd), wk/wv (d, Hkv*hd), wo (Hq*hd, d);
 biases are flat (H*hd,). `repro_torch.convert` reshapes the JAX package's
@@ -45,36 +49,45 @@ from repro_torch.models.layers import (apply_rope, dense_init, rmsnorm,
 # ---------------------------------------------------------------------------
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype,
-                   device=None) -> dict:
+                   device=None, cross: bool = False,
+                   kv_d_model: Optional[int] = None) -> dict:
+    """Self-attention weights, or with `cross` a decoder layer's
+    cross-attention over an encoder of width `kv_d_model` (no q/k-norm)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
+    kd = kv_d_model or d
     p = {
         "wq": dense_init(gen, (d, n_q, hd), dtype=dtype, device=device),
-        "wk": dense_init(gen, (d, n_kv, hd), dtype=dtype, device=device),
-        "wv": dense_init(gen, (d, n_kv, hd), dtype=dtype, device=device),
+        "wk": dense_init(gen, (kd, n_kv, hd), dtype=dtype, device=device),
+        "wv": dense_init(gen, (kd, n_kv, hd), dtype=dtype, device=device),
         "wo": dense_init(gen, (n_q, hd, d), in_axis=1, dtype=dtype,
                          device=device),
     }
-    p = {k: w.reshape(-1, d) if k == "wo" else w.reshape(d, -1)
+    p = {k: w.reshape(-1, d) if k == "wo" else w.reshape(w.shape[0], -1)
          for k, w in p.items()}
     if cfg.qkv_bias:
         for k, n in (("bq", n_q), ("bk", n_kv), ("bv", n_kv)):
             p[k] = torch.zeros(n * hd, dtype=dtype, device=device)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
         p["k_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
     return p
 
 
-def _project_qkv(cfg: ModelConfig, params: dict, x: torch.Tensor):
+def _project_qkv(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                 kv_x: Optional[torch.Tensor] = None):
+    """q from x (B, S, D); k, v from kv_x (B, Skv, Dkv), x itself when
+    absent (cross-attention passes the encoder's output)."""
     B, S, _ = x.shape
+    kv_x = x if kv_x is None else kv_x
+    Skv = kv_x.shape[1]
     hd = cfg.resolved_head_dim
-    q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
+    q, k, v = x @ params["wq"], kv_x @ params["wk"], kv_x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.view(B, S, cfg.n_heads, hd)
-    k = k.view(B, S, cfg.n_kv_heads, hd)
-    v = v.view(B, S, cfg.n_kv_heads, hd)
+    k = k.view(B, Skv, cfg.n_kv_heads, hd)
+    v = v.view(B, Skv, cfg.n_kv_heads, hd)
     if "q_norm" in params:
         q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
@@ -86,16 +99,12 @@ def _out_proj(params: dict, out: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, S, -1) @ params["wo"]
 
 
-def check_support(cfg: ModelConfig) -> None:
-    """Raise on configurations no attention path of the port serves yet."""
+def check_paged_support(cfg: ModelConfig) -> None:
+    """Raise on configurations the paged path does not serve: as in the JAX
+    package, no cross-attention cache (encoder-decoder) and no window."""
     if cfg.family == "encdec":
         raise NotImplementedError(
-            "cross-attention (whisper) waits for the encoder-decoder slice")
-
-
-def check_paged_support(cfg: ModelConfig) -> None:
-    """Raise on configurations the paged path does not serve yet."""
-    check_support(cfg)
+            "the paged KV cache does not support cross-attention caches")
     if cfg.sliding_window:
         raise NotImplementedError(
             "the paged KV cache supports full attention only")
@@ -269,7 +278,6 @@ def attention_fwd(cfg: ModelConfig, params: dict, x: torch.Tensor,
     from cfg). A `segment_mask` (B,1,S,S), which the kernel does not take,
     runs the plain masked softmax on the CPU and raises on the card: no
     path of the JAX package passes one, training included."""
-    check_support(cfg)
     S = x.shape[1]
     q, k, v = _project_qkv(cfg, params, x)
     if cfg.use_rope:
@@ -294,6 +302,35 @@ def attention_fwd(cfg: ModelConfig, params: dict, x: torch.Tensor,
         out = fa_ops.flash_attention(q, k, v, causal=causal,
                                      window=cfg.sliding_window,
                                      softcap=cfg.attn_logit_softcap)
+    return _out_proj(params, out)
+
+
+def cross_attention_fwd(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                        enc_out: torch.Tensor) -> torch.Tensor:
+    """Cross-attention (whisper decoder): x (B, T, D) attends to every row
+    of enc_out (B, Se, De), with no mask. Plain softmax attention with
+    float32 logits on every device, as the JAX package's plain jnp."""
+    q, k, v = _project_qkv(cfg, params, x, kv_x=enc_out)
+    return _cross_read(cfg, params, q, k, v)
+
+
+def cross_attention_cached(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                           ck: torch.Tensor, cv: torch.Tensor
+                           ) -> torch.Tensor:
+    """Cross-attention of x (B, T, D) against the encoder's projected K/V
+    (B, Se, n_kv, hd), which prefill stored in the cache."""
+    B, T, _ = x.shape
+    q = x @ params["wq"]
+    if "bq" in params:
+        q = q + params["bq"]
+    q = q.view(B, T, cfg.n_heads, cfg.resolved_head_dim)
+    return _cross_read(cfg, params, q, ck, cv)
+
+
+def _cross_read(cfg: ModelConfig, params: dict, q, k, v) -> torch.Tensor:
+    out = full_or_chunked_sdpa(q, _repeat_kv(k, cfg.q_per_kv),
+                               _repeat_kv(v, cfg.q_per_kv), causal=False,
+                               softcap=cfg.attn_logit_softcap)
     return _out_proj(params, out)
 
 
@@ -358,7 +395,6 @@ def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     The JAX package's kernel path (use_pallas) drops the logit softcap on
     one-token decode; the port serves no config with a softcap and raises
     on one."""
-    check_support(cfg)
     if cfg.attn_logit_softcap:
         raise NotImplementedError(
             "attention logit softcap on dense decode is not ported (no "

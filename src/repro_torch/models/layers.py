@@ -1,8 +1,9 @@
-"""Common neural-net layers (PyTorch): norms, RoPE, SwiGLU MLP, embeddings.
+"""Common neural-net layers (PyTorch): norms (RMSNorm, and LayerNorm for
+whisper), RoPE, the SwiGLU and the ungated GELU MLP, embeddings.
 
 Parameters arrive already in their working dtype (see `init_params` and
 `repro_torch.convert`): matmul weights, embeddings and biases in the compute
-dtype `cfg.dtype`, norm scales in float32. The JAX package keeps float32
+dtype `cfg.dtype`, norm scales and biases in float32. The JAX package keeps float32
 parameters and casts each one at every use; casting once when the weights
 are loaded gives the same values without re-reading float32 weights on every
 step.
@@ -26,12 +27,13 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 # Leaves kept in float32 in the working params, whatever cfg.dtype: norm
-# scales, Mamba2's A_log, D and dt_bias (the JAX package casts them to
-# float32 at use), the xLSTM gate biases and the sLSTM's recurrent weights
-# (which it computes with in float32), and the length head.
-FLOAT32_LEAVES = ("scale", "q_norm", "k_norm", "A_log", "D", "dt_bias",
-                  "norm_scale", "b_i", "b_f", "b_gates", "r_gates",
-                  "length_head")
+# scales and LayerNorm biases, Mamba2's A_log, D and dt_bias (the JAX
+# package casts them to float32 at use), the xLSTM gate biases and the
+# sLSTM's recurrent weights (which it computes with in float32), the length
+# head and the reward model's head.
+FLOAT32_LEAVES = ("scale", "bias", "q_norm", "k_norm", "A_log", "D",
+                  "dt_bias", "norm_scale", "b_i", "b_f", "b_gates", "r_gates",
+                  "length_head", "reward_head")
 
 
 def working_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
@@ -73,11 +75,32 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return rms_ops.rmsnorm(x, scale, eps)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """The JAX package's LayerNorm step for step in float32: the mean, the
+    mean of squared deviations, rsqrt(var + eps), scale and bias; the
+    output in x's dtype. Plain PyTorch on every device: the JAX package
+    computes it in plain jnp, with no kernel."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
+
+
 def norm(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.use_layernorm:
-        raise NotImplementedError(
-            "LayerNorm families (whisper) wait for the encoder-decoder slice")
+        return layernorm(x, params["scale"], params["bias"], cfg.norm_eps)
     return rmsnorm(x, params["scale"], cfg.norm_eps)
+
+
+def init_norm(cfg: ModelConfig, d: int, device=None) -> dict:
+    """{"scale": ones} in float32, and {"bias": zeros} for LayerNorm."""
+    p = {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+    if cfg.use_layernorm:
+        p["bias"] = torch.zeros(d, dtype=torch.float32, device=device)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -114,11 +137,20 @@ def apply_rope(x: torch.Tensor, positions: Optional[torch.Tensor] = None,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU; the gated-GELU-free families of the dense slice)
+# MLPs: SwiGLU, or the ungated GELU MLP with biases (whisper)
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
-             device=None) -> dict:
+             device=None, gated: bool = True) -> dict:
+    if not gated:
+        return {
+            "w_up": dense_init(gen, (d_model, d_ff), dtype=dtype,
+                               device=device),
+            "b_up": torch.zeros(d_ff, dtype=dtype, device=device),
+            "w_down": dense_init(gen, (d_ff, d_model), dtype=dtype,
+                                 device=device),
+            "b_down": torch.zeros(d_model, dtype=dtype, device=device),
+        }
     return {
         "w_gate": dense_init(gen, (d_model, d_ff), dtype=dtype, device=device),
         "w_up": dense_init(gen, (d_model, d_ff), dtype=dtype, device=device),
@@ -127,12 +159,14 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
 
 
 def mlp(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    if "w_gate" not in params:
-        raise NotImplementedError(
-            "the ungated GELU MLP waits for the encoder-decoder slice")
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
-    return (F.silu(g) * u) @ params["w_down"]
+    if "w_gate" in params:  # SwiGLU
+        g = x @ params["w_gate"]
+        u = x @ params["w_up"]
+        return (F.silu(g) * u) @ params["w_down"]
+    # jax.nn.gelu defaults to the tanh approximation; F.gelu's default erf
+    # form differs from it by up to 4.7e-4
+    h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
+    return h @ params["w_down"] + params["b_down"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,27 @@
-"""Decoder stacks (PyTorch) over a dense or a paged KV cache: dense
-attention, MoE, Mamba2 (SSM), xLSTM (mLSTM and sLSTM blocks) and the
-Mamba2 + shared-attention hybrid (zamba2).
+"""Model stacks (PyTorch) over a dense or a paged KV cache: dense
+attention, MoE, Mamba2 (SSM), xLSTM (mLSTM and sLSTM blocks), the Mamba2 +
+shared-attention hybrid (zamba2), the encoder-decoder (whisper) and the VLM
+(a decoder over stub patch embeddings).
 
-The port of the JAX package's `models/transformer.py` for the segments the
-PICE serving path runs: init; the full-sequence `forward` (scoring); the
+The port of the JAX package's `models/transformer.py`: init; the
+full-sequence `forward` (scoring, training) and `predict_length`; the
 dense cache with its monolithic `prefill` and `decode_step`; the paged cache
 with monolithic `prefill_paged`, one prompt chunk, batched ragged chunks
 (attention-only stacks), the decode step, the COW fork copy and the
 host-swap promote. Dense and monolithic paged prefill share
 `_prefill_block`, whose `kv_writer` hook alone differs, so both produce the
-same activations. The encoder-decoder family waits for its slice.
+same activations.
+
+The encoder-decoder family (cfg.family == "encdec") runs `encode` over
+stub frame embeddings (B, n_ctx, d_enc): learned positions, pre-norm
+blocks with non-causal self-attention (the flash kernel on the card) and a
+final norm. Its decoder adds learned positions `dec_pos` and, after each
+self-attention, a cross-attention over the encoder's output (plain
+PyTorch, as the JAX package's plain jnp); prefill stores the cross K/V in
+the dense cache ("cross_k", "cross_v") and decode reads them. The paged
+cache refuses the family, as the JAX package's does. A VLM prepends
+`prefix_embeds` (B, n_prefix, D) to the token embeddings in `forward` and
+`prefill`.
 
 Layers come in segments (`segments_of`): runs of one block kind. ATTN is an
 attention + MLP block, MOE an attention + MoE FFN block (`models/moe.py`),
@@ -21,9 +33,12 @@ blocks (`models/xlstm.py`). MAMBA2, MLSTM and SLSTM are the recurrent
 kinds: each keeps O(1) per-slot states in place of K/V.
 
 Params: {"embed": {"tok", "unembed"}, "segments": [[layer, ...], ...],
-"shared"?: layer, "final_norm": {"scale"}, "length_head"?}; an attention
+"shared"?: layer, "final_norm": {"scale"}, "length_head"?, "encoder"?:
+{"pos", "blocks": [layer, ...], "final_norm"}, "dec_pos"?}; an attention
 layer is {"norm1": {"scale"}, "attn": {...}, "norm2": {"scale"}, "mlp":
-{...}} (see attention.py for the weight layout), a MoE layer the same with
+{...}} (see attention.py for the weight layout), with "norm_x" and
+"xattn" added in an encoder-decoder's decoder and "bias" beside each
+LayerNorm "scale", a MoE layer the same with
 "moe": {"router", "w_gate", "w_up", "w_down"} in place of "mlp", a Mamba2
 layer {"norm1":
 {"scale"}, "mamba": {...}}, an xLSTM layer {"norm1": {"scale"}, "mlstm" or
@@ -35,7 +50,9 @@ page that dropped writes land in (see paged_cache.py), and a quantized pool
 (cfg.kv_quantized) adds "k_scale", "v_scale": (count, n_pages + 1, n_kv)
 f32. The dense cache is {"lengths": (B,) int32, "segments": [...]} with
 {"k", "v": (count, B, max_len, n_kv, hd)} for an attention segment, or
-(count, B, w, n_kv, hd) rings for a sliding window w (`models/cache.py`). A
+(count, B, w, n_kv, hd) rings for a sliding window w (`models/cache.py`),
+and an encoder-decoder's {"cross_k", "cross_v": (count, B, n_ctx, n_kv,
+hd)} beside them. A
 recurrent segment holds the same per-slot states in both caches: Mamba2
 {"conv": (count, B, ssm_conv - 1, inner) in cfg.dtype, "ssd": (count, B,
 H, P, N) f32}; mLSTM {"C": (count, B, H, hd, hd), "n": (count, B, H, hd),
@@ -70,9 +87,9 @@ from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.config import (ATTN, MAMBA2, MLSTM, MOE,
                                        SHARED_ATTN, SLSTM, ModelConfig)
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense_init,
-                                       embed, init_embedding, init_mlp, mlp,
-                                       norm, rope_tables, unembed,
-                                       working_dtype)
+                                       embed, embed_init, init_embedding,
+                                       init_mlp, init_norm, mlp, norm,
+                                       rope_tables, unembed, working_dtype)
 
 
 def segments_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -97,10 +114,8 @@ def check_supported(cfg: ModelConfig) -> None:
     kinds = {kind for kind, _ in segments_of(cfg)}
     if not kinds <= set(SUPPORTED_KINDS):
         raise NotImplementedError(
-            f"block kinds {sorted(kinds - set(SUPPORTED_KINDS))} wait for "
-            "their families' slices; the port serves "
-            f"{list(SUPPORTED_KINDS)}")
-    attn_lib.check_support(cfg)
+            f"block kinds {sorted(kinds - set(SUPPORTED_KINDS))} are not "
+            f"ported; the port serves {list(SUPPORTED_KINDS)}")
 
 
 def is_recurrent(cfg: ModelConfig) -> bool:
@@ -127,23 +142,51 @@ def check_paged_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
-                device) -> dict:
+                device, cross: bool = False) -> dict:
+    """One block's params; with `cross` (an encoder-decoder's decoder) also
+    its cross-attention and that attention's norm."""
     d = cfg.d_model
     if kind in RECURRENT_KINDS:
         init = {MAMBA2: ssm_lib.init_mamba2, MLSTM: xlstm_lib.init_mlstm,
                 SLSTM: xlstm_lib.init_slstm}[kind]
-        return {"norm1": {"scale": torch.ones(d, device=device)},
+        return {"norm1": init_norm(cfg, d, device),
                 RECURRENT_KINDS[kind]: init(cfg, gen, dtype, device)}
     layer = {
-        "norm1": {"scale": torch.ones(d, device=device)},
+        "norm1": init_norm(cfg, d, device),
         "attn": attn_lib.init_attention(cfg, gen, dtype, device),
-        "norm2": {"scale": torch.ones(d, device=device)},
+        "norm2": init_norm(cfg, d, device),
     }
     if kind == MOE:
         layer["moe"] = moe_lib.init_moe(cfg, gen, dtype, device)
     else:
-        layer["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, device)
+        layer["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, device,
+                                gated=not cfg.use_layernorm)
+    if cross:
+        layer["norm_x"] = init_norm(cfg, d, device)
+        layer["xattn"] = attn_lib.init_attention(
+            cfg, gen, dtype, device, cross=True,
+            kv_d_model=cfg.encoder.d_model)
     return layer
+
+
+def enc_cfg_as_model(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's blocks as a model config of their own (no RoPE, no
+    window, no q/k-norm), as the JAX package's `_enc_cfg_as_model`."""
+    e = cfg.encoder
+    return cfg.with_(d_model=e.d_model, n_heads=e.n_heads,
+                     n_kv_heads=e.n_kv_heads, d_ff=e.d_ff,
+                     n_layers=e.n_layers, use_rope=False, sliding_window=0,
+                     qk_norm=False, qkv_bias=cfg.qkv_bias)
+
+
+def _init_encoder(cfg: ModelConfig, gen: torch.Generator, dtype,
+                  device) -> dict:
+    ecfg = enc_cfg_as_model(cfg)
+    e = cfg.encoder
+    return {"pos": embed_init(gen, (e.n_ctx, e.d_model), dtype, device),
+            "blocks": [_init_layer(ecfg, ATTN, gen, dtype, device)
+                       for _ in range(e.n_layers)],
+            "final_norm": init_norm(cfg, e.d_model, device)}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
@@ -162,6 +205,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     gen.manual_seed(seed)
     dtype = torch.float32 if master else compute_dtype(cfg)
     p: Dict[str, Any] = {"embed": init_embedding(cfg, gen, dtype, device)}
+    cross = cfg.family == "encdec"
     segs = []
     for kind, count in segments_of(cfg):
         if kind == SHARED_ATTN:
@@ -169,11 +213,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 p["shared"] = _init_layer(cfg, kind, gen, dtype, device)
             segs.append([])         # the weights live in p["shared"]
         else:
-            segs.append([_init_layer(cfg, kind, gen, dtype, device)
+            segs.append([_init_layer(cfg, kind, gen, dtype, device, cross)
                          for _ in range(count)])
     p["segments"] = segs
-    p["final_norm"] = {"scale": torch.ones(cfg.d_model, dtype=torch.float32,
-                                           device=device)}
+    p["final_norm"] = init_norm(cfg, cfg.d_model, device)
+    if cfg.family == "encdec":
+        p["encoder"] = _init_encoder(cfg, gen, dtype, device)
+        p["dec_pos"] = embed_init(gen, (cfg.max_seq_len, cfg.d_model), dtype,
+                                  device)
     if cfg.length_buckets:
         p["length_head"] = dense_init(gen, (cfg.d_model, cfg.length_buckets),
                                       device=device)
@@ -194,6 +241,20 @@ def cast_params(cfg: ModelConfig, params):
         dt = working_dtype(cfg, name)
         return tree if tree.dtype == dt else tree.to(dt)
     return cast(params)
+
+
+def serving_params(cfg: ModelConfig, params):
+    """The working params an engine serves from training masters:
+    `cast_params` as plain tensors (no autograd history, no
+    requires_grad), one storage each, so that later training does not move
+    the engine's weights."""
+    def detach(tree):
+        if isinstance(tree, dict):
+            return {k: detach(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [detach(v) for v in tree]
+        return tree.detach().clone()
+    return detach(cast_params(cfg, params))
 
 
 def _walk(cfg: ModelConfig, params: dict, cache: Optional[dict] = None):
@@ -330,21 +391,86 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def _layer_fwd(cfg: ModelConfig, kind: str, layer: dict,
-               positions: torch.Tensor, rope, x: torch.Tensor
+               positions: torch.Tensor, rope, x: torch.Tensor,
+               enc_out: Optional[torch.Tensor] = None, causal: bool = True
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block over whole sequences (no cache) -> (x, the MoE balance
-    loss or None)."""
+    loss or None); an encoder-decoder's decoder block attends to `enc_out`
+    after its self-attention; an encoder block is not `causal`."""
     if kind in RECURRENT_KINDS:
         return _recurrent_block(cfg, kind, layer, x), None
     h = attn_lib.attention_fwd(cfg, layer["attn"],
                                norm(cfg, layer["norm1"], x), positions,
-                               causal=True, rope=rope)
-    return _ffn_aux(cfg, layer, x + h)
+                               causal=causal, rope=rope)
+    x = x + h
+    if enc_out is not None and "xattn" in layer:
+        x = x + attn_lib.cross_attention_fwd(
+            cfg, layer["xattn"], norm(cfg, layer["norm_x"], x), enc_out)
+    return _ffn_aux(cfg, layer, x)
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) int -> (logits (B, S, V), aux_loss).
+def _run_layer(cfg: ModelConfig, kind: str, layer: dict, positions, rope,
+               x: torch.Tensor, enc_out=None, causal: bool = True):
+    """`_layer_fwd`, rematerialized in the backward while autograd records
+    and cfg.remat is set (`torch.utils.checkpoint`, as the JAX package's
+    `jax.checkpoint` over each layer)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch_checkpoint.checkpoint(_layer_fwd, cfg, kind, layer,
+                                           positions, rope, x, enc_out,
+                                           causal, use_reentrant=False)
+    return _layer_fwd(cfg, kind, layer, positions, rope, x, enc_out, causal)
+
+
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """frames: (B, n, d_enc) stub embeddings, n <= n_ctx -> the encoder's
+    output (B, n, d_enc). `params` is params["encoder"]. Learned positions
+    pos[:n], then pre-norm blocks with non-causal self-attention (the
+    flash-attention wrapper: its kernel on the card) and the GELU MLP,
+    then the final norm. The frames must come in cfg.dtype: the JAX
+    package runs the encoder in the frames' own dtype, and the port's
+    layers compute in cfg.dtype only, so it refuses any other."""
+    if frames.dtype != compute_dtype(cfg):
+        raise ValueError(f"{cfg.name}: enc_frames must be "
+                         f"{compute_dtype(cfg)}, got {frames.dtype}")
+    ecfg = enc_cfg_as_model(cfg)
+    n = frames.shape[1]
+    x = frames + params["pos"][None, :n]
+    positions = torch.arange(n, device=x.device)[None]
+    for layer in params["blocks"]:
+        x, _ = _run_layer(ecfg, ATTN, layer, positions, None, x,
+                          causal=False)
+    return norm(ecfg, params["final_norm"], x)
+
+
+def _embed_inputs(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                  prefix_embeds: Optional[torch.Tensor],
+                  enc_frames: Optional[torch.Tensor]):
+    """The token embeddings behind a VLM's `prefix_embeds`, plus an
+    encoder-decoder's positions dec_pos[:S] -> (x, the encoder's output or
+    None). An encoder-decoder needs its frames; other families take none."""
+    x = embed(cfg, params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    if cfg.family != "encdec":
+        return x, None
+    if enc_frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass enc_frames "
+                         f"(B, n_ctx, {cfg.encoder.d_model}) frame embeddings")
+    enc_out = encode(cfg, params["encoder"], enc_frames)
+    return x + params["dec_pos"][None, :x.shape[1]], enc_out
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            enc_frames: Optional[torch.Tensor] = None,
+            return_hidden: bool = False):
+    """tokens: (B, S) int -> (logits (B, S', V), aux_loss[, hidden]).
+
+    prefix_embeds: a VLM's stub patch embeddings (B, n_prefix, D), put
+    before the tokens (S' = n_prefix + S); enc_frames: an encoder-decoder's
+    stub frame embeddings (B, n, d_enc), which it needs. With
+    `return_hidden` the final-normed hidden states (B, S', D) come third.
 
     Every attention layer reads through the flash-attention wrapper
     (causal, with cfg's window and softcap), every Mamba2 layer scans
@@ -360,24 +486,29 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
     package's `jax.checkpoint` over each layer), so only the blocks'
     inputs stay alive between the two passes."""
     check_supported(cfg)
-    x = embed(cfg, params["embed"], tokens)
+    x, enc_out = _embed_inputs(cfg, params, tokens, prefix_embeds,
+                               enc_frames)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None]
     rope = _rope(cfg, positions)
-    remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, layer, _ in _walk(cfg, params):
-        if remat:
-            x, aux = torch_checkpoint.checkpoint(_layer_fwd, cfg, kind, layer,
-                                                 positions, rope, x,
-                                                 use_reentrant=False)
-        else:
-            x, aux = _layer_fwd(cfg, kind, layer, positions, rope, x)
+        x, aux = _run_layer(cfg, kind, layer, positions, rope, x, enc_out)
         if aux is not None:
             aux_total = aux_total + aux
     x = norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)
+    if return_hidden:
+        return logits, aux_total, x
     return logits, aux_total
+
+
+def predict_length(cfg: ModelConfig, params: dict, hidden: torch.Tensor
+                   ) -> torch.Tensor:
+    """PICE's response-length head: mean-pooled hidden (B, S, D) -> bucket
+    logits (B, length_buckets), in float32."""
+    pooled = hidden.float().mean(dim=1)
+    return pooled @ params["length_head"].float()
 
 
 # ---------------------------------------------------------------------------
@@ -389,16 +520,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """{"lengths": (batch,) int32, "segments": [...]}, zeros: an attention
     segment's {"k", "v": (count, batch, max_len, n_kv, hd)} in cfg.dtype,
     rings of cfg.sliding_window rows for a windowed stack
-    (`cache.init_kv_cache`), a recurrent segment's per-slot states."""
+    (`cache.init_kv_cache`), with an encoder-decoder's cross K/V
+    {"cross_k", "cross_v": (count, batch, n_ctx, n_kv, hd)} beside them; a
+    recurrent segment's per-slot states."""
     check_supported(cfg)
     segs = []
     for kind, count in segments_of(cfg):
         if kind in RECURRENT_KINDS:
             segs.append(_recurrent_states(cfg, kind, count, batch, device))
             continue
-        segs.append(cache_lib.init_kv_cache(
+        seg = cache_lib.init_kv_cache(
             count, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
-            compute_dtype(cfg), window=cfg.sliding_window, device=device))
+            compute_dtype(cfg), window=cfg.sliding_window, device=device)
+        if cfg.family == "encdec":
+            cross = cache_lib.init_kv_cache(
+                count, batch, cfg.encoder.n_ctx, cfg.n_kv_heads,
+                cfg.resolved_head_dim, compute_dtype(cfg), device=device)
+            seg["cross_k"], seg["cross_v"] = cross["k"], cross["v"]
+        segs.append(seg)
     return {"lengths": torch.zeros(batch, dtype=torch.int32, device=device),
             "segments": segs}
 
@@ -407,8 +546,9 @@ KVWriter = Callable[[torch.Tensor, torch.Tensor], None]
 
 
 def _prefill_block(cfg: ModelConfig, layer: dict, x: torch.Tensor, rope,
-                   prompt_lengths: torch.Tensor, kv_writer: KVWriter
-                   ) -> torch.Tensor:
+                   prompt_lengths: torch.Tensor, kv_writer: KVWriter,
+                   enc_out: Optional[torch.Tensor] = None,
+                   c: Optional[dict] = None) -> torch.Tensor:
     """One layer over a whole right-padded prompt, causal
     (`attention.prefill_attention`: the flash kernel on the card; on the
     CPU plain attention with the padding masked by `prompt_lengths`, as in
@@ -416,7 +556,10 @@ def _prefill_block(cfg: ModelConfig, layer: dict, x: torch.Tensor, rope,
     on both; pad rows differ and nothing reads them. `kv_writer(k, v)`
     stores the layer's K/V (B, S, n_kv, hd): the dense writer into the
     cache rows, the paged one through the block table; the compute is
-    shared, so dense and paged prefill give the same activations."""
+    shared, so dense and paged prefill give the same activations. An
+    encoder-decoder's block then projects `enc_out` into its cross K/V,
+    stores them in the layer's dense cache views `c`, and attends to them.
+    """
     xin = norm(cfg, layer["norm1"], x)
     q, k, v = attn_lib._project_qkv(cfg, layer["attn"], xin)
     if rope is not None:
@@ -425,6 +568,14 @@ def _prefill_block(cfg: ModelConfig, layer: dict, x: torch.Tensor, rope,
     h = attn_lib.prefill_attention(cfg, q, k, v, prompt_lengths)
     x = x + attn_lib._out_proj(layer["attn"], h)
     kv_writer(k, v)
+    if enc_out is not None and "xattn" in layer:
+        xin2 = norm(cfg, layer["norm_x"], x)
+        _, ck, cv = attn_lib._project_qkv(cfg, layer["xattn"], xin2,
+                                          kv_x=enc_out)
+        c["cross_k"].copy_(ck)
+        c["cross_v"].copy_(cv)
+        x = x + attn_lib.cross_attention_cached(cfg, layer["xattn"], xin2,
+                                                ck, cv)
     return _ffn_residual(cfg, layer, x)
 
 
@@ -462,10 +613,31 @@ def _ring_writer(ck: torch.Tensor, cv: torch.Tensor,
     return write
 
 
+def _fit_cross(cfg: ModelConfig, cache: dict, n: int) -> None:
+    """Size the cache's cross K/V to an encoder output of n rows: the JAX
+    package's prefill replaces the leaves with the encoder's K/V, whatever
+    their rows, and decode attends to all of them."""
+    for seg in attention_segments(cfg, cache):
+        for key in ("cross_k", "cross_v"):
+            leaf = seg[key]
+            if leaf.shape[2] != n:
+                seg[key] = leaf.new_zeros(leaf.shape[:2] + (n,)
+                                          + leaf.shape[3:])
+
+
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            cache: dict, prompt_lengths=None) -> Tuple[torch.Tensor, dict]:
+            cache: dict, prompt_lengths=None,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            enc_frames: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, dict]:
     """Process right-padded prompts (tokens: (B, S)), fill the dense cache's
     B rows and return each prompt's last-position logits (B, V).
+
+    A VLM's `prefix_embeds` (B, n_prefix, D) go before the tokens: the cache
+    holds n_prefix + S positions and each length grows by n_prefix. An
+    encoder-decoder encodes `enc_frames` (B, n, d_enc), adds dec_pos[:S]
+    and stores each layer's cross K/V (B, n, n_kv, hd) in the cache (whose
+    cross leaves take n rows).
 
     prompt_lengths: (B,) valid counts (default S). The cache may be a view
     of some rows of a larger one (the engine passes one slot's rows): the
@@ -476,11 +648,17 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     recurrent stack unpadded), and its lengths are set to
     prompt_lengths."""
     check_supported(cfg)
-    x = embed(cfg, params["embed"], tokens)
+    x, enc_out = _embed_inputs(cfg, params, tokens, prefix_embeds,
+                               enc_frames)
     B, S = x.shape[:2]
     if prompt_lengths is None:
-        prompt_lengths = [S] * B
-    plens = attn_lib.as_int32(prompt_lengths, x.device)
+        plens = attn_lib.as_int32([S] * B, x.device)
+    else:
+        plens = attn_lib.as_int32(prompt_lengths, x.device)
+        if prefix_embeds is not None:
+            plens = plens + prefix_embeds.shape[1]
+    if enc_out is not None:
+        _fit_cross(cfg, cache, enc_out.shape[1])
     rope = _rope(cfg, torch.arange(S, device=x.device)[None])
     for kind, layer, c in _walk(cfg, params, cache):
         if kind in RECURRENT_KINDS:
@@ -488,7 +666,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             continue
         writer = (_ring_writer(c["k"], c["v"], plens, cfg.sliding_window)
                   if cfg.sliding_window else _dense_writer(c["k"], c["v"]))
-        x = _prefill_block(cfg, layer, x, rope, plens, writer)
+        x = _prefill_block(cfg, layer, x, rope, plens, writer, enc_out, c)
     logits = _logits_at(cfg, params, x, plens)
     cache["lengths"].copy_(plens)
     return logits, cache
@@ -515,10 +693,15 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     length advance and the recurrent state updates. `live_rows` bounds the read to the
     cache's first rows (at least every active row's length + 1; inactive
     rows' logits are then unspecified). The write plan, RoPE tables and
-    read lengths are built once per call."""
+    read lengths are built once per call. An encoder-decoder adds
+    dec_pos[min(length, max_seq_len - 1)] to each row's token and, after
+    each self-attention, attends to the cross K/V its prefill stored."""
     check_supported(cfg)
     x = embed(cfg, params["embed"], tokens)
     lengths = cache["lengths"]
+    if cfg.family == "encdec":
+        pos = lengths.long().clamp(0, cfg.max_seq_len - 1)
+        x = x + params["dec_pos"][pos][:, None]
     attn = _first_attention(cfg, cache)
     call = None if attn is None else attn_lib.dense_decode_call(
         cfg, lengths, 1, attn["k"].shape[2], live_rows)
@@ -529,7 +712,12 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         h, _, _ = attn_lib.attention_decode(
             cfg, layer["attn"], norm(cfg, layer["norm1"], x), c["k"], c["v"],
             lengths, call=call)
-        x = _ffn_residual(cfg, layer, x + h)
+        x = x + h
+        if "cross_k" in c and "xattn" in layer:
+            x = x + attn_lib.cross_attention_cached(
+                cfg, layer["xattn"], norm(cfg, layer["norm_x"], x),
+                c["cross_k"], c["cross_v"])
+        x = _ffn_residual(cfg, layer, x)
     x = norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)[:, 0]
     _advance_lengths(lengths, active)

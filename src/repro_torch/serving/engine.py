@@ -69,8 +69,10 @@ raises if one of them moved to other storage; nothing is captured again
 silently, and a failed capture raises. Ingest, monolithic prefill, the
 dense backend's decode and every engine on the CPU stay eager.
 
-Families other than attention, Mamba2 and the shared-attention hybrid
-raise NotImplementedError naming the slice they wait for.
+An encoder-decoder (whisper) raises NotImplementedError: a request
+carries tokens only, and the JAX engine passes no frames either. A VLM
+(internvl2-2b) is served text-only, as the JAX engine serves it: its
+prompts carry no patch embeddings.
 """
 from __future__ import annotations
 
@@ -224,6 +226,11 @@ class InferenceEngine:
         if kv_backend not in ("dense", "paged"):
             raise ValueError(f"kv_backend must be 'dense' or 'paged', got "
                              f"{kv_backend!r}")
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                "the engine serves no encoder-decoder: its requests carry "
+                "no frames (neither do the JAX engine's); drive "
+                "transformer.prefill / decode_step with enc_frames")
         if kv_backend == "paged":
             transformer.check_paged_supported(cfg)
             cfg.validate_paged(page_size, max_len)

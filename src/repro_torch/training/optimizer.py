@@ -8,11 +8,12 @@ step, and it has no global clip).
 
 Weight decay follows the JAX package's parameter layout, not the port's.
 The JAX package decays a leaf of ndim >= 2 and stacks every segment's
-layers on a leading axis, so every per-layer leaf there, norm scales,
-biases and Mamba2's A_log, D and dt_bias included, is at least 2-D and
-decays; of the unstacked leaves, the embeddings, the length head and a
-hybrid's shared attention projections and biases ((H, hd) there) decay,
-while `final_norm.scale` and the shared block's norm scales do not. The
+layers (and an encoder's) on a leading axis, so every per-layer leaf
+there, norm scales, biases and Mamba2's A_log, D and dt_bias included, is
+at least 2-D and decays; of the unstacked leaves, the embeddings, the
+learned positions, the length and reward heads and a hybrid's shared
+attention projections and biases ((H, hd) there) decay, while the final
+norms and the shared block's norm scales do not. The
 port keeps per-layer 1-D leaves, so it decides by the rank a leaf has in
 the JAX package's layout (`reference_ndim`). A gradient of None (a leaf
 no loss reached, e.g. the length head) counts as zeros: the moments still
@@ -91,10 +92,10 @@ _FLATTENED = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 def reference_ndim(path: Tuple, leaf: torch.Tensor) -> int:
     """The rank of the leaf at `path` in the JAX package's params: a
-    segment's leaves carry the stacked layer axis, and the attention
-    projections and biases an unflattened head axis."""
+    segment's leaves and an encoder's blocks carry the stacked layer axis,
+    and the attention projections and biases an unflattened head axis."""
     nd = leaf.dim()
-    if path and path[0] == "segments":
+    if path and (path[0] == "segments" or path[:2] == ("encoder", "blocks")):
         nd += 1
     if path and path[-1] in _FLATTENED:
         nd += 1

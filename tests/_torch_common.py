@@ -15,6 +15,7 @@ from repro_torch.configs.pice_cloud_edge import (TINY_CLOUD, TINY_EDGE_A,
 from repro_torch.configs.registry import get_config
 from repro_torch.models import transformer as ttransformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.training import tree as ttree
 
 # the xdist workers share the machine's cores
 torch.set_num_threads(2)
@@ -73,6 +74,29 @@ def params_pair(cfg: ModelConfig, seed: int = 0):
     tp = convert.params_from_reference(cfg, jax.tree.map(np.asarray, jp),
                                        device="cpu")
     return jp, tp
+
+
+def masters(cfg: ModelConfig, jparams):
+    """A JAX params (or gradients) pytree as the port's float32 masters on
+    the CPU."""
+    return convert.params_from_reference(
+        cfg, jax.tree.map(np.asarray, jparams), device="cpu", master=True)
+
+
+def assert_grads(got, want_tree, rtol):
+    """Gradients leaf by leaf (None counts as zeros): the largest
+    difference within rtol of the leaf's largest magnitude plus rtol x 1 %
+    of the model's largest gradient (tests/test_torch_train_model.py)."""
+    flat = ttree.leaves_with_path(got)
+    want = ttree.leaves(want_tree)
+    assert len(flat) == len(want)
+    top = max(float(b.abs().max()) for b in want)
+    for (path, a), b in zip(flat, want):
+        a = torch.zeros_like(b) if a is None else a
+        assert a.shape == b.shape, path
+        err = float((a - b).abs().max())
+        assert err <= rtol * float(b.abs().max()) + rtol * 1e-2 * top, \
+            (path, err, float(b.abs().max()))
 
 
 def assert_close(a, b, err_msg="", atol=ATOL):

@@ -79,8 +79,8 @@ def test_fork_slot_paged(setup):
 
 def test_unsupported_configs_raise():
     """The paged cache refuses a softcap and a window, as the JAX package's
-    does, and cross-attention, which waits for the encoder-decoder
-    slice."""
+    does, and cross-attention caches (an encoder-decoder), which the JAX
+    package's paged cache refuses too."""
     base = CONFIGS["tiny"]
     for cfg in (base.with_(attn_logit_softcap=30.0),
                 base.with_(sliding_window=16),

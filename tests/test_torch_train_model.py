@@ -38,7 +38,6 @@ from repro.models import transformer as jt
 from repro.training import losses as jl
 from repro.training import optimizer as jopt
 from repro.training import train_loop as jtl
-from repro_torch import convert
 from repro_torch.configs.pice_cloud_edge import (TINY_CLOUD, TINY_EDGE_A,
                                                  TINY_EDGE_B, TINY_EDGE_C)
 from repro_torch.data import pipeline as tpipe
@@ -67,22 +66,8 @@ def _batch(cfg, S=32, seed=0):
     return tokens, targets
 
 
-def _masters(cfg, jparams):
-    return convert.params_from_reference(
-        cfg, jax.tree.map(np.asarray, jparams), device="cpu", master=True)
-
-
-def _assert_grads(got, want_tree, rtol):
-    flat = tree_lib.leaves_with_path(got)
-    want = tree_lib.leaves(want_tree)
-    assert len(flat) == len(want)
-    top = max(float(b.abs().max()) for b in want)
-    for (path, a), b in zip(flat, want):
-        a = torch.zeros_like(b) if a is None else a
-        assert a.shape == b.shape, path
-        err = float((a - b).abs().max())
-        assert err <= rtol * float(b.abs().max()) + rtol * 1e-2 * top, \
-            (path, err, float(b.abs().max()))
+_masters = tc.masters
+_assert_grads = tc.assert_grads
 
 
 @pytest.mark.parametrize("name", list(GRAD_CONFIGS))
