@@ -53,7 +53,9 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      flash with and without window and softcap at q_per_kv 1 and 6, and
      at whisper-tiny's training shapes (B 8 x S 256 causal and not, B 8 x
      S 1,500 not causal; 6 heads of 64) and internvl2-2b's (B 4 x S 512,
-     16 query over 8 KV heads of 128, causal), the
+     16 query over 8 KV heads of 128, causal), and in bfloat16 at
+     qwen3-8b's group (B 2 x S 512, 32 query over 8 KV heads of 128,
+     causal: q_per_kv 4), the
      scan at S 37 and 300 and from an initial state; float32 within 2e-5
      and bfloat16 within 2e-2 of each gradient's largest magnitude, each
      backward twice, bitwise equal; an initial_state that requires a
@@ -77,10 +79,13 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      6's monolithic prefill (qwen3-8b, B 4, S 256) and at whisper-tiny's
      encoder (B 8 x S 1,500, not causal, beside SDPA without is_causal);
      the backward kernels at
-     the training shapes: #7b at qwen2-1.5b's B 8, S 256 beside SDPA's
-     backward (its forward and backward less its forward), #10b over 2,048
-     rows of 1,536 beside `F.rms_norm`'s backward, #9b at zamba2's B 2, S
-     256 (no library call);
+     the training shapes: #7b at qwen2-1.5b's B 8, S 256, internvl2-2b's
+     B 4, S 512, zamba2's B 2, S 256 and whisper-tiny's B 8 x S 256 and
+     1,500 (not causal) beside SDPA's backward (its forward and backward
+     less its forward), #10b over qwen2-1.5b's 2,048 rows of 1,536,
+     zamba2's 512 of 2,560 and internvl2-2b's 2,048 of 2,048 beside
+     `F.rms_norm`'s backward, #9b at zamba2's B 2, S 256 (no library
+     call);
   4. the TINY test config through the port's dense, monolithic paged and
      chunked paged engines on the card and on the CPU: greedy tokens
      equal, logprobs within rtol 1e-4, atol 1e-5; dense and monolithic
@@ -166,7 +171,10 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      equal; at full width qwen2-1.5b (bf16 compute, remat) 5 steps of B 8
      x S 256, whose loss must fall, and zamba2-2.7b 2 steps of B 2 x S
      256, each step's loss, grad norm, wall and launches of every forward
-     and backward wrapper logged with the peak memory; then the launcher:
+     and backward wrapper logged with the peak memory, and one profiled
+     step's device time by kind (a bf16 step must run the tensor-core #7b
+     and the row #10b kernels and none of the float32 routes' scalar
+     ones); then the launcher:
      `build_engines(train_steps=150)` on the TINY fleet, each model's loss
      on a fixed batch before and after (it must fall), and the mean
      ROUGE-1 F1 of the trained fleet's pipeline beside the untrained one's
@@ -1171,6 +1179,8 @@ def phase_timing(torch):
                else f"{r['library_ms']:.4f} ms")
         old = ("" if "write_flush_ms" not in r else
                f" (write flush {r['write_flush_ms']:.4f} ms)")
+        if "library_cold_ms" in r:
+            lib += f" (its backward alone, cold: {r['library_cold_ms']:.4f} ms)"
         log(f"{name} [{model}: {r['shape']}] kernel {r['ms']:.4f} ms{old}, "
             f"bound {b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, "
             f"library {lib}, max_abs_err {r['max_abs_err']:.3g}")
@@ -2191,16 +2201,21 @@ def kv_read_ratio(torch, quant, ref):
 
 
 MATMUL_KERNELS = ("nvjet", "gemm", "gemv", "cutlass", "xmma")
+# the float32 routes of #7b and #10b: a bf16 training step never runs them
+SCALAR_BWD_KERNELS = ("bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_rowdot",
+                      "bwd_reduce_heads", "rmsnorm_bwd_kernel",
+                      "rmsnorm_bwd_reduce")
 # the device functions of csrc/*.cu, as the profiler names them (a name
 # also matches the keys of the functions it is a prefix of)
 PORT_KERNELS = ("decode_kernel_mma", "decode_kernel",
                 "paged_prefill_kernel_mma", "paged_prefill_kernel",
                 "flash_kernel_wgmma", "flash_kernel", "ssd_kernel_mma",
                 "rmsnorm_kernel") + (
-    # the backward kernels (training)
-    "bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_rowdot", "bwd_reduce_heads",
-    "rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce", "ssd_bwd_kernel",
-    "ssd_bwd_reduce")
+    # the backward kernels (training): bf16 flash and RMSNorm, then the
+    # float32 routes' scalar kernels
+    "bwd_dkdv_wgmma", "bwd_dq_wgmma", "bwd_sum_clusters",
+    "rmsnorm_bwd_rows") + SCALAR_BWD_KERNELS + ("ssd_bwd_kernel",
+                                               "ssd_bwd_reduce")
 
 
 def port_kernel_times(kernels):
@@ -2991,6 +3006,10 @@ def backward_kernel_cases(torch, gen):
                   ((8, 256, 6, 6, 64), (False, 0, 0.0)),
                   ((8, 1500, 6, 6, 64), (False, 0, 0.0)),
                   ((4, 512, 16, 8, 128), (True, 0, 0.0))]
+        if dtype == torch.bfloat16:
+            # qwen3-8b's group (32 query over 8 KV heads of 128) at B 2 x S
+            # 512: q_per_kv 4, one cluster of 4 a kv head
+            cases.append(((2, 512, 32, 8, 128), (True, 0, 0.0)))
         for (B, S, Hq, Hkv, hd), (causal, window, softcap) in cases:
             q = torch.randn(B, S, Hq, hd, **kw).to(dtype)
             k = torch.randn(B, S, Hkv, hd, **kw).to(dtype)
@@ -3055,9 +3074,12 @@ def backward_kernel_cases(torch, gen):
     return n
 
 
-def sdpa_grad_ms(torch, q, k, v, do, flush):
-    """SDPA's backward alone: its forward and backward, less its forward
-    (causal, GQA by repeated kv heads, (B, H, S, hd) layout)."""
+def sdpa_grad_ms(torch, q, k, v, do, flush, causal=True):
+    """SDPA's backward: its forward and backward, less its forward (GQA by
+    repeated kv heads, (B, H, S, hd) layout); and its backward alone on a
+    retained graph, from the flushed L2 the kernel meets (the first form's
+    backward finds q, k, v in L2, read there by its forward). -> (ms, cold
+    ms)"""
     import torch.nn.functional as F
     rep = q.shape[2] // k.shape[2]
     qs = q.transpose(1, 2).contiguous().requires_grad_(True)
@@ -3069,19 +3091,41 @@ def sdpa_grad_ms(torch, q, k, v, do, flush):
 
     def fwd():
         with torch.no_grad():
-            F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
 
     def fwd_bwd():
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
         torch.autograd.grad(out, (qs, ks, vs), dos)
-    return device_ms(torch, fwd_bwd, flush) - device_ms(torch, fwd, flush)
+    kept = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+
+    def bwd():
+        torch.autograd.grad(kept, (qs, ks, vs), dos, retain_graph=True)
+    return (device_ms(torch, fwd_bwd, flush) - device_ms(torch, fwd, flush),
+            device_ms(torch, bwd, flush))
+
+
+# #7b's timing rows: qwen2-1.5b's training step (B 8 x S 256, 12 over 2
+# heads of 128), internvl2-2b's (B 4 x S 512, 16 over 8 of 128), zamba2's
+# shared attention (B 2 x S 256, 32 over 32 of 80), whisper-tiny's
+# decoder (B 8 x S 256, 6 over 6 of 64, not causal: the cross-attention
+# shape of its training step) and its encoder (B 8 x S 1,500, not causal)
+FLASH_BWD_ROWS = (("qwen2-1.5b", 8, 256, 12, 2, 128, True),
+                  ("internvl2-2b", 4, 512, 16, 8, 128, True),
+                  ("zamba2-2.7b", 2, 256, 32, 32, 80, True),
+                  ("whisper-tiny S=256", 8, 256, 6, 6, 64, False),
+                  ("whisper-tiny S=1500", 8, 1500, 6, 6, 64, False))
+# #10b's: qwen2-1.5b's 2,048 rows of 1,536, zamba2's 512 of 2,560,
+# internvl2-2b's 2,048 of 2,048
+RMS_BWD_ROWS = (("qwen2-1.5b", 2048, 1536), ("zamba2-2.7b", 512, 2560),
+                ("internvl2-2b", 2048, 2048))
 
 
 def time_backward_kernels(torch, gen, flush, rows):
-    """#7b at qwen2-1.5b's training shape (B 8, S 256, 12 over 2 heads, hd
-    128, bf16, causal) beside SDPA's backward (its forward and backward
-    less its forward); #10b at 2,048 bf16 rows of 1,536 beside
-    `F.rms_norm`'s backward; #9b at zamba2's training shape (B 2, S 256,
+    """#7b at FLASH_BWD_ROWS (bf16) beside SDPA's backward (its forward
+    and backward less its forward, `library_ms`; and its backward alone on
+    a retained graph from a flushed L2, `library_cold_ms`); #10b at
+    RMS_BWD_ROWS (bf16) beside `F.rms_norm`'s backward (the same two
+    forms); #9b at zamba2's training shape (B 2, S 256,
     80 heads, P = N = 64, float32; no library call). Plain: the written-out
     backward of each `ref.py`. Bounds: each input read once, each output
     written once; #7b's operations 8 hd a kept (query, key) pair (dV, dP,
@@ -3096,51 +3140,61 @@ def time_backward_kernels(torch, gen, flush, rows):
     from repro_torch.kernels.ssm_scan import ops as sops
     from repro_torch.kernels.ssm_scan import ref as sref
     kw = dict(generator=gen, device="cuda")
-    B, S, Hq, Hkv, hd = 8, 256, 12, 2, 128
-    q = torch.randn(B, S, Hq, hd, **kw).to(torch.bfloat16)
-    k = torch.randn(B, S, Hkv, hd, **kw).to(torch.bfloat16)
-    v = torch.randn(B, S, Hkv, hd, **kw).to(torch.bfloat16)
-    do = torch.randn(B, S, Hq, hd, **kw).to(torch.bfloat16)
-    o, lse = faops._kernel.flash_attention_cuda(q, k, v, with_lse=True)
-    run = functools.partial(faops.flash_attention_bwd, q, k, v, o, lse, do)
-    plain = functools.partial(faref.flash_attention_bwd_ref, q, k, v, o, lse,
-                              do)
-    got, want = run(), plain()
-    err = max((a.float() - b.float()).abs().max().item()
-              for a, b in zip(got, want))
-    pairs = B * Hq * S * (S + 1) // 2
-    nbytes = 2 * (3 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-    rows[("flash_attention_bwd", "qwen2-1.5b")] = dict(
-        shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} causal bfloat16",
-        max_abs_err=err, ms=device_ms(torch, run, flush),
-        plain_ms=device_ms(torch, plain, flush),
-        library_ms=sdpa_grad_ms(torch, q, k, v, do, flush),
-        bound=bound(nbytes, 8 * hd * pairs))
-    R, D = 2048, 1536
-    x = torch.randn(R, D, **kw).to(torch.bfloat16)
-    scale = torch.randn(D, **kw)
-    g = torch.randn(R, D, **kw).to(torch.bfloat16)
-    run = functools.partial(rops.rmsnorm_bwd, x, scale, g)
-    plain = functools.partial(rref.rmsnorm_bwd_ref, x, scale, g)
-    got, want = run(), plain()
-    err = max((a.float() - b.float()).abs().max().item()
-              for a, b in zip(got, want))
-    xl = x.clone().requires_grad_(True)
-    wl = scale.to(torch.bfloat16).requires_grad_(True)
+    for label, B, S, Hq, Hkv, hd, causal in FLASH_BWD_ROWS:
+        q = torch.randn(B, S, Hq, hd, **kw).to(torch.bfloat16)
+        k = torch.randn(B, S, Hkv, hd, **kw).to(torch.bfloat16)
+        v = torch.randn(B, S, Hkv, hd, **kw).to(torch.bfloat16)
+        do = torch.randn(B, S, Hq, hd, **kw).to(torch.bfloat16)
+        o, lse = faops._kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                                    with_lse=True)
+        run = functools.partial(faops.flash_attention_bwd, q, k, v, o, lse,
+                                do, causal=causal)
+        plain = functools.partial(faref.flash_attention_bwd_ref, q, k, v, o,
+                                  lse, do, causal=causal)
+        got, want = run(), plain()
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        pairs = B * Hq * (S * (S + 1) // 2 if causal else S * S)
+        nbytes = 2 * (3 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        lib, lib_cold = sdpa_grad_ms(torch, q, k, v, do, flush, causal)
+        rows[("flash_attention_bwd", label)] = dict(
+            shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
+                  f"{'causal' if causal else 'not causal'} bfloat16",
+            max_abs_err=err, ms=device_ms(torch, run, flush),
+            plain_ms=device_ms(torch, plain, flush), library_ms=lib,
+            library_cold_ms=lib_cold, bound=bound(nbytes, 8 * hd * pairs))
+        del got, want
+    for label, R, D in RMS_BWD_ROWS:
+        x = torch.randn(R, D, **kw).to(torch.bfloat16)
+        scale = torch.randn(D, **kw)
+        g = torch.randn(R, D, **kw).to(torch.bfloat16)
+        run = functools.partial(rops.rmsnorm_bwd, x, scale, g)
+        plain = functools.partial(rref.rmsnorm_bwd_ref, x, scale, g)
+        got, want = run(), plain()
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        xl = x.clone().requires_grad_(True)
+        wl = scale.to(torch.bfloat16).requires_grad_(True)
 
-    def lib_fwd():
-        with torch.no_grad():
-            F.rms_norm(xl, (D,), wl, 1e-6)
+        def lib_fwd():
+            with torch.no_grad():
+                F.rms_norm(xl, (D,), wl, 1e-6)
 
-    def lib_fwd_bwd():
-        torch.autograd.grad(F.rms_norm(xl, (D,), wl, 1e-6), (xl, wl), g)
-    lib = device_ms(torch, lib_fwd_bwd, flush) - device_ms(torch, lib_fwd,
-                                                           flush)
-    rows[("rmsnorm_bwd", "qwen2-1.5b")] = dict(
-        shape=f"R={R} D={D} bfloat16", max_abs_err=err,
-        ms=device_ms(torch, run, flush),
-        plain_ms=device_ms(torch, plain, flush), library_ms=lib,
-        bound=bound(3 * 2 * R * D + 2 * 4 * D, 8 * R * D, F32_FLOPS_PER_S))
+        def lib_fwd_bwd():
+            torch.autograd.grad(F.rms_norm(xl, (D,), wl, 1e-6), (xl, wl), g)
+        kept = F.rms_norm(xl, (D,), wl, 1e-6)
+
+        def lib_bwd():
+            torch.autograd.grad(kept, (xl, wl), g, retain_graph=True)
+        lib = device_ms(torch, lib_fwd_bwd, flush) - device_ms(torch, lib_fwd,
+                                                               flush)
+        rows[("rmsnorm_bwd", label)] = dict(
+            shape=f"R={R} D={D} bfloat16", max_abs_err=err,
+            ms=device_ms(torch, run, flush),
+            plain_ms=device_ms(torch, plain, flush), library_ms=lib,
+            library_cold_ms=device_ms(torch, lib_bwd, flush),
+            bound=bound(3 * 2 * R * D + 2 * 4 * D, 8 * R * D,
+                        F32_FLOPS_PER_S))
     Bb, S, H, P, N = 2, 256, 80, 64, 64
     x, dt, A, Bm, Cm, _ = scan_inputs(torch, gen, Bb, S, H, P, N)
     gy = torch.randn(Bb, S, H, P, **kw)
@@ -3440,9 +3494,17 @@ def training_breakdown(torch, name, cfg, params, opt_cfg, batch):
         f"({100 * port_bwd / device_ms:.1f} %), the rest "
         f"{device_ms - mm - port_fwd - port_bwd:.1f} ms; {launches} launch "
         f"calls")
+    times = port_kernel_times(kernels)
     by_name = ", ".join(f"{n} {ms:.3f} ms x{c}" for n, (ms, c)
-                        in port_kernel_times(kernels).items())
+                        in times.items())
     log(f"  the port's kernels: {by_name}")
+    if cfg.dtype == "bfloat16":
+        # bf16 attention and norms backpropagate on the tensor-core and
+        # row kernels only, never through the float32 routes' scalar ones
+        scalar = [n for n in times if n in SCALAR_BWD_KERNELS]
+        assert not scalar, f"{name}: a bf16 step ran {scalar}"
+        assert {"bwd_dq_wgmma", "bwd_dkdv_wgmma", "rmsnorm_bwd_rows"} <= set(
+            times), f"{name}: the bf16 backward kernels did not run"
     for key, ms, n in sorted(kernels, key=lambda k: -k[1])[:10]:
         log(f"  {ms:9.3f} ms {100 * ms / device_ms:5.1f} % x{n:<6d} "
             f"{key[:90]}")
@@ -4390,8 +4452,8 @@ TIMING_ROWS = {"paged_decode_attention": DECODE_ROWS,
                                    "qwen3-8b B=4 S=256", WHISPER_ENCODER_ROW),
                "rmsnorm": ("qwen3-8b", "zamba2-2.7b", "qwen3-8b decode",
                            "qwen3-8b q-norm"),
-               "flash_attention_bwd": ("qwen2-1.5b",),
-               "rmsnorm_bwd": ("qwen2-1.5b",),
+               "flash_attention_bwd": tuple(r[0] for r in FLASH_BWD_ROWS),
+               "rmsnorm_bwd": tuple(r[0] for r in RMS_BWD_ROWS),
                "ssm_scan_bwd": ("zamba2-2.7b",)}
 
 
@@ -4453,8 +4515,9 @@ def main() -> int:
                     "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                     "library_ms": r["library_ms"]}
-            if "write_flush_ms" in r:
-                nums["write_flush_ms"] = r["write_flush_ms"]
+            for extra in ("write_flush_ms", "library_cold_ms"):
+                if extra in r:
+                    nums[extra] = r[extra]
             if model == first:
                 entry.update(nums)
             else:

@@ -70,24 +70,21 @@
 //
 // The backward (no TPU counterpart: the JAX package differentiates its
 // plain jnp), from q, k, v, the forward's out and its log-sum-exp lse
-// (B, Hq, S) and the output gradient dO, in float32 arithmetic whatever
-// the input type (a scalar kernel: the tensor cores are later work):
-//   P = exp(s - lse) on the kept scores, D = rowsum(dO * O) (bwd_rowdot),
+// (B, Hq, S) and the output gradient dO:
+//   P = exp(s - lse) on the kept scores, D = rowsum(dO * O),
 //   dS = P (dO V^T - D), through the softcap dU = dS (1 - (s / c)^2),
-//   dV = P^T dO, dK = scale dU^T Q (bwd_dkdv_kernel), dQ = scale dU K
-//   (bwd_dq_kernel).
-// No two blocks write one output element, so there are no atomics and the
-// gradients are the same bits on every run: a dK / dV block owns 32 keys of
-// one (batch, query head) and walks every 32-row query tile whose mask
-// reaches its keys, summing in registers; with q_per_kv > 1 it writes its
-// head's share to a float32 scratch and bwd_reduce_heads adds the group's
-// shares in head order (a block per kv head instead would leave qwen2-
-// 1.5b's 12 over 2 heads at 128 blocks for 132 SMs). A dQ block owns 32
-// query rows of one head and walks the key tiles its mask reaches. Both
-// recompute P from lse; both hold their tiles in float32 in shared memory
-// with rows padded to hd + 1 (conflict-free column reads).
+//   dV = P^T dO, dK = scale dU^T Q, dQ = scale dU K.
+// No floating-point atomics anywhere: every sum runs in a fixed order, so
+// the gradients are the same bits on every run. Two routes, by type (see
+// the backward sections below): bfloat16 on the tensor cores (wgmma, P
+// and dU rounded to bf16 before the products they feed, GQA summed on chip
+// through a thread-block cluster), float32 in scalar FMAs (exact to the
+// plain version's rounding, tolerance 2e-5).
 
+#include <cooperative_groups.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -885,8 +882,17 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// Backward (scalar float32)
+// Backward, float32: scalar FMAs
 // ---------------------------------------------------------------------------
+//
+// D by bwd_rowdot; a dK / dV block (bwd_dkdv_kernel) owns 32 keys of one
+// (batch, query head) and walks every 32-row query tile whose mask reaches
+// its keys, summing in registers; with q_per_kv > 1 it writes its head's
+// share to a float32 scratch and bwd_reduce_heads adds the group's shares
+// in head order. A dQ block (bwd_dq_kernel) owns 32 query rows of one head
+// and walks the key tiles its mask reaches. Both recompute P from lse; both
+// hold their tiles in float32 in shared memory with rows padded to hd + 1
+// (conflict-free column reads).
 
 constexpr int kBT = 32;          // keys, and query rows, of a backward tile
 constexpr int kBThreads = 256;
@@ -931,6 +937,13 @@ struct BwdMask {
   __device__ __forceinline__ bool keep(int qpos, int kpos) const {
     return qpos < S && kpos < S && (!causal || kpos <= qpos) &&
            (!window || kpos > qpos - window);
+  }
+  // whether the mask cuts the tile of query rows q0 .. q0 + n - 1 and keys
+  // k0 .. k0 + n - 1 (S, the causal diagonal or the window's edge); a tile
+  // it does not cut skips the per-element test
+  __device__ __forceinline__ bool cuts(int q0, int k0, int n) const {
+    return q0 + n > S || k0 + n > S || (causal && k0 + n - 1 > q0) ||
+           (window && k0 <= q0 + n - 1 - window);
   }
 };
 
@@ -1221,6 +1234,720 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// Backward, bfloat16: warpgroup products (wgmma) on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// What bounds it on the H100: a kept (query, key) pair costs 8 hd flops in
+// the four products of dK / dV (S, dP, dV, dK) and 6 hd more in dQ's pass
+// (S, dP again, dQ); at qwen2-1.5b's training shape (B 8, S 256, 12 query
+// heads over 2 kv heads of 128, causal) that is 5.7 GFLOP, 5.7 us at the
+// bf16 tensor-core rate, against 23 MB of q, k, v, out, dO and lse read and
+// dq, dk, dv written (6.9 us at 3.35 TB/s): both sit near the card's ridge,
+// so the design keeps every product on the tensor cores and every
+// intermediate (P, dS, the GQA sums) out of device memory: a float32 share
+// of dK and dV per query head, written out and read back as the scalar
+// route does, would move 2 x 12.6 MB there, twice the whole bound. wgmma,
+// not mma.sync: with mma.sync every warp reloads each B fragment from
+// shared memory through ldmatrix.
+//
+// The five products are the forward's two wgmma forms (flash_kernel_wgmma):
+// a product of two K-major shared-memory tiles (wgmma_ss: S = Q K^T, dP =
+// dO V^T, and their transposes) and a product of a register A operand with
+// an MN-major tile (wgmma_rs: dQ += dS K, dV += P^T dO, dK += dS^T Q), on
+// the forward's tiles of 64 rows in 128-byte-swizzled atoms of 64 head_dim
+// columns (head_dim zero padded to 64 A). The m64n64 accumulators are the
+// m16n8 fragments, so P and dS, rounded to bf16, are the next product's A
+// operand as they stand. Two kernels, dQ first (it also writes each row's
+// lse log2(e) and D for the second); the second is launched as the first's
+// programmatic dependent, so its blocks take the SMs the first's last wave
+// frees and load their K / V tiles before they wait for D:
+//  - bwd_dq_wgmma: a warpgroup per (query head, batch, tile of 64 query
+//    rows). D = rowsum(dO O) of its rows from device memory (every lane's
+//    loads in flight at once); Q and dO tiles, then K / V tiles of 64 keys
+//    through two cp.async stages (tile j + 1 copied while tile j is used);
+//    S and dP, P = 2^(s scale log2(e) - lse log2(e)) (ex2.approx), dU = P
+//    (dP - D) (1 - (s / c)^2 with a softcap) scale in bf16, dQ += dU K.
+//  - bwd_dkdv_wgmma: a block per (query head j of the group, (batch, kv
+//    head), tile of 64 keys); K and V tiles stay in shared memory while Q,
+//    dO, lse and D tiles of 64 query rows, those the keys' mask reaches,
+//    arrive through two stages; S^T = K Q^T and dP^T = V dO^T, then P^T
+//    and dU^T as above, dV += P^T dO, dK += dU^T Q. Past head_dim 128 two
+//    warpgroups each take half of dK's and dV's atoms (each computes S^T
+//    and dP^T: registers, not work, are the limit there). The group's
+//    blocks form a thread-block cluster along x (C = the largest divisor of
+//    q_per_kv up to 8: qwen2-1.5b's 6, qwen3-8b's 4), each of whose blocks
+//    lands its float32 dK and dV in its own shared memory; after the
+//    cluster barrier rank r sums its share of the elements over ranks 0 ..
+//    C - 1 in rank order through distributed shared memory and writes them
+//    in bf16. A group of more than one cluster (q_per_kv 12: two of 6; a
+//    prime above 8: C = 1) writes each cluster's float32 sums instead, and
+//    bwd_sum_clusters adds them in cluster order.
+// Grids run their heaviest tiles first (dQ: the last query tiles, dK / dV:
+// the first key tiles). The per-element work of P and dU tests the mask
+// only on tiles the mask cuts and runs the softcap's tanh only with one
+// (both chosen per tile at compile time). Keys and query rows past S land
+// as zeros and are masked; so are the head_dim columns past hd (zeroed
+// once a block).
+
+namespace cg = cooperative_groups;
+
+constexpr int kBwdRows = 64;  // keys of a dK / dV block, query rows of a dQ
+                              // block, and the rows of every tile they walk
+constexpr int kBwdMaxCluster = 8;  // the portable cluster size
+
+// Row stride, in floats, of the landed float32 dK / dV rows: 8 mod 32, so
+// a warp's float2 stores hit distinct banks.
+__host__ __device__ constexpr int bwd_red_ld(int atoms) {
+  return 64 * atoms + 8;
+}
+
+
+// Shared memory of the two kernels (from a 1024-byte boundary, plus 1024
+// for the alignment): six 64-row tiles (dQ: Q, dO, two stages of K and V;
+// dK / dV: K, V, two stages of Q and dO, or the landing rows where those
+// are larger), then 4 x 64 floats (lse and D, two stages).
+__host__ __device__ constexpr size_t bwd_stage_bytes(int atoms) {
+  return (size_t)4 * atoms * kTileBytes;
+}
+__host__ __device__ constexpr size_t bwd_land_bytes(int atoms) {
+  return (size_t)2 * kBwdRows * bwd_red_ld(atoms) * 4;
+}
+__host__ __device__ constexpr size_t bwd_smem(int atoms) {
+  return (size_t)2 * atoms * kTileBytes +
+         (bwd_stage_bytes(atoms) > bwd_land_bytes(atoms)
+              ? bwd_stage_bytes(atoms)
+              : bwd_land_bytes(atoms)) +
+         4 * kBwdRows * 4 + 1024;
+}
+
+struct BwdArgs {
+  const __nv_bfloat16 *q, *k, *v, *o, *dout;
+  const float* lse;
+  float2* stats;  // (B, Hq, S): each row's (lse log2(e), D), from dQ's pass
+  __nv_bfloat16 *dq, *dk, *dv;
+  float* part;  // (2, n_cl, B, S, Hkv, hd): clusters' dK, dV sums, n_cl > 1
+  int B, S, Hq, Hkv, hd, causal, window, copy_bytes;
+  float softcap, scale;
+};
+
+// The cluster size of a group of `rep` query heads: its largest divisor up
+// to kBwdMaxCluster.
+__host__ __device__ inline int bwd_cluster(int rep) {
+  for (int c = rep < kBwdMaxCluster ? rep : kBwdMaxCluster; c > 1; --c)
+    if (rep % c == 0) return c;
+  return 1;
+}
+
+// The block's shared memory from a 1024-byte boundary (the swizzle's
+// period), and its shared-space address.
+__device__ __forceinline__ uint8_t* bwd_smem_base(uint8_t* raw,
+                                                  uint32_t* addr) {
+  const uint32_t raw_addr = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
+  const uint32_t pad = (1024 - (raw_addr & 1023)) & 1023;
+  *addr = raw_addr + pad;
+  return raw + pad;
+}
+
+// cp.async of rows r0 .. r0 + 63 of a row-major tensor (row stride
+// `stride` elements, hd columns) into a 64-row tile of swizzled atoms; rows
+// at or past `limit` land as zeros.
+__device__ __forceinline__ void bwd_copy_tile(uint8_t* tile,
+                                              const __nv_bfloat16* src,
+                                              size_t stride, int r0,
+                                              int limit, int hd,
+                                              int copy_bytes, int tid,
+                                              int threads) {
+  const int per = copy_bytes / 2;  // values a copy moves
+  const int cpr = hd / per;        // copies a row takes
+  // copy e = tid + i threads is piece p of row r, stepped without a
+  // division
+  const int dr = threads / cpr, dp = threads - dr * cpr;
+  int r = tid / cpr, p = tid - r * cpr;
+  while (r < kBwdRows) {
+    const bool fill = r0 + r < limit;
+    const __nv_bfloat16* s =
+        src + (size_t)(fill ? r0 + r : 0) * stride + p * per;
+    uint8_t* d = tile + sw128_offset(r, p * per, kBwdRows);
+    if (copy_bytes == 16)
+      cp_async_16(d, s, fill);
+    else
+      cp_async_8(d, s, fill);
+    r += dr;
+    p += dp;
+    if (p >= cpr) {
+      p -= cpr;
+      ++r;
+    }
+  }
+}
+
+// Zero head_dim columns hd .. 64 A - 1 of `n` consecutive 64-row tiles (the
+// copies never write them), then fence them for the tensor cores' reads.
+template <int A>
+__device__ __forceinline__ void bwd_zero_pad(uint8_t* tiles, int n, int hd,
+                                             int tid, int threads) {
+  const int units = (64 * A - hd) / 4;  // 4-column pieces a row
+  for (int e = tid; e < n * kBwdRows * units; e += threads) {
+    const int row = e / units, u = e - row * units;
+    *reinterpret_cast<uint2*>(tiles + (size_t)(row / kBwdRows) * A *
+                                          kTileBytes +
+                              sw128_offset(row % kBwdRows, hd + 4 * u,
+                                           kBwdRows)) = make_uint2(0u, 0u);
+  }
+  fence_proxy_async();
+}
+
+// Programmatic dependent launch: the next kernel on the stream may start
+// (its blocks then wait in griddep_wait until this grid has finished and
+// its writes are visible).
+__device__ __forceinline__ void griddep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// The constants of P and dU: P = 2^(x scale log2(e) - lse2) from the raw
+// product x = q.k; with a softcap c, u = tanh(x scale / c), s = c u, P =
+// 2^(s log2(e) - lse2) and dU = dS (1 - u^2); dU carries the scale.
+struct BwdScore {
+  float sl2, cap_in, cap_out, scale;
+  // P and scale dU from x, dP, the row's lse2 and D; kCap: with the softcap
+  template <bool kCap>
+  __device__ __forceinline__ float2 operator()(float x, float dp, float lse2,
+                                               float d) const {
+    if constexpr (kCap) {
+      const float u = tanhf(x * cap_in);
+      const float p = exp2_approx(u * cap_out - lse2);
+      return make_float2(p, p * (dp - d) * (1.f - u * u) * scale);
+    } else {
+      const float p = exp2_approx(fmaf(x, sl2, -lse2));
+      return make_float2(p, p * (dp - d) * scale);
+    }
+  }
+};
+
+// f(masked, capped) with both as compile-time constants (std::true_type /
+// std::false_type): the tile's per-element work carries the mask test only
+// where the mask cuts the tile, the softcap's tanh only with one.
+template <typename F>
+__device__ __forceinline__ void bwd_dispatch(bool masked, bool capped, F f) {
+  if (capped) {
+    if (masked)
+      f(std::true_type{}, std::true_type{});
+    else
+      f(std::false_type{}, std::true_type{});
+  } else {
+    if (masked)
+      f(std::true_type{}, std::false_type{});
+    else
+      f(std::false_type{}, std::false_type{});
+  }
+}
+
+// acc (64 x 64, the m16n8 layout) = A . B over head_dim, A and B 64-row
+// K-major tiles at shared addresses a_addr, b_addr (A atoms each)
+template <int A>
+__device__ __forceinline__ void bwd_product_ss(float (&acc)[8][4],
+                                               uint32_t a_addr,
+                                               uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * A; ++kk) {
+    const uint32_t at = (uint32_t)((kk >> 2) * kTileBytes + (kk & 3) * 32);
+    wgmma_ss(acc, sw128_desc(a_addr + at, 16, 1024),
+             sw128_desc(b_addr + at, 16, 1024), kk > 0);
+  }
+}
+
+// acc += a . B[:, atom], a (64 x 64 rows' A fragments in bf16, 16-column
+// steps kk) in registers, B a 64-row tile read MN-major
+__device__ __forceinline__ void bwd_product_rs(float (&acc)[8][4],
+                                               const uint32_t (&a)[4][4],
+                                               uint32_t b_addr, int atom) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(acc, a[kk],
+             sw128_desc(b_addr + (uint32_t)(atom * kTileBytes + kk * 2048),
+                        kTileBytes, 1024));
+}
+
+template <int A>
+__global__ void __launch_bounds__(128) bwd_dq_wgmma(BwdArgs a) {
+  constexpr int TB = A * kTileBytes;  // bytes of a 64-row tile
+  const int tile = gridDim.z - 1 - blockIdx.z;  // heaviest first
+  const int qh = blockIdx.x, b = blockIdx.y;
+  const int S = a.S, Hq = a.Hq, hd = a.hd;
+  const int h = qh / (Hq / a.Hkv);
+  const int q0 = tile * kBwdRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  griddep_launch();  // bwd_dkdv_wgmma may start loading its K / V tiles
+
+  extern __shared__ uint8_t bwd_raw[];
+  uint32_t smem_addr;
+  uint8_t* smem = bwd_smem_base(bwd_raw, &smem_addr);
+  uint8_t* kvs = smem + 2 * TB;  // stage st: K at kvs + 2 st TB, V after
+  float2* stat_s = reinterpret_cast<float2*>(kvs + 4 * TB);  // (64)
+  if (hd % 64) bwd_zero_pad<A>(smem, 6, hd, tid, 128);
+
+  const size_t q_stride = (size_t)Hq * hd, kv_stride = (size_t)a.Hkv * hd;
+  const size_t q_base = (size_t)b * S * q_stride + (size_t)qh * hd;
+  const size_t kv_base = (size_t)b * S * kv_stride + (size_t)h * hd;
+  bwd_copy_tile(smem, a.q + q_base, q_stride, q0, S, hd, a.copy_bytes, tid,
+                128);
+  bwd_copy_tile(smem + TB, a.dout + q_base, q_stride, q0, S, hd,
+                a.copy_bytes, tid, 128);
+  // the key tiles the rows' mask reaches
+  const int k_end = a.causal ? min(S, q0 + kBwdRows) : S;
+  const int k_begin = a.window ? max(0, q0 - a.window + 1) : 0;
+  const int t_begin = k_begin / kBwdRows;
+  const int n_kt = (k_end + kBwdRows - 1) / kBwdRows - t_begin;
+  auto start_kv = [&](int j) {
+    const int k0 = (t_begin + j) * kBwdRows;
+    uint8_t* ks = kvs + (j & 1) * 2 * TB;
+    bwd_copy_tile(ks, a.k + kv_base, kv_stride, k0, S, hd, a.copy_bytes, tid,
+                  128);
+    bwd_copy_tile(ks + TB, a.v + kv_base, kv_stride, k0, S, hd, a.copy_bytes,
+                  tid, 128);
+  };
+  start_kv(0);
+  cp_async_commit();
+
+  // D = rowsum(dO O) of the block's rows, and lse in base 2: warp w takes
+  // rows 16 w .. 16 w + 15, every lane's 4-value pieces of all of them
+  // loaded before the first sum, then a shuffle tree a row; thread r < 64
+  // loads row r's lse with them
+  const size_t row_stat = ((size_t)b * Hq + qh) * S;
+  const float lse_r =
+      tid < kBwdRows && q0 + tid < S ? a.lse[row_stat + q0 + tid] : 0.f;
+  {
+    constexpr int PP = (A + 1) / 2;  // pieces a lane and row
+    uint2 ov[16][PP], dv[16][PP];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int pos = q0 + 16 * warp + i;
+      const size_t row = q_base + (size_t)(pos < S ? pos : 0) * q_stride;
+#pragma unroll
+      for (int p = 0; p < PP; ++p) {
+        const int d = 4 * lane + 128 * p;
+        ov[i][p] = dv[i][p] = make_uint2(0u, 0u);
+        if (pos < S && d < hd) {
+          ov[i][p] = *reinterpret_cast<const uint2*>(a.o + row + d);
+          dv[i][p] = *reinterpret_cast<const uint2*>(a.dout + row + d);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      float acc = 0.f;
+#pragma unroll
+      for (int p = 0; p < PP; ++p) {
+        float fo[4], fd[4];
+        Vec<__nv_bfloat16>::unpack(ov[i][p], fo);
+        Vec<__nv_bfloat16>::unpack(dv[i][p], fd);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc = fmaf(fo[c], fd[c], acc);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) stat_s[16 * warp + i].y = acc;
+    }
+  }
+  if (tid < kBwdRows) stat_s[tid].x = lse_r * kLog2e;
+  __syncthreads();
+  // the rows' (lse2, D) for bwd_dkdv_wgmma
+  if (tid < kBwdRows && q0 + tid < S)
+    a.stats[row_stat + q0 + tid] = stat_s[tid];
+  int pos[2];
+  float2 st[2];  // the thread's rows' (lse2, D)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * warp + g + 8 * i;
+    pos[i] = q0 + r;
+    st[i] = stat_s[r];
+  }
+  const BwdMask mk{S, a.causal, a.window};
+  const float scale = a.scale;
+  const BwdScore sc{scale * kLog2e,
+                    a.softcap > 0.f ? scale / a.softcap : 0.f,
+                    a.softcap * kLog2e, scale};
+
+  float acc[A][8][4];
+#pragma unroll
+  for (int x = 0; x < A; ++x)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[x][n][c] = 0.f;
+  const uint32_t q_addr = smem_addr, do_addr = smem_addr + TB;
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = (t_begin + j) * kBwdRows;
+    cp_async_wait_group<0>();
+    fence_proxy_async();
+    // tile j (and Q, dO) landed for every thread; every product of tile
+    // j - 1 is done, so its stage takes tile j + 1
+    __syncthreads();
+    if (j + 1 < n_kt) start_kv(j + 1);
+    cp_async_commit();
+    const uint32_t k_addr = smem_addr + (uint32_t)((2 + (j & 1) * 2) * TB);
+    const uint32_t v_addr = k_addr + TB;
+
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[jj][c] = dp[jj][c] = 0.f;
+    wgmma_fence();
+    bwd_product_ss<A>(s, q_addr, k_addr);
+    bwd_product_ss<A>(dp, do_addr, v_addr);
+    wgmma_commit();
+    wgmma_wait0();
+
+    // dU in bf16: the A fragments of keys 16 kk .. (row g, keys 2t), (row
+    // g + 8, keys 2t), (row g, keys 2t + 8), (row g + 8, keys 2t + 8)
+    uint32_t ua[4][4];
+    bwd_dispatch(mk.cuts(q0, k0, kBwdRows), a.softcap > 0.f, [&](auto masked,
+                                                      auto capped) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        float du[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = c >> 1, key = k0 + 8 * jj + 2 * t + (c & 1);
+          du[c] = sc.template operator()<decltype(capped)::value>(
+                      s[jj][c], dp[jj][c], st[i].x, st[i].y).y;
+          if (decltype(masked)::value && !mk.keep(pos[i], key)) du[c] = 0.f;
+        }
+        ua[jj >> 1][2 * (jj & 1)] = pack_bf16(du[0], du[1]);
+        ua[jj >> 1][2 * (jj & 1) + 1] = pack_bf16(du[2], du[3]);
+      }
+    });
+
+    // dQ += dU K, K read MN-major, 64 columns (one atom) a product
+    wgmma_fence();
+#pragma unroll
+    for (int x = 0; x < A; ++x) bwd_product_rs(acc[x], ua, k_addr, x);
+    wgmma_commit();
+    wgmma_wait0();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (pos[i] >= S) continue;
+    __nv_bfloat16* row = a.dq + q_base + (size_t)pos[i] * q_stride;
+#pragma unroll
+    for (int x = 0; x < A; ++x)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = 64 * x + 8 * n + 2 * t;
+        if (col < hd)
+          *reinterpret_cast<uint32_t*>(row + col) =
+              pack_bf16(acc[x][n][2 * i], acc[x][n][2 * i + 1]);
+      }
+  }
+}
+
+__device__ __forceinline__ void bwd_cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <int A, int NH>
+__global__ void __launch_bounds__(128 * NH) bwd_dkdv_wgmma(BwdArgs a) {
+  constexpr int TB = A * kTileBytes;  // bytes of a 64-row tile
+  constexpr int AW = (A + NH - 1) / NH;  // dK / dV atoms of a warpgroup
+  constexpr int RLD = bwd_red_ld(A);
+  constexpr int threads = 128 * NH;
+  const int S = a.S, Hq = a.Hq, Hkv = a.Hkv, hd = a.hd;
+  const int rep = Hq / Hkv;
+  const int b = blockIdx.y / Hkv, h = blockIdx.y - b * Hkv;
+  const int qh = h * rep + blockIdx.x;
+  const int k0 = blockIdx.z * kBwdRows;  // heaviest (causal: first) first
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warp >> 2, wu = warp & 3;  // warpgroup, warp in it
+
+  extern __shared__ uint8_t bwd_raw[];
+  uint32_t smem_addr;
+  uint8_t* smem = bwd_smem_base(bwd_raw, &smem_addr);
+  uint8_t* stages = smem + 2 * TB;  // stage st: Q at stages + 2 st TB, dO
+  constexpr size_t area = bwd_stage_bytes(A) > bwd_land_bytes(A)
+                              ? bwd_stage_bytes(A)
+                              : bwd_land_bytes(A);
+  float2* stat_s = reinterpret_cast<float2*>(stages + area);  // (2, 64)
+  if (hd % 64) bwd_zero_pad<A>(smem, 6, hd, tid, threads);
+
+  const size_t q_stride = (size_t)Hq * hd, kv_stride = (size_t)Hkv * hd;
+  const size_t q_base = (size_t)b * S * q_stride + (size_t)qh * hd;
+  const size_t kv_base = (size_t)b * S * kv_stride + (size_t)h * hd;
+  const size_t row_stat = ((size_t)b * Hq + qh) * S;
+  bwd_copy_tile(smem, a.k + kv_base, kv_stride, k0, S, hd, a.copy_bytes, tid,
+                threads);
+  bwd_copy_tile(smem + TB, a.v + kv_base, kv_stride, k0, S, hd, a.copy_bytes,
+                tid, threads);
+  // D comes from bwd_dq_wgmma, launched just before: K and V are in flight
+  griddep_wait();
+  // the query tiles whose mask reaches keys k0 .. k0 + 63
+  const int q_first = a.causal ? k0 : 0;
+  const int q_end = a.window ? min(S, k0 + kBwdRows - 1 + a.window) : S;
+  const int t_begin = q_first / kBwdRows;
+  const int n_qt = (q_end + kBwdRows - 1) / kBwdRows - t_begin;
+  auto start_q = [&](int j) {
+    const int q0 = (t_begin + j) * kBwdRows, st = j & 1;
+    uint8_t* qst = stages + st * 2 * TB;
+    bwd_copy_tile(qst, a.q + q_base, q_stride, q0, S, hd, a.copy_bytes, tid,
+                  threads);
+    bwd_copy_tile(qst + TB, a.dout + q_base, q_stride, q0, S, hd,
+                  a.copy_bytes, tid, threads);
+    for (int r = tid; r < kBwdRows; r += threads) {
+      const bool fill = q0 + r < S;
+      cp_async_8(stat_s + st * kBwdRows + r,
+                 a.stats + row_stat + (fill ? q0 + r : 0), fill);
+    }
+  };
+  if (n_qt > 0) start_q(0);
+  cp_async_commit();
+
+  int kpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) kpos[i] = k0 + 16 * wu + g + 8 * i;
+  const BwdMask mk{S, a.causal, a.window};
+  const float scale = a.scale;
+  const BwdScore sc{scale * kLog2e,
+                    a.softcap > 0.f ? scale / a.softcap : 0.f,
+                    a.softcap * kLog2e, scale};
+
+  float dk[AW][8][4], dv[AW][8][4];
+#pragma unroll
+  for (int x = 0; x < AW; ++x)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dk[x][n][c] = dv[x][n][c] = 0.f;
+  const uint32_t k_addr = smem_addr, v_addr = smem_addr + TB;
+  for (int j = 0; j < n_qt; ++j) {
+    const int q0 = (t_begin + j) * kBwdRows, st = j & 1;
+    cp_async_wait_group<0>();
+    fence_proxy_async();
+    // stage j landed for every thread; every product of stage j - 1 is
+    // done, so it takes tile j + 1
+    __syncthreads();
+    if (j + 1 < n_qt) start_q(j + 1);
+    cp_async_commit();
+    const uint32_t q_addr = smem_addr + (uint32_t)((2 + 2 * st) * TB);
+    const uint32_t do_addr = q_addr + TB;
+    const float2* sts = stat_s + st * kBwdRows;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 query rows
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[jj][c] = dp[jj][c] = 0.f;
+    wgmma_fence();
+    bwd_product_ss<A>(s, k_addr, q_addr);
+    bwd_product_ss<A>(dp, v_addr, do_addr);
+    wgmma_commit();
+    wgmma_wait0();
+
+    // P^T and dU^T in bf16, A fragments of query rows 16 kk .. as they
+    // stand (rows: keys g, g + 8; columns: queries 2t, 2t + 8)
+    uint32_t pa[4][4], ua[4][4];
+    bwd_dispatch(mk.cuts(q0, k0, kBwdRows), a.softcap > 0.f, [&](auto masked,
+                                                      auto capped) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = 8 * jj + 2 * t;
+        // (lse2, D) of query rows col and col + 1
+        const float4 rows = *reinterpret_cast<const float4*>(sts + col);
+        float p[4], du[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = c >> 1, qpos = q0 + col + (c & 1);
+          const float2 pd = sc.template operator()<decltype(capped)::value>(
+              s[jj][c], dp[jj][c], (c & 1) ? rows.z : rows.x,
+              (c & 1) ? rows.w : rows.y);
+          p[c] = pd.x;
+          du[c] = pd.y;
+          if (decltype(masked)::value && !mk.keep(qpos, kpos[i]))
+            p[c] = du[c] = 0.f;
+        }
+        pa[jj >> 1][2 * (jj & 1)] = pack_bf16(p[0], p[1]);
+        pa[jj >> 1][2 * (jj & 1) + 1] = pack_bf16(p[2], p[3]);
+        ua[jj >> 1][2 * (jj & 1)] = pack_bf16(du[0], du[1]);
+        ua[jj >> 1][2 * (jj & 1) + 1] = pack_bf16(du[2], du[3]);
+      }
+    });
+
+    // dV += P^T dO and dK += dU^T Q over the warpgroup's atoms, dO and Q
+    // read MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int x = 0; x < AW; ++x)
+      if (wg * AW + x < A) {
+        bwd_product_rs(dv[x], pa, do_addr, wg * AW + x);
+        bwd_product_rs(dk[x], ua, q_addr, wg * AW + x);
+      }
+    wgmma_commit();
+    wgmma_wait0();
+  }
+
+  // land dK (rows 0 .. 63) and dV (rows 64 .. 127) in float32 over the
+  // stage tiles, then sum the cluster's blocks rank by rank
+  cp_async_wait_group<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(stages);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * wu + g + 8 * i;
+#pragma unroll
+    for (int x = 0; x < AW; ++x) {
+      if (wg * AW + x >= A) continue;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = 64 * (wg * AW + x) + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(red + r * RLD + col) =
+            make_float2(dk[x][n][2 * i], dk[x][n][2 * i + 1]);
+        *reinterpret_cast<float2*>(red + (kBwdRows + r) * RLD + col) =
+            make_float2(dv[x][n][2 * i], dv[x][n][2 * i + 1]);
+      }
+    }
+  }
+  bwd_cluster_sync();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int n_cl = rep / C, cl = blockIdx.x / C;
+  const int upr = hd / 4;  // 4-value units a row
+  const int units = 2 * kBwdRows * upr;
+  const int u1 = (rank + 1) * units / C;
+  for (int u = rank * units / C + tid; u < u1; u += threads) {
+    const int which = u / (kBwdRows * upr);
+    const int rem = u - which * kBwdRows * upr;
+    const int r = rem / upr, c4 = rem - r * upr;
+    const int key = k0 + r;
+    if (key >= S) continue;
+    const int at = (which * kBwdRows + r) * RLD + 4 * c4;
+    // every rank's value in flight before the first add, then the adds in
+    // rank order
+    float4 x[kBwdMaxCluster];
+#pragma unroll
+    for (int src = 0; src < kBwdMaxCluster; ++src)
+      if (src < C)
+        x[src] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(red, src) + at);
+    float4 sum = x[0];
+#pragma unroll
+    for (int src = 1; src < kBwdMaxCluster; ++src)
+      if (src < C) {
+        sum.x += x[src].x;
+        sum.y += x[src].y;
+        sum.z += x[src].z;
+        sum.w += x[src].w;
+      }
+    const size_t o = (((size_t)b * S + key) * Hkv + h) * hd + 4 * c4;
+    if (n_cl == 1) {
+      __nv_bfloat16* dst = which ? a.dv : a.dk;
+      *reinterpret_cast<uint2*>(dst + o) =
+          make_uint2(pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w));
+    } else {
+      const size_t n = (size_t)a.B * S * Hkv * hd;
+      *reinterpret_cast<float4*>(a.part + ((size_t)which * n_cl + cl) * n +
+                                 o) = sum;
+    }
+  }
+  bwd_cluster_sync();  // no block leaves while another reads its rows
+}
+
+// dk, dv = the sums, in cluster order, of the clusters' float32 partials
+// part (2, n_cl, n)
+__global__ void bwd_sum_clusters(const float* __restrict__ part,
+                                 __nv_bfloat16* __restrict__ dk,
+                                 __nv_bfloat16* __restrict__ dv, long n,
+                                 int n_cl) {
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= 2 * n) return;
+  const int which = e >= n;
+  const long i = e - which * n;
+  const float* src = part + (size_t)which * n_cl * n + i;
+  float s = 0.f;
+  for (int c = 0; c < n_cl; ++c) s += src[(size_t)c * n];
+  (which ? dv : dk)[i] = __float2bfloat16(s);
+}
+
+// head_dim in A atoms of 64; dK / dV in NH warpgroups (two past 128)
+template <int A, int NH>
+int launch_bwd_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem(A);
+  static_assert(smem <= (size_t)kMaxSmem, "tiles past shared memory");
+  auto dq = bwd_dq_wgmma<A>;
+  auto dkdv = bwd_dkdv_wgmma<A, NH>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const int rep = a.Hq / a.Hkv, C = bwd_cluster(rep);
+  const int tiles = (a.S + kBwdRows - 1) / kBwdRows;
+  const long bh = (long)a.B * a.Hkv;
+  if (tiles > 65535 || a.B > 65535 || bh > 65535)
+    return (int)cudaErrorInvalidValue;
+  dq<<<dim3(a.Hq, a.B, tiles), 128, smem, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rep, (unsigned)bh, tiles);
+  cfg.blockDim = dim3(128 * NH);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  // the group's blocks in one cluster; launched as bwd_dq_wgmma's
+  // programmatic dependent (it waits for D in griddep_wait)
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  e = cudaLaunchKernelEx(&cfg, dkdv, a);
+  if (e != cudaSuccess) return (int)e;
+  if (rep / C > 1) {
+    const long n = (long)a.B * a.S * a.Hkv * a.hd;
+    bwd_sum_clusters<<<(unsigned)((2 * n + 255) / 256), 256, 0, stream>>>(
+        a.part, a.dk, a.dv, n, rep / C);
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_bf16(BwdArgs a, cudaStream_t stream) {
+  if (a.hd < 1 || a.hd % 4 || a.Hkv < 1 || a.Hq % a.Hkv)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t any = reinterpret_cast<uintptr_t>(a.q) |
+                        reinterpret_cast<uintptr_t>(a.k) |
+                        reinterpret_cast<uintptr_t>(a.v) |
+                        reinterpret_cast<uintptr_t>(a.o) |
+                        reinterpret_cast<uintptr_t>(a.dout) |
+                        reinterpret_cast<uintptr_t>(a.dq) |
+                        reinterpret_cast<uintptr_t>(a.dk) |
+                        reinterpret_cast<uintptr_t>(a.dv);
+  if (any % 8) return (int)cudaErrorInvalidValue;
+  if (a.Hq / a.Hkv / bwd_cluster(a.Hq / a.Hkv) > 1 && a.part == nullptr)
+    return (int)cudaErrorInvalidValue;
+  a.copy_bytes = a.hd % 8 == 0 && any % 16 == 0 ? 16 : 8;
+  a.scale = 1.0f / sqrtf((float)a.hd);
+  if (a.hd <= 64) return launch_bwd_wgmma<1, 1>(a, stream);
+  if (a.hd <= 128) return launch_bwd_wgmma<2, 1>(a, stream);
+  if (a.hd <= 192) return launch_bwd_wgmma<3, 2>(a, stream);
+  if (a.hd <= 256) return launch_bwd_wgmma<4, 2>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1251,10 +1978,14 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
 }
 
 // The backward: q, out, dout, dq (B, S, Hq, hd); k, v, dk, dv (B, S, Hkv,
-// hd), all of one type (dtype as above, any q_per_kv); lse (B, Hq, S)
-// float32 from the forward; dsum a float32 scratch of (B, Hq, S); pk, pv
-// float32 scratch of (B, S, Hq, hd) each, unused (may be null) when Hq ==
-// Hkv. Returns cudaGetLastError() after the launches, 0 on success.
+// hd), all of one type (dtype as above, any q_per_kv), 8-byte aligned; lse
+// (B, Hq, S) float32 from the forward; dsum a float32 scratch of (B, Hq, S)
+// (float32) or (B, Hq, S, 2) (bfloat16: each row's lse log2(e) and D).
+// float32: pk, pv float32 scratch of (B, S, Hq, hd) each (the query
+// heads' shares), unused (may be null) when Hq == Hkv. bfloat16: pk the
+// float32 scratch (2, n, B, S, Hkv, hd) of the GQA clusters' sums when
+// flash_attention_bwd_clusters gives n > 1, else unused (may be null); pv
+// unused. Returns cudaGetLastError() after the launches, 0 on success.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* out, const void* dout, const void* lse,
                         void* dsum, void* pk, void* pv, void* dq, void* dk,
@@ -1268,11 +1999,32 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     return launch_bwd<float>(q, k, v, out, dout, lse, dsum, pk, pv, dq, dk,
                              dv, B, S, Hq, Hkv, hd, causal, window, softcap,
                              s);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(q, k, v, out, dout, lse, dsum, pk, pv,
-                                     dq, dk, dv, B, S, Hq, Hkv, hd, causal,
-                                     window, softcap, s);
+  if (dtype == 1) {
+    using bf = __nv_bfloat16;
+    BwdArgs a = {};
+    a.q = static_cast<const bf*>(q);
+    a.k = static_cast<const bf*>(k);
+    a.v = static_cast<const bf*>(v);
+    a.o = static_cast<const bf*>(out);
+    a.dout = static_cast<const bf*>(dout);
+    a.lse = static_cast<const float*>(lse);
+    a.stats = static_cast<float2*>(dsum);
+    a.dq = static_cast<bf*>(dq);
+    a.dk = static_cast<bf*>(dk);
+    a.dv = static_cast<bf*>(dv);
+    a.part = static_cast<float*>(pk);
+    a.B = B, a.S = S, a.Hq = Hq, a.Hkv = Hkv, a.hd = hd;
+    a.causal = causal, a.window = window, a.softcap = softcap;
+    return launch_bwd_bf16(a, s);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bfloat16 backward's GQA clusters a kv head (q_per_kv / its cluster
+// size): above 1, flash_attention_bwd needs the partials scratch pk.
+int flash_attention_bwd_clusters(int Hq, int Hkv) {
+  if (Hkv < 1 || Hq % Hkv) return -1;
+  return Hq / Hkv / bwd_cluster(Hq / Hkv);
 }
 
 const char* kernel_error_string(int code) {

@@ -30,20 +30,42 @@
 // 16-byte aligned. D a multiple of 4 (float32) or 8 (bfloat16), at most
 // kThreads * 8 pieces.
 //
-// The backward (rmsnorm_bwd_kernel, with no TPU counterpart: the JAX package
-// differentiates its plain jnp) is the exact derivative of that function in
-// float32: with rstd = rsqrt(mean(x^2) + eps) and xhat = x rstd,
+// The backward (no TPU counterpart: the JAX package differentiates its
+// plain jnp) is the exact derivative of that function in float32: with
+// rstd = rsqrt(mean(x^2) + eps) and xhat = x rstd,
 //   dx     = rstd (g scale - xhat mean(g scale xhat)),  in x's type
 //   dscale = sum over rows of g xhat,                    float32
-// Its teams take rows as the forward's do (the same team width), a block
-// walking rows blockIdx.x, + gridDim.x, ... one row a team at a time. Each
-// lane adds g xhat of its own columns into its team's slice of shared
-// memory, so no two threads write one address; at the end the block sums
-// its teams in order into one row of partials (gridDim.x, D), and a second
-// kernel sums those rows in order: dscale comes out the same bits on every
-// run (no floating-point atomics). Bound by bytes: x and g read once, dx
-// written once (the partials are D floats a block).
+// dscale is summed in a fixed order (no floating-point atomics), so it
+// comes out the same bits on every run. What bounds it on the H100: bytes,
+// x and g read once and dx written once (6 R D bytes in bf16; 18.9 MB, 5.6
+// us, at qwen2-1.5b's 2,048 rows of 1,536). Two routes, by type:
+//  - bfloat16 (rmsnorm_bwd_rows, one cooperative launch): a team of up to
+//    32 lanes a row (one warp at D 1,536 - 2,048; a wider team only past
+//    2,048, kept to 8 pieces a lane, with a named barrier of its own instead
+//    of the block's), every piece of x and g loaded before the first sum,
+//    as the forward does. A team holds two rows in registers: the next
+//    row's loads are issued as soon as the current row's pieces have
+//    arrived, so its stores overlap them; where one row a team
+//    would take more blocks than the card has SMs, a team takes two rows
+//    (qwen2-1.5b's 2,048 rows: 128 blocks of 16). The block stages scale in
+//    shared memory while its first loads fly. A lane's columns are the
+//    same in every row its team takes, so it adds g xhat into its team's
+//    slice of shared memory (no two lanes share an address); the block adds
+//    its teams in order into one row of partials. After the grid's barrier
+//    (cooperative launch: every block resident) the blocks sum the
+//    partials' columns, 32 a block: 8 warps each adding a contiguous run of
+//    the partial rows (16 loads in flight a lane), then the runs in order.
+//    No second launch: the float32 route's second kernel runs in (D + 255)
+//    / 256 blocks (6 at D = 1,536), each thread adding the partials one
+//    after another.
+//  - float32 (rmsnorm_bwd_kernel, then rmsnorm_bwd_reduce): teams as the
+//    forward's, a block walking rows blockIdx.x, + gridDim.x, ... one row a
+//    team at a time; each lane adds g xhat of its own columns into its
+//    team's slice of shared memory; at the end the block sums its teams in
+//    order into one row of partials (gridDim.x, D), and a second kernel
+//    sums those rows in order.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -377,6 +399,309 @@ int launch_bwd(const void* x, const void* scale, const void* g, void* dx,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// Backward, bfloat16
+// ---------------------------------------------------------------------------
+
+constexpr int kRun = 16;  // partial rows a lane loads before its first add
+
+// The team width of the bfloat16 backward: up to a warp while a lane holds
+// at most 8 pieces, wider past that (D > 2,048).
+int bwd_team(int pieces) {
+  int team = 1;
+  while (team < 32 && team * kPieces < pieces) team *= 2;
+  while (team * 8 < pieces) team *= 2;
+  return team;
+}
+
+// One cooperative launch: the rows, then (after the grid's barrier) dscale.
+// Shared memory: scale (D floats), then each team's dscale share (teams,
+// D).
+template <int NP>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_bwd_rows(const __nv_bfloat16* __restrict__ x,
+                     const float* __restrict__ scale,
+                     const __nv_bfloat16* __restrict__ g,
+                     __nv_bfloat16* __restrict__ dx,
+                     float* __restrict__ partial,
+                     float* __restrict__ dscale, int R, int D, int team,
+                     float eps) {
+  namespace cg = cooperative_groups;
+  using V = Piece<__nv_bfloat16>;
+  extern __shared__ float4 bwd_smem[];
+  // a wide team's sums, by the parity of the row; then the column runs
+  __shared__ float red[2][2][kThreads / 32];
+  __shared__ float runs[kThreads / 32][33];
+  const int tid = threadIdx.x, lt = tid & (team - 1), tm = tid / team;
+  const int teams = kThreads / team;
+  const int pieces = D / V::kN;
+  const float4* sc = reinterpret_cast<const float4*>(bwd_smem);
+  float* land = reinterpret_cast<float*>(bwd_smem) + D;
+  float* mine = land + (size_t)tm * D;
+  // two buffers: a turn's row is in (xa, ga) while the next turn's loads
+  // fill (xb, gb), issued as soon as this row's pieces have arrived (so the
+  // block's stores overlap its next loads)
+  uint4 xa[NP], ga[NP], xb[NP], gb[NP];
+  // row r's pieces of x and g into (bx, bg), all in flight at once; zeros
+  // past R
+  auto load = [&](uint4 (&bx)[NP], uint4 (&bg)[NP], int r) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)r * D);
+    const uint4* gr = reinterpret_cast<const uint4*>(g + (size_t)r * D);
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int i = lt + team * k;
+      bx[k] = bg[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (r < R && i < pieces) {
+        bx[k] = xr[i];
+        bg[k] = gr[i];
+      }
+    }
+  };
+  // every thread of the block takes the same number of turns (r0 depends
+  // on the block alone), so the shuffles and barriers are reached by all
+  const int stride = gridDim.x * teams;
+  int r0 = blockIdx.x * teams;
+  load(xa, ga, r0 + tm);
+  // while the first row's loads fly: scale into shared memory, the team's
+  // dscale share to zero
+  for (int i = tid; i < D / 4; i += kThreads)
+    bwd_smem[i] = reinterpret_cast<const float4*>(scale)[i];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    const int i = lt + team * k;
+    if (i < pieces) {
+      reinterpret_cast<float4*>(mine)[2 * i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<float4*>(mine)[2 * i + 1] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __syncthreads();
+  for (int t = 0; r0 < R; r0 += stride, ++t) {
+    // row r from (xa, ga); the next turn's row rn loaded into (xb, gb)
+    const int r = r0 + tm, rn = r0 + stride + tm;
+    // sum of x^2 and of g scale x over the row
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int i = lt + team * k;
+      if (i >= pieces) continue;
+      float fx[V::kN], fg[V::kN];
+      V::unpack(xa[k], fx);
+      V::unpack(ga[k], fg);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float4 s4 = sc[i * 2 + c];
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float xv = fx[4 * c + e];
+          ss += xv * xv;
+          dot += fg[4 * c + e] * sv[e] * xv;
+        }
+      }
+    }
+    if (rn < R) load(xb, gb, rn);
+    for (int o = min(team, 32) / 2; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    }
+    if (team > 32) {
+      // the team's warps through shared memory, behind the team's own
+      // barrier; a row's slots are next written two rows later, after
+      // every lane has passed the next row's barrier
+      if ((tid & 31) == 0) {
+        red[t & 1][0][tid / 32] = ss;
+        red[t & 1][1][tid / 32] = dot;
+      }
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + tm), "r"(team) : "memory");
+      const int w0 = tm * (team / 32);
+      ss = dot = 0.f;
+      for (int w = 0; w < team / 32; ++w) {
+        ss += red[t & 1][0][w0 + w];
+        dot += red[t & 1][1][w0 + w];
+      }
+    }
+    if (r < R) {
+      const float rstd = rsqrtf(ss / (float)D + eps);
+      // dx = rstd g scale - x rstd^3 dot / D
+      const float c3 = rstd * rstd * rstd * dot / (float)D;
+      uint4* dr = reinterpret_cast<uint4*>(dx + (size_t)r * D);
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        const int i = lt + team * k;
+        if (i >= pieces) continue;
+        float fx[V::kN], fg[V::kN], out[V::kN];
+        V::unpack(xa[k], fx);
+        V::unpack(ga[k], fg);
+        float4* a4 = reinterpret_cast<float4*>(mine) + 2 * i;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float4 s4 = sc[i * 2 + c];
+          const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+          float4 acc = a4[c];
+          float* av = reinterpret_cast<float*>(&acc);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = 4 * c + e;
+            out[j] = rstd * fg[j] * sv[e] - fx[j] * c3;
+            av[e] += fg[j] * fx[j] * rstd;
+          }
+          a4[c] = acc;
+        }
+        dr[i] = V::pack(out);
+      }
+    }
+    // the next row into the current buffer: register moves
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      xa[k] = xb[k];
+      ga[k] = gb[k];
+    }
+  }
+  // the block's partial row: its teams' shares added in team order
+  __syncthreads();
+  for (int c4 = tid; c4 < D / 4; c4 += kThreads) {
+    float4 s = reinterpret_cast<const float4*>(land)[c4];
+    for (int t = 1; t < teams; ++t) {
+      const float4 v =
+          reinterpret_cast<const float4*>(land + (size_t)t * D)[c4];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    reinterpret_cast<float4*>(partial + (size_t)blockIdx.x * D)[c4] = s;
+  }
+  // every block's partial row is written and visible
+  cg::this_grid().sync();
+  // dscale[i] = the partials of column i summed in block order: block b
+  // takes the 32-column slices b, b + gridDim.x, ...; warp w adds partial
+  // rows w per .. (w + 1) per - 1 (kRun loaded before the first add), then
+  // warp 0 the runs in order
+  const int lane = tid & 31, w = tid >> 5;
+  constexpr int kWarps = kThreads / 32;
+  const int blocks = gridDim.x;
+  const int per = (blocks + kWarps - 1) / kWarps;
+  const int b1 = min(blocks, (w + 1) * per);
+  for (int c0 = blockIdx.x * 32; c0 < D; c0 += gridDim.x * 32) {
+    const int col = c0 + lane;
+    float s = 0.f;
+    if (col < D) {
+      for (int b0 = w * per; b0 < b1; b0 += kRun) {
+        float v[kRun];
+#pragma unroll
+        for (int i = 0; i < kRun; ++i)
+          v[i] = b0 + i < b1 ? partial[(size_t)(b0 + i) * D + col] : 0.f;
+#pragma unroll
+        for (int i = 0; i < kRun; ++i)
+          if (b0 + i < b1) s += v[i];
+      }
+    }
+    runs[w][lane] = s;
+    __syncthreads();
+    if (w == 0 && col < D) {
+      float t = 0.f;
+      for (int i = 0; i < kWarps; ++i) t += runs[i][lane];
+      dscale[col] = t;
+    }
+    __syncthreads();  // runs is reused by the next slice
+  }
+}
+
+struct RowsShape {
+  int team, np, blocks;
+  size_t smem;
+};
+
+template <int NP>
+int rows_occupancy(size_t smem) {
+  static size_t seen_smem = 0;
+  static int seen = 0;
+  if (seen > 0 && seen_smem == smem) return seen;
+  auto kernel = rmsnorm_bwd_rows<NP>;
+  // the dynamic limit always (48 KB of it with the static arrays is past
+  // the default)
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return -(int)e;
+  int n = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return -(int)e;
+  seen_smem = smem;
+  seen = n;
+  return seen;
+}
+
+#define RMS_BWD_NP(X) X(1) X(2) X(3) X(4) X(5) X(6) X(8)
+
+// The bfloat16 backward's team, pieces a lane and blocks: at most as many
+// as the card holds at once (a cooperative launch needs every block
+// resident). blocks < 0: minus a CUDA error.
+RowsShape rows_shape(int R, int D) {
+  RowsShape sh;
+  const int pieces = D / Piece<__nv_bfloat16>::kN;
+  sh.team = bwd_team(pieces);
+  const int np = (pieces + sh.team - 1) / sh.team;
+  sh.np = np <= 6 ? np : 8;
+  const int teams = kThreads / sh.team;
+  sh.smem = sizeof(float) * (size_t)(teams + 1) * D;
+  int per_sm = -(int)cudaErrorInvalidValue;
+#define RMS_OCC(N) \
+  if (sh.np == N) per_sm = rows_occupancy<N>(sh.smem);
+  RMS_BWD_NP(RMS_OCC)
+#undef RMS_OCC
+  if (per_sm <= 0) {
+    sh.blocks = per_sm < 0 ? per_sm : -(int)cudaErrorInvalidConfiguration;
+    return sh;
+  }
+  // two rows a team where one would take more blocks than the card has
+  // SMs: the second row's loads overlap the first's stores
+  const int rows = (R + teams - 1) / teams > sm_count() ? 2 * teams : teams;
+  sh.blocks = max(1, min((R + rows - 1) / rows, per_sm * sm_count()));
+  return sh;
+}
+
+template <int NP>
+int launch_rows(const RowsShape& sh, const __nv_bfloat16* x,
+                const float* scale, const __nv_bfloat16* g,
+                __nv_bfloat16* dx, float* partial, float* dscale, int R,
+                int D, float eps, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sh.blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = sh.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, rmsnorm_bwd_rows<NP>, x, scale, g, dx, partial,
+                         dscale, R, D, sh.team, eps);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_bf16(const void* x, const void* scale, const void* g,
+                    void* dx, float* partial, float* dscale, int R, int D,
+                    float eps, cudaStream_t stream) {
+  if (D % Piece<__nv_bfloat16>::kN) return (int)cudaErrorInvalidValue;
+  const RowsShape sh = rows_shape(R, D);
+  if (sh.blocks < 0) return -sh.blocks;
+#define RMS_ROWS(N)                                                      \
+  if (sh.np == N)                                                        \
+    return launch_rows<N>(sh, static_cast<const __nv_bfloat16*>(x),      \
+                          static_cast<const float*>(scale),              \
+                          static_cast<const __nv_bfloat16*>(g),          \
+                          static_cast<__nv_bfloat16*>(dx), partial, dscale, \
+                          R, D, eps, stream);
+  RMS_BWD_NP(RMS_ROWS)
+#undef RMS_ROWS
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -395,7 +720,7 @@ int rmsnorm(const void* x, const void* scale, void* out, int R, int D,
 
 // The backward of rmsnorm: x, g, dx (R, D) of one type (dtype as above),
 // scale (D,) float32, all 16-byte aligned; partial a float32 scratch of
-// rmsnorm_bwd_max_blocks() x D; dscale (D,) float32. Returns
+// rmsnorm_bwd_partial_rows(R, D, dtype) x D; dscale (D,) float32. Returns
 // cudaGetLastError() after the launches, 0 on success.
 int rmsnorm_bwd(const void* x, const void* scale, const void* g, void* dx,
                 void* partial, void* dscale, int R, int D, float eps,
@@ -408,11 +733,20 @@ int rmsnorm_bwd(const void* x, const void* scale, const void* g, void* dx,
   if (dtype == 0)
     return launch_bwd<float>(x, scale, g, dx, pt, ds, R, D, eps, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(x, scale, g, dx, pt, ds, R, D, eps, s);
+    return launch_bwd_bf16(x, scale, g, dx, pt, ds, R, D, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 
-int rmsnorm_bwd_max_blocks() { return kBwdBlocks; }
+// Rows of the partials scratch a backward call of R rows of D needs (the
+// float32 route's block cap; the bfloat16 route's blocks); -1 on a bad
+// argument or a failed occupancy query.
+int rmsnorm_bwd_partial_rows(int R, int D, int dtype) {
+  if (R < 0 || D < 1) return -1;
+  if (dtype == 0) return kBwdBlocks;
+  if (dtype != 1 || D % Piece<__nv_bfloat16>::kN) return -1;
+  const RowsShape sh = rows_shape(R, D);
+  return sh.blocks < 0 ? -1 : sh.blocks;
+}
 
 const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

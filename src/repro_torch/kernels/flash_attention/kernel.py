@@ -26,6 +26,8 @@ def _lib():
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     bwd = lib.flash_attention_bwd
     bwd.argtypes, bwd.restype = _BWD_ARGTYPES, ctypes.c_int
+    lib.flash_attention_bwd_clusters.argtypes = [ctypes.c_int] * 2
+    lib.flash_attention_bwd_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -73,10 +75,13 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
                              window: int = 0, softcap: float = 0.0):
-    """The backward of `flash_attention_cuda` (scalar float32 arithmetic,
-    any q_per_kv): q, o, do (B,S,Hq,hd); k, v (B,S,Hkv,hd), one dtype, all
-    contiguous; lse (B,Hq,S) float32 from the forward. -> (dq, dk, dv) in
-    the inputs' dtype, the same bits on every run."""
+    """The backward of `flash_attention_cuda`, any q_per_kv: q, o, do
+    (B,S,Hq,hd); k, v (B,S,Hkv,hd), one dtype, all contiguous; lse (B,Hq,S)
+    float32 from the forward. bfloat16 runs on the tensor cores (P and dS
+    rounded to bf16 before their products, as `ref.flash_attention_bwd_mma
+    _ref` models; the GQA sums of dK and dV on chip), float32 in scalar
+    float32 arithmetic. -> (dq, dk, dv) in the inputs' dtype, the same bits
+    on every run."""
     B, S, Hq, Hkv, hd = _check(q, k, v, window, softcap)
     runtime.check_tensor("o", o, 4, (q.dtype,))
     runtime.check_tensor("do", do, 4, (q.dtype,))
@@ -86,16 +91,25 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} and lse "
                          f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dsum = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    # each query head's share of its kv head's dK, dV (q_per_kv > 1)
-    shares = ((torch.empty(q.shape, dtype=torch.float32, device=q.device),
-               torch.empty(q.shape, dtype=torch.float32, device=q.device))
-              if Hq != Hkv else (None, None))
     lib = _lib()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    # each row's D (float32); bfloat16 keeps lse log2(e) beside it
+    dsum = torch.empty((B, Hq, S) + ((2,) if q.dtype == torch.bfloat16
+                                     else ()), **f32)
+    if q.dtype == torch.bfloat16:
+        # the float32 sums of each GQA cluster, where a kv head's group
+        # takes more than one (q_per_kv past 8)
+        n_cl = lib.flash_attention_bwd_clusters(Hq, Hkv)
+        scratch = ((torch.empty((2, n_cl, B, S, Hkv, hd), **f32), None)
+                   if n_cl > 1 else (None, None))
+    else:
+        # each query head's share of its kv head's dK, dV (q_per_kv > 1)
+        scratch = ((torch.empty(q.shape, **f32), torch.empty(q.shape, **f32))
+                   if Hq != Hkv else (None, None))
     code = lib.flash_attention_bwd(
         *(runtime.ptr(t) for t in (q, k, v, o, do, lse, dsum)),
         *(ctypes.c_void_p(None) if t is None else runtime.ptr(t)
-          for t in shares),
+          for t in scratch),
         *(runtime.ptr(t) for t in (dq, dk, dv)),
         B, S, Hq, Hkv, hd, int(bool(causal)), int(window), float(softcap),
         runtime.dtype_code(q.dtype), runtime.stream_ptr())

@@ -2,7 +2,8 @@
 sliding window, tanh softcap): the numerics contract for the CUDA kernel,
 written as the JAX package's oracle (`repro/kernels/flash_attention/ref.py`
 `mha_ref`) is; and its backward written out, the contract for the backward
-kernel."""
+kernel, with a model of the bf16 backward kernel's rounding points beside
+it."""
 from __future__ import annotations
 
 import torch
@@ -68,6 +69,24 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
       dQ = scale dU K,  dK = scale dU^T Q
     dK and dV summed over each kv head's q_per_kv query heads. -> (dq, dk,
     dv) in the inputs' dtype."""
+    return _bwd(q, k, v, o, lse, do, causal, window, softcap, lambda t: t)
+
+
+def flash_attention_bwd_mma_ref(q, k, v, o, lse, do, causal: bool = True,
+                                window: int = 0, softcap: float = 0.0):
+    """`flash_attention_bwd_ref` with the bfloat16 kernel's rounding points:
+    the products run on bf16 operands with float32 sums, so P is rounded to
+    bf16 before dV = P^T dO, and scale dU before dQ = (scale dU) K and dK =
+    (scale dU)^T Q; S, dP, D and the GQA sums stay float32 (q, k, v, o and
+    dO are bf16 already on the card). The plain model of the tensor-core
+    kernel, held against the JAX package's gradients on the CPU."""
+    return _bwd(q, k, v, o, lse, do, causal, window, softcap,
+                lambda t: t.to(torch.bfloat16).float())
+
+
+def _bwd(q, k, v, o, lse, do, causal, window, softcap, rnd):
+    """The backward, with `rnd` applied to P and scale dU before the
+    products they feed."""
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     rep = Hq // Hkv
@@ -76,14 +95,14 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     dof = do.float()
     D = (dof * o.float()).sum(dim=-1).transpose(1, 2)          # (B, Hq, S)
-    dv = torch.einsum("bnqk,bqnh->bknh", p, dof)
+    dv = torch.einsum("bnqk,bqnh->bknh", rnd(p), dof)
     dp = torch.einsum("bqnh,bknh->bnqk", dof, _repeat(v, rep).float())
     ds = p * (dp - D[..., None])
     if softcap:
         ds = ds * (1.0 - (s / softcap).square())
-    dq = torch.einsum("bnqk,bknh->bqnh", ds,
-                      _repeat(k, rep).float()) * scale
-    dk = torch.einsum("bnqk,bqnh->bknh", ds, q.float()) * scale
+    ds = rnd(ds * scale)
+    dq = torch.einsum("bnqk,bknh->bqnh", ds, _repeat(k, rep).float())
+    dk = torch.einsum("bnqk,bqnh->bknh", ds, q.float())
     dk = dk.reshape(B, S, Hkv, rep, hd).sum(dim=3)
     dv = dv.reshape(B, S, Hkv, rep, hd).sum(dim=3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

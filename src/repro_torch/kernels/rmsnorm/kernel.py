@@ -69,8 +69,8 @@ def _bwd_lib():
     lib = _lib()
     fn = lib.rmsnorm_bwd
     fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
-    lib.rmsnorm_bwd_max_blocks.argtypes = []
-    lib.rmsnorm_bwd_max_blocks.restype = ctypes.c_int
+    lib.rmsnorm_bwd_partial_rows.argtypes = [ctypes.c_int] * 3
+    lib.rmsnorm_bwd_partial_rows.restype = ctypes.c_int
     return lib
 
 
@@ -81,13 +81,17 @@ def rmsnorm_bwd_cuda(x, scale, g, eps: float = 1e-6):
     on every run)."""
     D = _check(x, scale, g)
     lib = _bwd_lib()
+    R, code = x.numel() // D, runtime.dtype_code(x.dtype)
+    rows = lib.rmsnorm_bwd_partial_rows(R, D, code)
+    if rows < 1:
+        raise RuntimeError(f"rmsnorm_bwd cannot size its scratch for {R} "
+                           f"rows of {D} ({x.dtype})")
     dx = torch.empty_like(x)
     dscale = torch.empty(D, dtype=torch.float32, device=x.device)
-    partial = torch.empty((lib.rmsnorm_bwd_max_blocks(), D),
-                          dtype=torch.float32, device=x.device)
+    partial = torch.empty((rows, D), dtype=torch.float32, device=x.device)
     code = lib.rmsnorm_bwd(runtime.ptr(x), runtime.ptr(scale), runtime.ptr(g),
                            runtime.ptr(dx), runtime.ptr(partial),
-                           runtime.ptr(dscale), x.numel() // D, D, float(eps),
-                           runtime.dtype_code(x.dtype), runtime.stream_ptr())
+                           runtime.ptr(dscale), R, D, float(eps), code,
+                           runtime.stream_ptr())
     runtime.check(lib, NAME, code)
     return dx, dscale

@@ -868,6 +868,39 @@ def test_flash_bwd_kernel_matches_autograd(gen, no_tf32, dtype, B, S, Hq,
         assert torch.equal(a, b)
 
 
+# The bfloat16 backward's GQA clusters and edges: q_per_kv 4 and 8 (one
+# cluster a kv head), 12 (two clusters of 6, summed by a second pass) and
+# 11 (clusters of one); whisper-tiny's encoder (S 1,500, not causal);
+# head_dims that are not a multiple of 16 (24; 20, read in 8-byte pieces)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal", [
+    (2, 96, 16, 4, 64, True), (1, 130, 16, 2, 128, True),
+    (1, 100, 12, 1, 32, True), (1, 70, 11, 1, 64, False),
+    (1, 1500, 6, 6, 64, False), (2, 77, 6, 2, 24, True),
+    (1, 65, 4, 2, 20, False)])
+def test_flash_bwd_bf16_groups_and_edges(gen, no_tf32, B, S, Hq, Hkv, hd,
+                                         causal):
+    dtype = torch.bfloat16
+    q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+    want = _plain_grads(lambda a, b_, c: faref.flash_attention_ref(
+        a, b_, c, causal=causal), (q, k, v), (do,))
+    o, lse = faops._kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                                with_lse=True)
+    b0 = faops.flash_attention_bwd.launches
+    got = faops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = faops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert faops.flash_attention_bwd.launches == b0 + 2
+    floor = _floor(want)
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel(a, b, floor) <= GRAD_TOL[dtype], _rel(a, b, floor)
+        assert torch.equal(a, c)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Bb,S,H,P,N", [(2, 37, 3, 8, 4), (1, 130, 4, 64, 16),
                                         (2, 65, 8, 64, 64), (1, 1, 2, 4, 8),

@@ -122,6 +122,55 @@ def test_flash_bwd_ref_matches_autograd_and_jax(B, S, Hq, Hkv, hd, causal,
             np.testing.assert_allclose(a.numpy(), b, **TOL)
 
 
+def _bf16(a):
+    """float32 values on the bfloat16 grid (what the card's kernels read)."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+# the bf16 kernel's rounding model beside FLASH_CASES: qwen2-1.5b's group
+# (12 query over 2 kv heads of 128) at S 128, and a softcap of 30
+MMA_CASES = FLASH_CASES + [(1, 128, 12, 2, 128, True, 0, 0.0),
+                           (2, 40, 4, 1, 32, True, 0, 30.0)]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal,window,softcap", MMA_CASES)
+def test_flash_bwd_mma_model_within_bf16_gate_of_jax(B, S, Hq, Hkv, hd,
+                                                     causal, window,
+                                                     softcap):
+    """`flash_attention_bwd_mma_ref` (P and scale dU rounded to bf16 before
+    their products, as the tensor-core kernel rounds them) against jax.vjp
+    of the JAX package's `mha_ref` in float32, on inputs on the bf16 grid
+    and the forward's output rounded to bf16 as the kernel receives it:
+    within the card's bf16 gate, 2e-2 of each gradient's largest magnitude
+    (at least 1 % of the largest among the three)."""
+    rng = np.random.default_rng(8)
+    q, k, v, do = (_bf16(rng.standard_normal(sh).astype(np.float32))
+                   for sh in ((B, S, Hq, hd), (B, S, Hkv, hd),
+                              (B, S, Hkv, hd), (B, S, Hq, hd)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = faref.flash_attention_lse_ref(*map(torch.from_numpy, (q, k, v)),
+                                           **kw)
+    o = o.to(torch.bfloat16).float()
+    got = faref.flash_attention_bwd_mma_ref(
+        *map(torch.from_numpy, (q, k, v)), o, lse, torch.from_numpy(do),
+        **kw)
+    want = _vjp(lambda a, b, c: jfa.mha_ref(a, b, c, **kw), (q, k, v), (do,))
+    floor = 1e-2 * max(np.abs(w).max() for w in want)
+    worst = 0.0
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        err = float(np.abs(a.numpy() - b).max() / max(np.abs(b).max(),
+                                                         floor))
+        worst = max(worst, err)
+        assert err <= 2e-2, err
+    # the rounding is visible: the model is not the float32 backward
+    exact = faref.flash_attention_bwd_ref(
+        *map(torch.from_numpy, (q, k, v)), o, lse, torch.from_numpy(do),
+        **kw)
+    assert any(not torch.equal(a, b) for a, b in zip(got, exact))
+    assert worst > 0.0
+
+
 def _scan_inputs(rng, Bb, S, H, P, N):
     x = rng.standard_normal((Bb, S, H, P)).astype(np.float32)
     dt = (np.log1p(np.exp(rng.standard_normal((Bb, S, H)))) * 0.1
