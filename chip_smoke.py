@@ -56,7 +56,11 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      16 query over 8 KV heads of 128, causal), and in bfloat16 at
      qwen3-8b's group (B 2 x S 512, 32 query over 8 KV heads of 128,
      causal: q_per_kv 4), the
-     scan at S 37 and 300 and from an initial state; float32 within 2e-5
+     scan at S 37 and 300 and from an initial state, at zamba2's 80 heads
+     over B 1 x S 1,024 (8 cluster ranks of two chunks) and under strong
+     decays at B 2 x S 256 (autograd then through the plain forward at
+     4-row chunks, which at 64 rows lies 1e-4 of a gradient's scale off
+     in float32); float32 within 2e-5
      and bfloat16 within 2e-2 of each gradient's largest magnitude, each
      backward twice, bitwise equal; an initial_state that requires a
      gradient raises;
@@ -85,7 +89,8 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      less its forward), #10b over qwen2-1.5b's 2,048 rows of 1,536,
      zamba2's 512 of 2,560 and internvl2-2b's 2,048 of 2,048 beside
      `F.rms_norm`'s backward, #9b at zamba2's B 2, S 256 (no library
-     call);
+     call; bound by bytes or by flops at the 3xTF32 rate, the scalar
+     float32 bound logged beside it);
   4. the TINY test config through the port's dense, monolithic paged and
      chunked paged engines on the card and on the CPU: greedy tokens
      equal, logprobs within rtol 1e-4, atol 1e-5; dense and monolithic
@@ -170,11 +175,12 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      0.1 % within 1e-4); the 4-layer zamba2 run again on the card, bitwise
      equal; at full width qwen2-1.5b (bf16 compute, remat) 5 steps of B 8
      x S 256, whose loss must fall, and zamba2-2.7b 2 steps of B 2 x S
-     256, each step's loss, grad norm, wall and launches of every forward
-     and backward wrapper logged with the peak memory, and one profiled
-     step's device time by kind (a bf16 step must run the tensor-core #7b
-     and the row #10b kernels and none of the float32 routes' scalar
-     ones); then the launcher:
+     256, whose loss on its first batch must fall, each step's loss, grad
+     norm, wall and launches of every forward and backward wrapper logged
+     with the peak memory, and one profiled step's device time by kind (a
+     bf16 step must run the tensor-core #7b and the row #10b kernels and
+     none of the float32 routes' scalar ones; zamba2's must run #9b's
+     `ssd_bwd_mma` and `ssd_bwd_sum`); then the launcher:
      `build_engines(train_steps=150)` on the TINY fleet, each model's loss
      on a fixed batch before and after (it must fall), and the mean
      ROUGE-1 F1 of the trained fleet's pipeline beside the untrained one's
@@ -2211,11 +2217,12 @@ PORT_KERNELS = ("decode_kernel_mma", "decode_kernel",
                 "paged_prefill_kernel_mma", "paged_prefill_kernel",
                 "flash_kernel_wgmma", "flash_kernel", "ssd_kernel_mma",
                 "rmsnorm_kernel") + (
-    # the backward kernels (training): bf16 flash and RMSNorm, then the
-    # float32 routes' scalar kernels
+    # the backward kernels (training): bf16 flash and RMSNorm, the float32
+    # routes' scalar kernels, and the SSD scan's (chunked, on the tensor
+    # cores, since PR 26)
     "bwd_dkdv_wgmma", "bwd_dq_wgmma", "bwd_sum_clusters",
-    "rmsnorm_bwd_rows") + SCALAR_BWD_KERNELS + ("ssd_bwd_kernel",
-                                               "ssd_bwd_reduce")
+    "rmsnorm_bwd_rows") + SCALAR_BWD_KERNELS + ("ssd_bwd_mma",
+                                               "ssd_bwd_sum")
 
 
 def port_kernel_times(kernels):
@@ -3036,16 +3043,25 @@ def backward_kernel_cases(torch, gen):
             n += 1
     # the SSD scan (float32): S not a multiple of 64, TINY_EDGE_C's heads,
     # zamba2's training batch and a longer sequence, with and without an
-    # initial state
-    for Bb, S, H, P, N, initial in ((2, 37, 3, 8, 4, False),
-                                    (1, 130, 4, 64, 16, True),
-                                    (2, 256, 80, 64, 64, False),
-                                    (1, 300, 80, 64, 64, True)):
-        x, dt, A, B, C, h0 = scan_inputs(torch, gen, Bb, S, H, P, N, initial)
+    # initial state; zamba2's heads at 1,024 tokens (8 ranks of two
+    # chunks); strong decays at zamba2's training batch, where autograd
+    # runs through the plain forward at 4-row chunks (at 64 rows its exp of
+    # a difference of two cumulative sums lies 1e-4 of a gradient's scale
+    # from the exact gradient in float32; the kernel sums each exponent
+    # over the rows it spans)
+    for Bb, S, H, P, N, initial, strong in (
+            (2, 37, 3, 8, 4, False, False), (1, 130, 4, 64, 16, True, False),
+            (2, 256, 80, 64, 64, False, False),
+            (1, 300, 80, 64, 64, True, False),
+            (1, 1024, 80, 64, 64, False, False),
+            (2, 256, 80, 64, 64, True, True)):
+        x, dt, A, B, C, h0 = scan_inputs(torch, gen, Bb, S, H, P, N, initial,
+                                         strong)
         gy = torch.randn(Bb, S, H, P, **kw)
         gs = torch.randn(Bb, H, P, N, **kw)
+        chunk = 4 if strong else 64
         want = autograd_plain(
-            torch, lambda *t: sref.ssd_chunked_ref(*t, chunk=64,
+            torch, lambda *t: sref.ssd_chunked_ref(*t, chunk=chunk,
                                                    initial_state=h0),
             (x, dt, A, B, C), (gy, gs))
         leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, B, C)]
@@ -3058,7 +3074,8 @@ def backward_kernel_cases(torch, gen):
         a2 = sops.ssm_scan_bwd(x, dt, A, B, C, gy, gs, initial_state=h0)
         assert all(torch.equal(a, b) for a, b in zip(a1, a2))
         log(f"ssm_scan_bwd Bb={Bb} S={S} H={H} P={P} N={N} initial="
-            f"{initial}: {worst:.3g} of scale, repeat bitwise equal")
+            f"{initial}{' strong decays' if strong else ''}: {worst:.3g} of "
+            f"scale, repeat bitwise equal")
         n += 1
     try:
         h0 = torch.zeros(1, 2, 4, 4, device="cuda", requires_grad=True)
@@ -3131,7 +3148,8 @@ def time_backward_kernels(torch, gen, flush, rows):
     written once; #7b's operations 8 hd a kept (query, key) pair (dV, dP,
     dQ and dK) at the bf16 tensor-core rate, #10b's a few a value, #9b's
     10 P N a token and head (the gradient's carry, its read-outs into dx,
-    dB and dC and the state product) at the float32 rate."""
+    dB and dC and the state product) at the 3xTF32 rate of its tensor-core
+    products, the scalar float32 bound logged beside it."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as faops
     from repro_torch.kernels.flash_attention import ref as faref
@@ -3205,11 +3223,16 @@ def time_backward_kernels(torch, gen, flush, rows):
     err = max((a - b).abs().max().item() for a, b in zip(got, want))
     nbytes = 4 * (3 * x.numel() + 2 * dt.numel() + 2 * A.numel()
                   + 4 * Bm.numel() + gs.numel())
+    flops = 10 * Bb * S * H * P * N
+    scalar_ms, scalar_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+    log(f"ssm_scan_bwd bound inputs [zamba2-2.7b]: {nbytes} B; {flops} "
+        f"flops (10.P.N a token and head); bound at scalar float32 (67 "
+        f"TFLOP/s) {scalar_ms:.4f} ms ({scalar_by})")
     rows[("ssm_scan_bwd", "zamba2-2.7b")] = dict(
         shape=f"Bb={Bb} S={S} H={H} P={P} N={N} float32", max_abs_err=err,
         ms=device_ms(torch, run, flush),
         plain_ms=device_ms(torch, plain, flush, runs=3), library_ms=None,
-        bound=bound(nbytes, 10 * Bb * S * H * P * N, F32_FLOPS_PER_S))
+        bound=bound(nbytes, flops, TF32X3_FLOPS_PER_S))
 
 
 # ---------------------------------------------------------------------------
@@ -3418,6 +3441,16 @@ def phase_training(torch):
         assert all(np.isfinite(losses)), losses
         if name == "qwen2-1.5b":
             assert losses[-1] < losses[0], f"{name} loss did not fall"
+        else:
+            # two steps on two batches: the loss on the first batch, before
+            # (step 1's) and after both updates
+            from repro_torch.launch import steps as steps_lib
+            with torch.no_grad():
+                after = float(steps_lib.loss_fn(
+                    cfg, params, train_batch(torch, batches[0], "cuda"))[0])
+            log(f"{name}: loss on its first batch {losses[0]:.4f} before "
+                f"the steps, {after:.4f} after")
+            assert after < losses[0], f"{name} loss did not fall"
         totals = {k: sum(r["launches"][k] for r in per_step)
                   for k in FWD_KERNELS + BWD_KERNELS}
         log(f"{name}: peak memory {peak:.2f} GiB, B={B} S=256 remat="
@@ -3498,6 +3531,14 @@ def training_breakdown(torch, name, cfg, params, opt_cfg, batch):
     by_name = ", ".join(f"{n} {ms:.3f} ms x{c}" for n, (ms, c)
                         in times.items())
     log(f"  the port's kernels: {by_name}")
+    if name == "zamba2-2.7b":
+        # the SSD scan backpropagates through the chunked tensor-core
+        # kernel and its fixed-order sum, never the scalar kernel it
+        # replaced
+        assert {"ssd_bwd_mma", "ssd_bwd_sum"} <= set(times), (
+            f"{name}: the SSD scan's backward kernels did not run")
+        old = [k for k, _, _ in kernels if "ssd_bwd_kernel" in k]
+        assert not old, f"{name}: a step ran {old}"
     if cfg.dtype == "bfloat16":
         # bf16 attention and norms backpropagate on the tensor-core and
         # row kernels only, never through the float32 routes' scalar ones

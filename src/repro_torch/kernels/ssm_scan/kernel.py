@@ -65,6 +65,21 @@ def split_sequence(Bb: int, H: int, S: int, slots: int):
     return -(-chunks // per), per
 
 
+def split_sequence_bwd(S: int):
+    """(ranks, chunks_per_rank) of the backward: each (batch, head)'s
+    sequence cut into `ranks` segments of whole CHUNK-row chunks, one a
+    thread block of one cluster: one chunk a rank up to MAX_RANKS chunks,
+    then the fewest chunks a rank that MAX_RANKS ranks hold. Every rank has
+    rows, and the last holds the sequence's end. (A rank of several chunks
+    recomputes the states of its earlier chunks for each later one, so the
+    backward splits wherever it can, whatever the batch.)"""
+    chunks = -(-S // CHUNK)
+    if chunks <= 1:
+        return 1, chunks
+    per = -(-chunks // MAX_RANKS)
+    return -(-chunks // per), per
+
+
 def _aligned(t):
     """The tensor, or a copy of it that starts on 16 bytes (the kernel
     moves rows in 16-byte pieces)."""
@@ -122,25 +137,25 @@ def ssm_scan_cuda(x, dt, A, B, C, initial_state=None, ranks=None):
     return y, state
 
 
-_BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+                 + [ctypes.c_void_p])
 
 
 def _bwd_lib():
     lib = _lib()
     fn = lib.ssm_scan_bwd
     fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
-    lib.ssm_scan_bwd_stretch.argtypes = []
-    lib.ssm_scan_bwd_stretch.restype = ctypes.c_int
     return lib
 
 
 def ssm_scan_bwd_cuda(x, dt, A, B, C, gy, gstate=None, initial_state=None):
-    """The backward of `ssm_scan_cuda` (scalar float32, the per-token
-    recurrence): the inputs as there, gy like y, gstate like the final
-    state (None: zero), initial_state a constant start (None: zero). ->
-    (dx, ddt, dA, dB, dC) like x, dt, A, B, C, the same bits on every run.
-    Scratch: the state every `ssm_scan_bwd_stretch()` tokens, Bb H
-    ceil(S / 4) P N floats."""
+    """The backward of `ssm_scan_cuda` (chunked, on the TF32 tensor cores in
+    3xTF32, each (batch, head)'s chunks split over a cluster as
+    `split_sequence_bwd` says): the inputs as there, gy like y, gstate like
+    the final state (None: zero), initial_state a constant start (None:
+    zero); P and N multiples of 4 up to 64. -> (dx, ddt, dA, dB, dC) like
+    x, dt, A, B, C, the same bits on every run. Scratch: each head's share
+    of dB and dC, (Bb, H, S, N) each, and each segment's share of dA."""
     f32 = (torch.float32,)
     for name, t, nd in (("x", x, 4), ("dt", dt, 3), ("A", A, 1), ("B", B, 3),
                         ("C", C, 3), ("gy", gy, 4)):
@@ -154,32 +169,34 @@ def ssm_scan_bwd_cuda(x, dt, A, B, C, gy, gstate=None, initial_state=None):
             f"A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}, "
             f"gy {tuple(gy.shape)}")
     for name, d in (("head_dim P", P), ("state N", N)):
-        if not 0 < d <= MAX_DIM:
-            raise ValueError(f"{name} {d} outside 1..{MAX_DIM}")
+        if not 0 < d <= MAX_DIM or d % 4:
+            raise ValueError(f"{name} {d} is not a multiple of 4 in "
+                             f"4..{MAX_DIM}")
     for name, t in (("gstate", gstate), ("initial_state", initial_state)):
         if t is not None:
             runtime.check_tensor(name, t, 4, f32)
             if t.shape != (Bb, H, P, N):
                 raise ValueError(f"{name} must be {(Bb, H, P, N)}, got "
                                  f"{tuple(t.shape)}")
+    x, B, C, gy = _aligned(x), _aligned(B), _aligned(C), _aligned(gy)
+    if initial_state is not None:
+        initial_state = _aligned(initial_state)
+    ranks, per = split_sequence_bwd(S)
     lib = _bwd_lib()
-    k = lib.ssm_scan_bwd_stretch()
     dev = x.device
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dA = torch.empty_like(A)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
     dB_part = torch.empty((Bb, H, S, N), dtype=torch.float32, device=dev)
     dC_part = torch.empty_like(dB_part)
-    dA_part = torch.empty((Bb, H, S), dtype=torch.float32, device=dev)
-    ckpt = torch.empty((Bb * H, -(-S // k), P * N), dtype=torch.float32,
-                       device=dev)
+    dA_part = torch.empty((Bb, H, ranks), dtype=torch.float32, device=dev)
     null = ctypes.c_void_p(None)
     code = lib.ssm_scan_bwd(
         *(runtime.ptr(t) for t in (x, dt, A, B, C)),
         null if initial_state is None else runtime.ptr(initial_state),
         runtime.ptr(gy), null if gstate is None else runtime.ptr(gstate),
         *(runtime.ptr(t) for t in (dx, ddt, dA, dB, dC, dB_part, dC_part,
-                                   dA_part, ckpt)),
-        Bb, S, H, P, N, runtime.stream_ptr())
+                                   dA_part)),
+        Bb, S, H, P, N, ranks, per, runtime.stream_ptr())
     runtime.check(lib, NAME, code)
     return dx, ddt, dA, dB, dC

@@ -901,25 +901,44 @@ def test_flash_bwd_bf16_groups_and_edges(gen, no_tf32, B, S, Hq, Hkv, hd,
         assert torch.equal(a, c)
 
 
+# The SSD scan's backward: S not a multiple of 64 and S 1 (one rank), a
+# cluster of 2 to 5 ranks, zamba2's heads at 1,024 tokens (8 ranks of two
+# chunks), a batch of 4 x 80 heads that fills the card, and strong decays
+# (A uniform in [-80, -1], dt in [0, 1]), each with and without h0. Under
+# strong decays autograd runs through the plain forward at 4-row chunks:
+# at 64 rows its exp of a difference of two cumulative sums lies 1e-4 of a
+# gradient's scale from the exact gradient in float32
+# (tests/test_torch_ssm_bwd_numerics.py), while the kernel sums each
+# exponent over the rows it spans.
+SSD_BWD_CASES = [(2, 37, 3, 8, 4, False), (1, 130, 4, 64, 16, False),
+                 (2, 65, 8, 64, 64, False), (1, 1, 2, 4, 8, False),
+                 (1, 300, 80, 64, 64, False), (1, 1024, 80, 64, 64, False),
+                 (4, 256, 80, 64, 64, False), (1, 512, 4, 32, 32, True),
+                 (2, 256, 80, 64, 64, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Bb,S,H,P,N", [(2, 37, 3, 8, 4), (1, 130, 4, 64, 16),
-                                        (2, 65, 8, 64, 64), (1, 1, 2, 4, 8),
-                                        (1, 300, 80, 64, 64)])
+@pytest.mark.parametrize("Bb,S,H,P,N,strong", SSD_BWD_CASES)
 @pytest.mark.parametrize("initial", [False, True])
 def test_ssd_bwd_kernel_matches_autograd(gen, no_tf32, Bb, S, H, P, N,
-                                         initial):
+                                         strong, initial):
     x = torch.randn(Bb, S, H, P, generator=gen, device="cuda")
-    dt = torch.nn.functional.softplus(
-        torch.randn(Bb, S, H, generator=gen, device="cuda")) * 0.1
-    A = -torch.exp(torch.randn(H, generator=gen, device="cuda"))
+    if strong:
+        dt = torch.rand(Bb, S, H, generator=gen, device="cuda")
+        A = -(1 + 79 * torch.rand(H, generator=gen, device="cuda"))
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn(Bb, S, H, generator=gen, device="cuda")) * 0.1
+        A = -torch.exp(torch.randn(H, generator=gen, device="cuda"))
     B = torch.randn(Bb, S, N, generator=gen, device="cuda") * 0.3
     C = torch.randn(Bb, S, N, generator=gen, device="cuda") * 0.3
     h0 = (torch.randn(Bb, H, P, N, generator=gen, device="cuda")
           if initial else None)
     gy = torch.randn(Bb, S, H, P, generator=gen, device="cuda")
     gs = torch.randn(Bb, H, P, N, generator=gen, device="cuda")
+    chunk = 4 if strong else 64
     want = _plain_grads(
-        lambda *t: sref.ssd_chunked_ref(*t, chunk=64, initial_state=h0),
+        lambda *t: sref.ssd_chunked_ref(*t, chunk=chunk, initial_state=h0),
         (x, dt, A, B, C), (gy, gs))
     leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, B, C)]
     b0 = sops.ssm_scan_bwd.launches
@@ -930,6 +949,7 @@ def test_ssd_bwd_kernel_matches_autograd(gen, no_tf32, Bb, S, H, P, N,
     floor = _floor(want)
     for name, a, b in zip("x dt A B C".split(), got, want):
         assert a.shape == b.shape
+        assert torch.isfinite(a).all(), name
         assert _rel(a, b, floor) <= 2e-5, (name, _rel(a, b, floor))
     again = sops.ssm_scan_bwd(x, dt, A, B, C, gy, gs, initial_state=h0)
     once = sops.ssm_scan_bwd(x, dt, A, B, C, gy, gs, initial_state=h0)

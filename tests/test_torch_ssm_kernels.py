@@ -203,6 +203,38 @@ def test_scan_kernel_wrapper_checks_arguments(bad):
         skernel.ssm_scan_cuda(x, dt, A, B, C, h0)
 
 
+@pytest.mark.parametrize("bad", ["dtype", "P", "N", "P 6", "N 10", "shape",
+                                 "gy", "gstate", "initial"])
+def test_scan_bwd_kernel_wrapper_checks_arguments(bad):
+    """The backward's CUDA wrapper raises on what its kernel does not take
+    (P and N multiples of 4 up to 64, as the forward), before it loads or
+    builds anything."""
+    Bb, S, H, P, N = 1, 8, 2, 8, 16
+    x, dt, A = torch.zeros(Bb, S, H, P), torch.zeros(Bb, S, H), torch.zeros(H)
+    B = C = torch.zeros(Bb, S, N)
+    gy, gs, h0 = torch.zeros(Bb, S, H, P), None, None
+    if bad == "dtype":
+        x = x.bfloat16()
+    elif bad == "P":
+        x, gy = torch.zeros(Bb, S, H, 66), torch.zeros(Bb, S, H, 66)
+    elif bad == "N":
+        B = C = torch.zeros(Bb, S, 68)
+    elif bad == "P 6":
+        x, gy = torch.zeros(Bb, S, H, 6), torch.zeros(Bb, S, H, 6)
+    elif bad == "N 10":
+        B = C = torch.zeros(Bb, S, 10)
+    elif bad == "shape":
+        dt = torch.zeros(Bb, S + 1, H)
+    elif bad == "gy":
+        gy = torch.zeros(Bb, S, H, P + 4)
+    elif bad == "gstate":
+        gs = torch.zeros(Bb, H, N, P)
+    else:
+        h0 = torch.zeros(Bb, H, N, P)
+    with pytest.raises(ValueError):
+        skernel.ssm_scan_bwd_cuda(x, dt, A, B, C, gy, gs, h0)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "D", "scale", "contiguous"])
 def test_rmsnorm_kernel_wrapper_checks_arguments(bad):
     x, scale = torch.zeros(4, 64), torch.ones(64)
