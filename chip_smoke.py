@@ -6,8 +6,11 @@
 Run from the root of a checkout. It builds the hand-written CUDA kernels from
 `src/repro_torch/csrc/` with nvcc (into `build/`), then:
 
-  1. environment: the card, its power limit, torch/CUDA versions, build time;
-     TF32 is switched off for float32 matmuls and convolutions;
+  1. environment: the card, its power limit, torch/CUDA versions, build time
+     (every source rebuilt), each kernel function's registers, spilled
+     bytes and static shared memory as ptxas reports them, held to sm_90's
+     255 registers and 227 KB (spills are logged, not failed); TF32 is
+     switched off for float32 matmuls and convolutions;
   2. every kernel wrapper against its plain PyTorch version on the card, on
      the case families of the JAX package's kernel tests; the tensor-core
      decode kernel (a bf16 query over bf16, int8 and fp8 pools, and a bf16
@@ -226,8 +229,17 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
      compute): 2 SFT steps of 8 x 192, 2 reward-model steps of 8 x 160, 1
      RLAIF step at batch 2 with 64-token sketches, each part's wall,
      launches and peak memory;
-  15. one JSON line of the kernels (with their launches on the paths of
-     phases 7 and 9 under "eviction_paths" and of phases 12-14 under
+  15. the dry-run's roofline against the card: qwen3-8b, zamba2-2.7b and
+     qwen2-1.5b at long_500k (B 1 against 524,288 positions; the dense
+     stacks a ring of 4,096) through `launch/dryrun.py` on the host (the
+     step under fake tensors on the plain path: counted flops, bytes,
+     peak), then the same decode step on the card at full width with
+     random bf16 weights: the median step time, its share of the roofline
+     (the larger of the flops and the unique-byte bound), the estimated
+     peak memory against the measured one (not below it by more than
+     10 %), the launches of #8 and #10;
+  16. one JSON line of the kernels (with their launches on the paths of
+     phases 7 and 9 under "eviction_paths" and of phases 12-15 under
      "family_paths"; the backward kernels' from phase 11's full-width
      training), the card's name and power limit, and the final {"ok":
      true, ...} line.
@@ -682,17 +694,51 @@ def phase_environment(torch):
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     log(f"kernel build: {build_s:.1f} s for {', '.join(runtime.KERNELS)}")
-    for name, out in runtime.build_log.items():
-        fn = ""   # the (mangled) kernel ptxas reports on
-        for line in out.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                fn = m.group(1)
-            elif "registers" in line or "spill" in line:
-                log(f"  {name}: {fn[:72]}: {line.strip()}")
+    resource_report(runtime.resource_usage())
     log(f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     return smi
+
+
+def demangled(names):
+    """{mangled: readable} through c++filt where the machine has it (the
+    mangled name itself where it does not)."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True,
+                             timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        out = []
+    if len(out) != len(names):
+        out = names
+    return dict(zip(names, out))
+
+
+def resource_report(rows):
+    """Each kernel function's registers, spilled bytes and static shared
+    memory as ptxas reported them at the build (the compiler's half of the
+    static checker's RA4xx, `repro_torch.analysis.cuda_spec`): every
+    function within sm_90's 255 registers a thread and 227 KB of shared
+    memory a block, and every source reported. Spills are findings, not
+    failures."""
+    from repro_torch.analysis import rules
+    from repro_torch.kernels import runtime
+    assert {r["source"] for r in rows} == set(runtime.KERNELS), \
+        "a kernel source has no build log: its resources are not reported"
+    names = demangled([r["function"] for r in rows])
+    spills = 0
+    for r in rows:
+        log(f"  {r['source']}: {names[r['function']][:100]}: {r['registers']} "
+            f"registers, {r['spill_stores']} / {r['spill_loads']} bytes "
+            f"spilled (stores / loads), {r['smem']} B static shared memory")
+        assert r["registers"] is not None \
+            and r["registers"] <= rules.MAX_REGISTERS, r
+        assert r["smem"] <= rules.SMEM_MAX_BYTES, r
+        spills += r["spill_stores"] > 0
+    log(f"resources: {len(rows)} kernel functions, at most "
+        f"{max(r['registers'] for r in rows)} registers and "
+        f"{max(r['smem'] for r in rows)} B of static shared memory; "
+        f"{spills} spill")
 
 
 def phase_kernels_vs_plain(torch):
@@ -4465,6 +4511,104 @@ def phase_finetune(torch):
     return qwen2_finetune(torch)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry-run's roofline against the card
+# ---------------------------------------------------------------------------
+
+# (architecture, input shape) pairs of the dry-run that one card holds,
+# each run for real: qwen3-8b at long_500k is a ring of 4,096 rows
+# (`adapt_for_shape`) read by #8; zamba2-2.7b's shared attention reads its
+# 524,288-row cache through #8 and its Mamba2 decode runs in plain
+# PyTorch; qwen2-1.5b's ring as qwen3-8b's
+ROOFLINE_PAIRS = (("qwen3-8b", "long_500k"), ("zamba2-2.7b", "long_500k"),
+                  ("qwen2-1.5b", "long_500k"))
+ROOFLINE_RUNS = 11
+# the dry-run's peak may not lie below the card's by more than this
+PEAK_SLACK = 0.10
+
+
+def phase_roofline(torch):
+    """Phase 15: each pair's dry-run on the host (`launch/dryrun.py`,
+    h100x1: the step under fake tensors, plain path), then the same step
+    on the card at full width with random bf16 weights from a seed: its
+    counted flops and bytes, its roofline terms beside the median step
+    time (CUDA events), the step's share of its roofline (the larger term
+    over the measured time), the estimated peak against
+    `torch.cuda.max_memory_allocated` less what earlier phases still hold,
+    and the launches of #8 and #10. The dry-run runs the plain path,
+    which the card's step does not: its bytes accessed count the plain
+    path's float32 copies, so the memory term is the unique-byte bound
+    (arguments read once, outputs written once), which both paths must
+    move, and its peak is the plain path's (an estimate from above).
+    Gates: the dry-run says the pair fits, logits are finite, the estimate
+    is not below the measured peak by more than PEAK_SLACK, and #8 (where
+    the stack has attention) and #10 run. -> {path: launches}."""
+    from repro_torch.configs.registry import SHAPES, get_config
+    from repro_torch.distributed import roofline
+    from repro_torch.launch import dryrun
+    log("== phase 15: the dry-run's roofline against the card")
+    paths = {}
+    for arch, shape_name in ROOFLINE_PAIRS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(arch, shape_name, "h100x1")
+        host_s = time.perf_counter() - t0
+        assert rec["status"] == "ok" and rec["fits"], rec
+        row = roofline.row_from_record(rec)
+        free_card(torch)
+        held = torch.cuda.memory_allocated()    # what earlier phases keep
+        shape = SHAPES[shape_name]
+        cfg = dryrun.dryrun_config(get_config(arch), shape)
+        fn, args = dryrun.build_step(cfg, shape, device="cuda")
+        tokens, cache = args[1], args[2]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        tokens.copy_(torch.randint(0, cfg.vocab_size, tokens.shape,
+                                   generator=gen, device="cuda"))
+        lengths = cache["lengths"]
+        start = lengths.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, launches = counted(torch, lambda: fn(*args))
+        assert torch.isfinite(out[0].float()).all(), arch
+        del out                         # (logits, the cache)
+        times = []
+        for _ in range(ROOFLINE_RUNS):
+            lengths.copy_(start)        # each step reads the whole cache
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            logits = fn(*args)[0]
+            end.record()
+            end.synchronize()
+            times.append(begin.elapsed_time(end))
+        assert torch.isfinite(logits.float()).all(), arch
+        ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() - held
+        est = rec["memory"]["peak_bytes"]
+        terms_ms = {"compute": row.compute_s * 1e3,
+                    "memory": rec["unique_bytes"] / roofline.HBM_BW * 1e3}
+        bound = max(terms_ms, key=terms_ms.get)
+        log(f"{arch} x {shape_name}: dry-run {host_s:.1f} s on the host; "
+            f"counted {rec['flops']:.4e} flops, {rec['unique_bytes']:.4e} B "
+            f"unique ({rec['bytes_accessed']:.4e} B accessed on the plain "
+            f"path); roofline terms compute {terms_ms['compute']:.4f} ms, "
+            f"memory {terms_ms['memory']:.4f} ms ({bound}); step on the "
+            f"card {ms:.4f} ms (median of {ROOFLINE_RUNS}, CUDA events), "
+            f"{100 * terms_ms[bound] / ms:.1f} % of its roofline; peak "
+            f"memory estimated {est / 2 ** 30:.2f} GiB (plain path), "
+            f"measured {peak / 2 ** 30:.2f} GiB, {est / peak:.3f}x; "
+            f"launches #8 {launches['decode_attention']}, #10 "
+            f"{launches['rmsnorm']}")
+        assert est >= (1 - PEAK_SLACK) * peak, (arch, est, peak)
+        assert launches["rmsnorm"] > 0, launches
+        if any(kind != "mamba2" for kind in cfg.block_pattern()):
+            assert launches["decode_attention"] > 0, launches
+        paths[f"{arch} {shape_name} step"] = launches
+        del fn, args, tokens, cache, logits, lengths, start
+    free_card(torch)
+    return paths
+
+
 # the full-width path each kernel's `launches` is read from (phase 5)
 MAIN_PATH = {"paged_decode_attention": "chunked paged pipeline",
              "paged_prefill_attention_ragged": "chunked paged pipeline",
@@ -4534,6 +4678,7 @@ def main() -> int:
     families = timed("phase 12", phase_families, torch)
     families.update(timed("phase 13", phase_stub_families, torch))
     families.update(timed("phase 14", phase_finetune, torch))
+    families.update(timed("phase 15", phase_roofline, torch))
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         path = MAIN_PATH[name]

@@ -810,6 +810,7 @@ int launch_cluster(void (*kernel)(Params...), dim3 grid, int threads,
   cudaLaunchAttribute attr = cluster_attr(grid.x);
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
+  // repro-analysis: disable=RA405 reason=every caller raises its kernel's limit to kMaxSmem through allow_smem() first, and smem > kMaxSmem is refused above
   cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -678,6 +678,7 @@ int launch_rows(const RowsShape& sh, const __nv_bfloat16* x,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const cudaError_t e =
+      // repro-analysis: disable=RA405 reason=sh comes from rows_shape(), whose rows_occupancy<NP> raised this kernel's limit to sh.smem before any launch
       cudaLaunchKernelEx(&cfg, rmsnorm_bwd_rows<NP>, x, scale, g, dx, partial,
                          dscale, R, D, sh.team, eps);
   if (e != cudaSuccess) return (int)e;

@@ -93,6 +93,7 @@ def train_reward_model(cfg: ModelConfig, triples: Sequence[PreferenceTriple],
         params, opt_state, _ = opt_lib.adamw_update(opt_cfg, params, grads,
                                                     opt_state)
         if (i + 1) % 25 == 0 or i == n_steps - 1:
+            # repro-analysis: disable=RA103 reason=one batched read of loss and accuracy a log interval
             loss_h, acc_h = torch.stack([loss, acc]).tolist()
             log_fn(f"RM step {i+1}: loss={loss_h:.4f} "
                    f"pair_acc={acc_h:.3f}")

@@ -18,11 +18,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 import numpy as np
 import torch
@@ -43,7 +44,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-build_log: Dict[str, str] = {}      # name -> nvcc output (ptxas register use)
 
 
 def _nvcc() -> str:
@@ -58,16 +58,23 @@ def _lib_path(name: str) -> Path:
     return BUILD / f"lib{name}.so"
 
 
+def _log_path(name: str) -> Path:
+    """nvcc's output for the library beside it (ptxas's resource use)."""
+    return BUILD / f"lib{name}.ptxas.log"
+
+
 def _stale(name: str) -> bool:
-    """No library yet, or one older than its source or a shared header."""
+    """No library or build log yet, or a library older than its source or
+    a shared header."""
     lib = _lib_path(name)
     sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
-    return not lib.exists() or lib.stat().st_mtime < max(
-        p.stat().st_mtime for p in sources)
+    return not lib.exists() or not _log_path(name).exists() \
+        or lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build_all(names: Sequence[str] = KERNELS) -> None:
-    """Compile every stale source, one nvcc process per file, all at once."""
+    """Compile every stale source, one nvcc process per file, all at once;
+    each library's nvcc output is kept beside it."""
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
@@ -81,13 +88,50 @@ def build_all(names: Sequence[str] = KERNELS) -> None:
     failed = []
     for name, tmp, proc in procs:
         out, _ = proc.communicate()
-        build_log[name] = out
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
             continue
+        _log_path(name).write_text(out)
         os.replace(tmp, _lib_path(name))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def resource_usage(names: Sequence[str] = KERNELS) -> List[dict]:
+    """Each kernel function's resources as ptxas reported them when its
+    library was built (`-Xptxas -v`, what `nvcc --resource-usage` prints,
+    kept beside the library): [{"source", "function" (mangled),
+    "registers", "spill_stores", "spill_loads", "smem" (static shared
+    memory, bytes)}]. Nothing for a source with no build log."""
+    rows = []
+    for name in names:
+        if not _log_path(name).exists():
+            continue
+        out = _log_path(name).read_text()
+        cur, props = None, None
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = {"source": name, "function": m.group(1),
+                       "registers": None, "spill_stores": 0,
+                       "spill_loads": 0, "smem": 0}
+                rows.append(cur)
+                continue
+            m = re.search(r"Function properties for (\w+)", line)
+            if m:
+                props = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and cur is not None and props == cur["function"]:
+                cur["spill_stores"] = int(m.group(1))
+                cur["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["smem"] = int(sm.group(1)) if sm else 0
+    return rows
 
 
 def load(name: str) -> ctypes.CDLL:

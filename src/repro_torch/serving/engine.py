@@ -749,6 +749,7 @@ class InferenceEngine:
         prompt is not padded (S is its own length, at least 1): its
         prefill would scan the padding into the recurrent states."""
         n = len(full_prompt)
+        # repro-analysis: disable=RA201 reason=S is clamped on the next line, S = min(S, self.max_len)
         S = max(n, 1) if self.recurrent else _bucket(n)
         S = min(S, self.max_len)
         padded = np.zeros((1, S), np.int64)
@@ -802,6 +803,7 @@ class InferenceEngine:
             tok = sample(logits, self.sampler, self.gen)
             draws.append(torch.stack([tok.float(),
                                       token_logprob(logits, tok)]))
+        # repro-analysis: disable=RA103 reason=admission's first tokens: one batched read for every slot whose prefill finished this step
         host = torch.cat(draws, dim=1).cpu().numpy()
         for j, (slot, _) in enumerate(rows):
             self._commit(slot, int(host[0, j]), float(host[1, j]))
@@ -1579,5 +1581,6 @@ class InferenceEngine:
         logits, _ = transformer.forward(self.cfg, self.params, dev[None, :-1])
         logp = torch.log_softmax(logits[0].float(), dim=-1)
         gold = logp.gather(-1, dev[1:, None])[:, 0]
+        # repro-analysis: disable=RA103 reason=score() runs outside the step loop: one read of the per-token logprobs a call
         gold = gold.cpu().numpy()[:max(len(toks) - 1, 1)]
         return float(np.mean(gold)), gold

@@ -355,6 +355,7 @@ class EngineFrontend:
     def _ensure_driver(self) -> None:
         try:
             loop = asyncio.get_running_loop()
+        # repro-analysis: disable=RA501 reason=no running loop is the sync-facade path, not a fault; the facade drives via asyncio.run
         except RuntimeError:
             # no running loop: the sync facade drives via asyncio.run
             return

@@ -61,6 +61,7 @@ def train(cfg: ModelConfig, state: TrainState, batches: Iterator,
         if (i + 1) % log_every == 0 or i == n_steps - 1:
             # one device->host read per log_every steps
             names = list(metrics)
+            # repro-analysis: disable=RA103 reason=one read of the metrics every log_every steps
             vals = torch.stack([metrics[k].float().reshape(())
                                 for k in names]).tolist()
             m = dict(zip(names, vals))

@@ -53,3 +53,29 @@ def test_no_jax_or_reference_import(path):
     bad = [m for m in _imported(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"{path.name} imports {bad}"
+
+
+ANALYSIS = sorted((PORT / "analysis").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", ANALYSIS, ids=lambda p: p.name)
+def test_analysis_is_stdlib_only(path):
+    """The static checkers parse source and never import what they check:
+    the standard library and their own package only."""
+    bad = [m for m in _imported(path)
+           if m.split(".")[0] not in sys.stdlib_module_names
+           and not m.startswith("repro_torch.analysis")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_analysis_cli_runs_without_torch(tmp_path):
+    code = ("import sys\n"
+            "for m in ('torch', 'numpy', 'jax', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "from repro_torch.analysis.__main__ import main\n"
+            f"sys.exit(main(['--strict', '--report', {str(tmp_path / 'r.json')!r}]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "0 violation(s)" in out.stdout
