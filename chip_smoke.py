@@ -1952,6 +1952,22 @@ def pin_progressive(scheduler):
     scheduler.schedule = schedule
 
 
+def engine_busy_s(spans, since_ns: int) -> dict:
+    """Host wall in seconds of each engine's top-level `engine.*` spans
+    (steps, prefix prefills, admissions) that began at `since_ns` or later
+    on the `perf_counter` clock, by engine name."""
+    by_id = {s.id: s for s in spans}
+    busy = {}
+    for s in spans:
+        parent = by_id.get(s.parent)
+        if s.start < since_ns or not s.name.startswith("engine.") or (
+                parent is not None and parent.name.startswith("engine.")):
+            continue
+        name = s.attrs["engine"]
+        busy[name] = busy.get(name, 0.0) + (s.end - s.start) / 1e9
+    return busy
+
+
 def run_pipeline(torch, engines, n_requests, label):
     """Profile the engines, build the PICE pipeline (qwen3-8b cloud) and
     answer `n_requests` corpus requests, counting kernel launches over the
@@ -1966,13 +1982,14 @@ def run_pipeline(torch, engines, n_requests, label):
     request from the cloud. Then one more request is answered with the
     decision pinned to progressive, so that the run always drives the edge
     fan-out (and its single-slot prefill kernel)."""
+    from repro_torch import trace
     from repro_torch.data import corpus
     from repro_torch.launch import serve
     from repro_torch.serving.requests import Request, Response
     pipe = serve.build_pipeline(engines, serve.CAPABILITIES,
                                 log_fn=log, cloud_name="qwen3-8b")
     pipe.cfg.ensemble_size = len(engines) - 1
-    before = {n: (e.tokens_generated, e.busy_s) for n, e in engines.items()}
+    before = {n: e.tokens_generated for n, e in engines.items()}
 
     def ask(ex):
         resp = pipe.handle(Request(query=ex.query, category=ex.category,
@@ -1994,15 +2011,20 @@ def run_pipeline(torch, engines, n_requests, label):
         return modes
 
     t0 = time.perf_counter()
-    with MonolithicPrefills(engines) as mono:
-        modes, launches = counted(torch, answer)
+    trace.enable()
+    try:
+        with MonolithicPrefills(engines) as mono:
+            modes, launches = counted(torch, answer)
+    finally:
+        trace.disable()
     wall = time.perf_counter() - t0
     log(f"{label} pipeline: {len(modes)} requests in {wall:.2f} s, modes "
         f"{modes}")
+    busy_of = engine_busy_s(trace.spans(), int(t0 * 1e9))
     generated = {}
     for name, e in engines.items():
-        toks = e.tokens_generated - before[name][0]
-        busy = e.busy_s - before[name][1]
+        toks = e.tokens_generated - before[name]
+        busy = busy_of.get(e.name, 0.0)
         generated[name] = toks
         log(f"  {name} ({label}): {toks} tokens in {busy:.2f} s busy "
             f"({toks / max(busy, 1e-9):.1f} tok/s)")

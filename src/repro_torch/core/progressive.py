@@ -19,6 +19,13 @@ engines. Ensemble members expand concurrently (`handle_async` gathers
 them on one event loop), and many in-flight `handle_async` calls share one
 engine fleet — the serving front-end's load path. `handle` is the
 synchronous single-request facade over it.
+
+While `repro_torch.trace` records, each answer is a `pipeline.answer`
+span carrying its `req_id` (`mode`, `degraded`), over the awaits
+`pipeline.sketch`, `pipeline.cloud_full` and `pipeline.expand` and the
+host sections `pipeline.route` (length guess, schedule, prompt encoding),
+`pipeline.plan` (segmenting, model selection, the expansion plan, the
+prefix and suffix encodings) and `pipeline.ensemble`.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import dataclasses
 import time
 from typing import Dict, List, Optional
 
+from repro_torch import trace
 from repro_torch.core import ensemble as ens
 from repro_torch.core import exec_optimizer, sketch as sketch_lib
 from repro_torch.core.dispatch import MultiListQueue
@@ -89,12 +97,13 @@ class PICEPipeline:
     def predict_length(self, req: Request) -> int:
         return sketch_lib.heuristic_expected_length(req.query, req.category)
 
-    async def _cloud_generate(self, prompt: str, max_new: int,
+    async def _cloud_generate(self, toks: List[int], max_new: int,
                               deadline_s: Optional[float] = None,
                               role: str = "cloud_full"):
-        toks = tok.encode(prompt)
-        (out, lps), = await self.cloud.generate_async(
-            [toks], max_new=max_new, deadline_s=deadline_s, role=role)
+        with trace.span("pipeline.sketch" if role == "sketch"
+                        else "pipeline.cloud_full", awaits=True):
+            (out, lps), = await self.cloud.generate_async(
+                [toks], max_new=max_new, deadline_s=deadline_s, role=role)
         return tok.decode(out), out, lps
 
     def _edge_info_for(self, primary: str) -> EdgeModelInfo:
@@ -114,9 +123,6 @@ class PICEPipeline:
         if resp.degraded:
             self.monitor.record_degraded(resp.degraded)
         resp.queue_wait_s = queue_wait_s
-        # arrival-relative end-to-end latency window (queue wait included
-        # when the request carried an arrival stamp)
-        self.monitor.record_latency(resp.latency_s)
         return resp
 
     # ------------------------------------------------------------------
@@ -133,8 +139,8 @@ class PICEPipeline:
         now = time.perf_counter()
         if deadline is None or now < deadline:
             text, out, _ = await self._cloud_generate(
-                sketch_lib.cloud_full_prompt(req.query), max_new=l_i,
-                deadline_s=deadline, role="cloud_full")
+                tok.encode(sketch_lib.cloud_full_prompt(req.query)),
+                max_new=l_i, deadline_s=deadline, role="cloud_full")
             return self._finish(Response(
                 req_id=req.req_id, text=text.strip(), mode="cloud_full",
                 cloud_tokens=n_sketch_toks + len(out),
@@ -157,6 +163,17 @@ class PICEPipeline:
         return asyncio.run(self.handle_async(req))
 
     async def handle_async(self, req: Request) -> Response:
+        """Answer one request; the `pipeline.answer` span, carrying its
+        `req_id`, is the root of every span made on its behalf."""
+        with trace.span("pipeline.answer", awaits=True,
+                        req_id=req.req_id) as sp:
+            resp = await self._answer(req)
+            if sp is not None:
+                sp.attrs["mode"] = resp.mode
+                sp.attrs["degraded"] = resp.degraded
+        return resp
+
+    async def _answer(self, req: Request) -> Response:
         now = time.perf_counter()
         # latency (and the SLA deadline) anchor at ARRIVAL when the request
         # carries a stamp — time queued upstream counts against the budget
@@ -170,20 +187,27 @@ class PICEPipeline:
         def fault(kind: str) -> None:
             faults[kind] = faults.get(kind, 0) + 1
 
-        # refresh KV-memory telemetry so Eq.(2) sees real page-pool pressure
-        self.monitor.observe_engines(self.edges.values())
-        l_i = min(self.predict_length(req), req.max_new_tokens)
-
-        # short answers: no progressive inference (workflow step 2a)
-        if l_i <= self.cfg.short_answer_tokens:
-            decision = ScheduleDecision(mode="cloud_full")
-        else:
-            decision = self.scheduler.schedule(l_i, sla=req.sla)
+        with trace.span("pipeline.route"):
+            # refresh KV-memory telemetry so Eq.(2) sees real page-pool
+            # pressure
+            self.monitor.observe_engines(self.edges.values())
+            l_i = min(self.predict_length(req), req.max_new_tokens)
+            # short answers: no progressive inference (workflow step 2a)
+            if l_i <= self.cfg.short_answer_tokens:
+                decision = ScheduleDecision(mode="cloud_full")
+            else:
+                decision = self.scheduler.schedule(l_i, sla=req.sla)
+            if decision.mode == "cloud_full":
+                prompt = sketch_lib.cloud_full_prompt(req.query)
+            else:
+                prompt = sketch_lib.cloud_sketch_prompt(
+                    req.query, decision.sketch_tokens)
+            prompt_toks = tok.encode(prompt)
 
         if decision.mode == "cloud_full":
             text, out, _ = await self._cloud_generate(
-                sketch_lib.cloud_full_prompt(req.query), max_new=l_i,
-                deadline_s=deadline, role="cloud_full")
+                prompt_toks, max_new=l_i, deadline_s=deadline,
+                role="cloud_full")
             return self._finish(Response(
                 req_id=req.req_id, text=text.strip(),
                 mode="cloud_full", cloud_tokens=len(out),
@@ -193,19 +217,20 @@ class PICEPipeline:
 
         # ---- progressive path (2b..5) -----------------------------------
         sketch_text, sk_toks, _ = await self._cloud_generate(
-            sketch_lib.cloud_sketch_prompt(req.query, decision.sketch_tokens),
-            max_new=min(decision.sketch_tokens + 10,
-                        self.cfg.max_sketch_tokens),
+            prompt_toks, max_new=min(decision.sketch_tokens + 10,
+                                     self.cfg.max_sketch_tokens),
             deadline_s=deadline, role="sketch")
-        sketch_text = sketch_text.strip()
-        sentences = sketch_lib.segment_sketch(sketch_text)
-        if not sentences:
-            sentences = [sketch_text or req.query]
-
-        task = SketchTask(req_id=req.req_id, query=req.query,
-                          sketch=sketch_text, sentences=sentences,
-                          expected_length=l_i, sketch_tokens=len(sk_toks))
-        if not self.queue.push(task):
+        with trace.span("pipeline.plan"):
+            sketch_text = sketch_text.strip()
+            sentences = sketch_lib.segment_sketch(sketch_text)
+            if not sentences:
+                sentences = [sketch_text or req.query]
+            task = SketchTask(req_id=req.req_id, query=req.query,
+                              sketch=sketch_text, sentences=sentences,
+                              expected_length=l_i,
+                              sketch_tokens=len(sk_toks))
+            pushed = self.queue.push(task)
+        if not pushed:
             # the dispatch queue is full and this task is the least critical
             # of the lot: shed it from the edge path, not from service
             fault("queue_shed")
@@ -234,48 +259,49 @@ class PICEPipeline:
                 len(sk_toks), faults, retries, net_delay,
                 queue_wait_s=queue_wait)
 
-        # Algorithm 2: (re)select the SLM against the remaining budget
-        sel = select_model(decision.edge_model, self.edge_infos, l_i,
-                           task.sketch_tokens, self.scheduler.cloud,
-                           queue_len=len(self.queue),
-                           queue_max=self.cfg.queue_max)
-        einfo = self._edge_info_for(sel.model)
-        primary = einfo.name
+        with trace.span("pipeline.plan"):
+            # Algorithm 2: (re)select the SLM against the remaining budget
+            sel = select_model(decision.edge_model, self.edge_infos, l_i,
+                               task.sketch_tokens, self.scheduler.cloud,
+                               queue_len=len(self.queue),
+                               queue_max=self.cfg.queue_max)
+            einfo = self._edge_info_for(sel.model)
+            primary = einfo.name
 
-        # execution optimizer: binary-tree merge plan
-        budget = self.scheduler.cloud.f(l_i) - self.scheduler.cloud.f(
-            task.sketch_tokens)
+            # execution optimizer: binary-tree merge plan
+            budget = self.scheduler.cloud.f(l_i) - self.scheduler.cloud.f(
+                task.sketch_tokens)
 
-        def lat(p, longest_tokens):
-            return einfo.latency.f(longest_tokens)
+            def lat(p, longest_tokens):
+                return einfo.latency.f(longest_tokens)
 
-        plan = exec_optimizer.plan_expansion(
-            sentences, lat, budget,
-            max_parallelism=self.cfg.max_parallelism)
+            plan = exec_optimizer.plan_expansion(
+                sentences, lat, budget,
+                max_parallelism=self.cfg.max_parallelism)
 
-        # pull the task (single-node real-compute: the queue round-trips)
-        self.queue.pull_batch(1)
-        self.monitor.on_dequeue(l_i)
+            # pull the task (single-node real-compute: the queue round-trips)
+            self.queue.pull_batch(1)
+            self.monitor.on_dequeue(l_i)
 
-        # expand groups on the ensemble of edge engines; under KV-memory
-        # pressure fall back to the primary model alone — unless the fleet
-        # is already absorbing the fan-out via COW prefix sharing (mostly-
-        # shared occupancy means an extra member costs tail pages, not a
-        # second prefix)
-        names = self._ensemble_names(primary)
-        if (self.monitor.kv_utilization > 0.85
-                and self.monitor.kv_shared_fraction <= 0.5):
-            names = names[:1]
-        per_tok = max(len(tok.encode(" ".join(g))) for g in plan.groups)
-        max_new = min(int(per_tok * 3.5) + 24, req.max_new_tokens)
-        # the exec-optimizer's parallel segments all repeat the same
-        # (query, sketch) context: prefill it once per engine and fork the
-        # per-group suffixes off it (paged backend; dense falls back to
-        # independent submissions inside generate_fanout)
-        prefix_toks = tok.encode(
-            sketch_lib.edge_expand_prefix(req.query, sketch_text))
-        suffix_toks = [tok.encode(sketch_lib.edge_expand_suffix(g))
-                       for g in plan.groups]
+            # expand groups on the ensemble of edge engines; under KV-memory
+            # pressure fall back to the primary model alone — unless the fleet
+            # is already absorbing the fan-out via COW prefix sharing (mostly-
+            # shared occupancy means an extra member costs tail pages, not a
+            # second prefix)
+            names = self._ensemble_names(primary)
+            if (self.monitor.kv_utilization > 0.85
+                    and self.monitor.kv_shared_fraction <= 0.5):
+                names = names[:1]
+            per_tok = max(len(tok.encode(" ".join(g))) for g in plan.groups)
+            max_new = min(int(per_tok * 3.5) + 24, req.max_new_tokens)
+            # the exec-optimizer's parallel segments all repeat the same
+            # (query, sketch) context: prefill it once per engine and fork the
+            # per-group suffixes off it (paged backend; dense falls back to
+            # independent submissions inside generate_fanout)
+            prefix_toks = tok.encode(
+                sketch_lib.edge_expand_prefix(req.query, sketch_text))
+            suffix_toks = [tok.encode(sketch_lib.edge_expand_suffix(g))
+                           for g in plan.groups]
         chosen: List[str] = []
         total_conf, edge_tokens = 0.0, 0
         hedges = 0
@@ -317,7 +343,8 @@ class PICEPipeline:
         # members expand CONCURRENTLY (workflow step 4's parallel edge
         # expansion): each fan-out is its own stream of prioritized
         # requests on its engine's front-end, all driven by one event loop
-        member_outs = await asyncio.gather(*launched) if launched else []
+        with trace.span("pipeline.expand", awaits=True):
+            member_outs = await asyncio.gather(*launched) if launched else []
         group_results = {n: outs for n, outs in member_outs
                          if outs is not None}
         if not group_results:
@@ -327,30 +354,32 @@ class PICEPipeline:
                 req, l_i, t_start, budget_s, deadline, sketch_text,
                 len(sk_toks), faults, retries, net_delay,
                 queue_wait_s=queue_wait)
-        degraded = "ensemble_partial" if len(group_results) < len(names) \
-            else ""
-        for gi in range(len(plan.groups)):
-            cands = []
-            for name, outs in group_results.items():
-                out, lps = outs[gi]
-                if not out:
-                    continue      # deadline-cancelled before its first token
-                cands.append(ens.Candidate(
-                    text=tok.decode(out).strip(),
-                    mean_log2_prob=ens.mean_log2_from_nats(lps),
-                    n_tokens=len(out), model=name))
-            if not cands:
-                # no member produced this group: the sketch sentences
-                # themselves are the (terse but correct-topic) fallback
-                chosen.append(" ".join(plan.groups[gi]))
-                degraded = "sketch_groups"
-                continue
-            best, scores = ens.select_best(cands, sketch_text,
-                                           self.cfg.alpha1, self.cfg.alpha2)
-            chosen.append(best.text)
-            total_conf += max(scores)
-            edge_tokens += best.n_tokens
-        text = " ".join(chosen).strip()
+        with trace.span("pipeline.ensemble"):
+            degraded = "ensemble_partial" if len(group_results) < len(names) \
+                else ""
+            for gi in range(len(plan.groups)):
+                cands = []
+                for name, outs in group_results.items():
+                    out, lps = outs[gi]
+                    if not out:
+                        # deadline-cancelled before its first token
+                        continue
+                    cands.append(ens.Candidate(
+                        text=tok.decode(out).strip(),
+                        mean_log2_prob=ens.mean_log2_from_nats(lps),
+                        n_tokens=len(out), model=name))
+                if not cands:
+                    # no member produced this group: the sketch sentences
+                    # themselves are the (terse but correct-topic) fallback
+                    chosen.append(" ".join(plan.groups[gi]))
+                    degraded = "sketch_groups"
+                    continue
+                best, scores = ens.select_best(
+                    cands, sketch_text, self.cfg.alpha1, self.cfg.alpha2)
+                chosen.append(best.text)
+                total_conf += max(scores)
+                edge_tokens += best.n_tokens
+            text = " ".join(chosen).strip()
         return self._finish(Response(
             req_id=req.req_id, text=text, mode="progressive",
             cloud_tokens=len(sk_toks), edge_tokens=edge_tokens,

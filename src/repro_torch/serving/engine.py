@@ -38,6 +38,16 @@ page bytes. Host->device inputs go through pinned memory, so no
 step waits on the device otherwise. With monolithic prefill, fork suffixes
 and eviction carries are teacher-forced one token a step (`Slot.pending`).
 
+While `repro_torch.trace` records, the engine's host work is spans: each
+`step()` is an `engine.step` (attributes: the engine's `name`, `decode`
+the decode rows' cached lengths before the step, `ingest` the ragged rows'
+(offset, n), `pages` in use after it, `cow` and `new_pages` made by page
+growth, and `graph` whether a decode graph was replayed) over its halves
+`engine.readback` (`what`: "decode" or "first_draw"), `engine.commit`,
+`engine.plan`, `engine.ingest` and `engine.decode`; `prefill_prefix` is an
+`engine.prefix` (`chunks`: the (offset, n) of each prefill call) and an
+admission an `engine.admit`.
+
 On a CUDA device the attention reads and the Mamba2 scans run through the
 hand-written kernels; on the CPU through their plain versions (tests).
 `score()` runs the full-sequence forward through the flash-attention and
@@ -85,7 +95,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, trace
 from repro_torch.kernels import runtime
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
@@ -163,6 +173,11 @@ class _Resume:
 # Public name for the request-handle admission API (`InferenceEngine
 # .try_admit`): the serving front-end builds these for fresh submissions.
 EngineRequest = _Resume
+
+
+# the `what` of an `engine.readback` span
+_DECODE = {"what": "decode"}
+_FIRST_DRAW = {"what": "first_draw"}
 
 
 def _bucket(n: int, lo: int = 32) -> int:
@@ -257,7 +272,6 @@ class InferenceEngine:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.tokens_generated = 0
-        self.busy_s = 0.0
         self._arrivals = 0
         self.evictions = 0
         self.peak_pages = 0
@@ -612,39 +626,41 @@ class InferenceEngine:
         no bucketed width), rebuild the block-table row, and restore the
         slot so the next step's decode continues from the last sampled
         token. No prefill replay and no draw from the generator."""
-        slot = self.free_slots()[0]
-        t0 = time.perf_counter()
-        self._t_admit.setdefault(r.req_id, t0)
-        self._prune_admit_stamps()
-        uploads = self.alloc.promote(r.req_id, slot)    # MemoryError if dry
-        chain = self.alloc.owned[slot]
-        self.block_table[slot, :] = -1
-        self.block_table[slot, :len(chain)] = chain
-        self._mark_table_dirty()
-        sw = r.swap
-        payloads = [] if not uploads else self._swap_payloads(
-            sw["host"].to(self.device), sw["pages"])
-        self.cache = transformer.promote_slot_paged(
-            self.cfg, self.cache, [p for _, p in uploads], payloads, slot,
-            sw["ctx_len"])
-        self.swap_ins += 1
-        self.swap_bytes += sw["pages"] * self._page_kv_bytes
-        s = self.slots[slot]
-        s.req_id, s.active = r.req_id, True
-        s.prompt = list(r.prompt)
-        s.tokens, s.logprobs = list(r.carry_tokens), list(r.carry_lps)
-        s.max_new, s.generated = r.max_new, len(r.carry_tokens)
-        s.ctx_len = sw["ctx_len"]
-        s.pending = list(sw["pending"])
-        s.prefill_toks = list(sw["prefill_toks"])
-        s.fork_src, s.suffix = sw["fork_src"], list(sw["suffix"])
-        s.evicted, s.priority = False, r.priority
-        s.truncated = sw["truncated"]
-        s.arrival = self._arrivals
-        self._arrivals += 1
-        self._track_peak()
-        self.busy_s += time.perf_counter() - t0
-        return slot
+        with trace.span("engine.admit") as sp:
+            if sp is not None:
+                sp.attrs["engine"] = self.name
+            slot = self.free_slots()[0]
+            self._t_admit.setdefault(r.req_id, time.perf_counter())
+            self._prune_admit_stamps()
+            # MemoryError if the pool is dry
+            uploads = self.alloc.promote(r.req_id, slot)
+            chain = self.alloc.owned[slot]
+            self.block_table[slot, :] = -1
+            self.block_table[slot, :len(chain)] = chain
+            self._mark_table_dirty()
+            sw = r.swap
+            payloads = [] if not uploads else self._swap_payloads(
+                sw["host"].to(self.device), sw["pages"])
+            self.cache = transformer.promote_slot_paged(
+                self.cfg, self.cache, [p for _, p in uploads], payloads, slot,
+                sw["ctx_len"])
+            self.swap_ins += 1
+            self.swap_bytes += sw["pages"] * self._page_kv_bytes
+            s = self.slots[slot]
+            s.req_id, s.active = r.req_id, True
+            s.prompt = list(r.prompt)
+            s.tokens, s.logprobs = list(r.carry_tokens), list(r.carry_lps)
+            s.max_new, s.generated = r.max_new, len(r.carry_tokens)
+            s.ctx_len = sw["ctx_len"]
+            s.pending = list(sw["pending"])
+            s.prefill_toks = list(sw["prefill_toks"])
+            s.fork_src, s.suffix = sw["fork_src"], list(sw["suffix"])
+            s.evicted, s.priority = False, r.priority
+            s.truncated = sw["truncated"]
+            s.arrival = self._arrivals
+            self._arrivals += 1
+            self._track_peak()
+            return slot
 
     def _live_pages(self, active: List[int]) -> int:
         """Read width for this decode step: enough block-table columns to
@@ -774,16 +790,22 @@ class InferenceEngine:
         # park in the LAST free slot: forks then land on the same batch rows
         # as independent submissions would
         slot = free[-1]
-        t0 = time.perf_counter()
-        toks, padded, _ = self._pad_prompt(list(prefix))
-        logits = self._prefill_into(slot, toks, padded)
+        with trace.span("engine.prefix") as sp:
+            toks, padded, _ = self._pad_prompt(list(prefix))
+            if sp is not None:
+                # the (offset, n) of each prefill call
+                n = len(toks)
+                size = self.prefill_chunk or max(n, 1)
+                sp.attrs["engine"] = self.name
+                sp.attrs["chunks"] = tuple(
+                    (o, min(size, n - o)) for o in range(0, max(n, 1), size))
+            logits = self._prefill_into(slot, toks, padded)
         s = self.slots[slot]
         s.req_id, s.active, s.parked = -1, False, True
         s.prompt = list(prefix)
         s.tokens, s.logprobs, s.pending, s.prefill_toks = [], [], [], []
         s.ctx_len = len(toks)
         self._prefix_logits[slot] = logits
-        self.busy_s += time.perf_counter() - t0
         return slot
 
     def release_prefix(self, slot: int) -> None:
@@ -803,8 +825,10 @@ class InferenceEngine:
             tok = sample(logits, self.sampler, self.gen)
             draws.append(torch.stack([tok.float(),
                                       token_logprob(logits, tok)]))
-        # repro-analysis: disable=RA103 reason=admission's first tokens: one batched read for every slot whose prefill finished this step
-        host = torch.cat(draws, dim=1).cpu().numpy()
+        packed = torch.cat(draws, dim=1)
+        with trace.span("engine.readback", _FIRST_DRAW):
+            # repro-analysis: disable=RA103 reason=admission's first tokens: one batched read for every slot whose prefill finished this step
+            host = packed.cpu().numpy()
         for j, (slot, _) in enumerate(rows):
             self._commit(slot, int(host[0, j]), float(host[1, j]))
 
@@ -827,94 +851,97 @@ class InferenceEngine:
         now. `prompt` must be the full logical prompt (prefix + suffix) so
         eviction can always fall back to a fresh prefill. `priority` orders
         eviction (see `_evict_victim`)."""
-        suffix = list(suffix or [])
-        carry_tokens = carry_tokens or []
-        carry_lps = carry_lps or []
-        if share_from is not None:
-            src = self.slots[share_from]
-            assert src.parked and share_from in self._prefix_logits, \
-                "share_from must be a parked prefill_prefix slot"
-            if src.ctx_len + len(suffix) + len(carry_tokens) > self.max_len:
-                share_from = None       # would overflow: ingest from scratch
-        free = self.free_slots()
-        if not free:
-            raise RuntimeError("no free slot")
-        slot = free[0]
-        t0 = time.perf_counter()
-        self._t_admit.setdefault(req_id, t0)
-        self._prune_admit_stamps()
+        with trace.span("engine.admit") as sp:
+            if sp is not None:
+                sp.attrs["engine"] = self.name
+            suffix = list(suffix or [])
+            carry_tokens = carry_tokens or []
+            carry_lps = carry_lps or []
+            if share_from is not None:
+                src = self.slots[share_from]
+                assert src.parked and share_from in self._prefix_logits, \
+                    "share_from must be a parked prefill_prefix slot"
+                if src.ctx_len + len(suffix) + len(carry_tokens) \
+                        > self.max_len:
+                    # would overflow: ingest from scratch
+                    share_from = None
+            free = self.free_slots()
+            if not free:
+                raise RuntimeError("no free slot")
+            slot = free[0]
+            self._t_admit.setdefault(req_id, time.perf_counter())
+            self._prune_admit_stamps()
 
-        dropped = 0
-        ingest: List[int] = []          # chunked: tokens step() feeds
-        pending: List[int] = []         # monolithic fork: teacher-forced
-        logits = None
-        if share_from is not None:
-            src = self.slots[share_from]
-            # MemoryError if the tail copy cannot be allocated
-            dst_pages, tail_src, tail_dst = self.alloc.fork(
-                share_from, slot, src.ctx_len)
-            self._track_peak()
-            self.block_table[slot, :] = -1
-            self.block_table[slot, :len(dst_pages)] = dst_pages
-            self.cache = transformer.fork_slot_paged(
-                self.cfg, self.cache, share_from, slot, tail_src, tail_dst)
-            logits = self._prefix_logits[share_from]
-            ctx = src.ctx_len
-            pending = suffix + carry_tokens
-            if self.prefill_chunk and pending:
-                # the replay goes through chunks: map the pages it will
-                # write up front (can_admit_fork gated on this need)
-                target = -(-min(ctx + len(pending), self.max_len)
-                           // self.page_size)
-                while len(self.alloc.owned[slot]) < target:
-                    p = self.alloc.extend(
-                        slot, (len(self.alloc.owned[slot]) + 1)
-                        * self.page_size)
-                    self.block_table[slot,
-                                     len(self.alloc.owned[slot]) - 1] = p
+            dropped = 0
+            ingest: List[int] = []          # chunked: tokens step() feeds
+            pending: List[int] = []         # monolithic fork: teacher-forced
+            logits = None
+            if share_from is not None:
+                src = self.slots[share_from]
+                # MemoryError if the tail copy cannot be allocated
+                dst_pages, tail_src, tail_dst = self.alloc.fork(
+                    share_from, slot, src.ctx_len)
                 self._track_peak()
-                ingest, pending = pending, []
-            self._mark_table_dirty()
-        elif self.prefill_chunk:
-            full = list(prompt) + carry_tokens
-            toks = full[-self.max_len:]
-            dropped = len(full) - len(toks)
-            self._alloc_slot_pages(slot, len(toks))
-            ctx, ingest = 0, list(toks)
-            if not toks:
-                # degenerate empty prompt: ingest one zero-length chunk now
-                # so the first sample has logits
-                logits = self._prefill_into_chunks(slot, toks)
-        else:
-            toks, padded, dropped = self._pad_prompt(
-                list(prompt) + carry_tokens)
-            logits = self._prefill_into(slot, toks, padded)
-            ctx = len(toks)
+                self.block_table[slot, :] = -1
+                self.block_table[slot, :len(dst_pages)] = dst_pages
+                self.cache = transformer.fork_slot_paged(
+                    self.cfg, self.cache, share_from, slot, tail_src, tail_dst)
+                logits = self._prefix_logits[share_from]
+                ctx = src.ctx_len
+                pending = suffix + carry_tokens
+                if self.prefill_chunk and pending:
+                    # the replay goes through chunks: map the pages it will
+                    # write up front (can_admit_fork gated on this need)
+                    target = -(-min(ctx + len(pending), self.max_len)
+                               // self.page_size)
+                    while len(self.alloc.owned[slot]) < target:
+                        p = self.alloc.extend(
+                            slot, (len(self.alloc.owned[slot]) + 1)
+                            * self.page_size)
+                        self.block_table[slot,
+                                         len(self.alloc.owned[slot]) - 1] = p
+                    self._track_peak()
+                    ingest, pending = pending, []
+                self._mark_table_dirty()
+            elif self.prefill_chunk:
+                full = list(prompt) + carry_tokens
+                toks = full[-self.max_len:]
+                dropped = len(full) - len(toks)
+                self._alloc_slot_pages(slot, len(toks))
+                ctx, ingest = 0, list(toks)
+                if not toks:
+                    # degenerate empty prompt: ingest one zero-length chunk now
+                    # so the first sample has logits
+                    logits = self._prefill_into_chunks(slot, toks)
+            else:
+                toks, padded, dropped = self._pad_prompt(
+                    list(prompt) + carry_tokens)
+                logits = self._prefill_into(slot, toks, padded)
+                ctx = len(toks)
 
-        s = self.slots[slot]
-        s.req_id, s.active = req_id, True
-        s.prompt = list(prompt)
-        s.tokens, s.logprobs = list(carry_tokens), list(carry_lps)
-        s.max_new, s.generated = max_new, len(carry_tokens)
-        s.ctx_len = ctx
-        s.pending = list(pending)
-        s.prefill_toks = list(ingest)
-        s.fork_src = share_from if share_from is not None else -1
-        s.suffix = suffix if share_from is not None else []
-        s.evicted = False
-        s.priority = priority
-        s.truncated = dropped > 0
-        if dropped:
-            self.truncations[req_id] = dropped
-        s.arrival = self._arrivals
-        self._arrivals += 1
-        self._track_peak()
-        if not s.pending and not s.prefill_toks:
-            # sample the first token from the (possibly shared) prefill
-            # logits; otherwise it comes after the last ingested token
-            self._first_draws([(slot, logits)])
-        self.busy_s += time.perf_counter() - t0
-        return slot
+            s = self.slots[slot]
+            s.req_id, s.active = req_id, True
+            s.prompt = list(prompt)
+            s.tokens, s.logprobs = list(carry_tokens), list(carry_lps)
+            s.max_new, s.generated = max_new, len(carry_tokens)
+            s.ctx_len = ctx
+            s.pending = list(pending)
+            s.prefill_toks = list(ingest)
+            s.fork_src = share_from if share_from is not None else -1
+            s.suffix = suffix if share_from is not None else []
+            s.evicted = False
+            s.priority = priority
+            s.truncated = dropped > 0
+            if dropped:
+                self.truncations[req_id] = dropped
+            s.arrival = self._arrivals
+            self._arrivals += 1
+            self._track_peak()
+            if not s.pending and not s.prefill_toks:
+                # sample the first token from the (possibly shared) prefill
+                # logits; otherwise it comes after the last ingested token
+                self._first_draws([(slot, logits)])
+            return slot
 
     def _prune_admit_stamps(self):
         """Bound `_t_admit` without losing live requests' TTFT: only stamps
@@ -953,8 +980,9 @@ class InferenceEngine:
         safe: copy-on-write any shared page the write would land in, and map
         a fresh page when the slot crosses a page boundary; evict the
         lowest-priority youngest request when the pool is dry. Raises
-        MemoryError only if a lone request cannot grow."""
-        changed = False
+        MemoryError only if a lone request cannot grow. Returns the number
+        of pages copied on write and of fresh pages mapped."""
+        cows = fresh = 0
         for i, s in enumerate(self.slots):
             if not s.active or s.ctx_len >= self.max_len or s.prefill_toks:
                 continue
@@ -975,14 +1003,15 @@ class InferenceEngine:
                 # device-side page copy: fork op with src == dst slot
                 self.cache = transformer.fork_slot_paged(
                     self.cfg, self.cache, i, i, old, new)
-                changed = True
+                cows += 1
                 self._track_peak()
             if newp is not None:
                 self.block_table[i, len(self.alloc.owned[i]) - 1] = newp
-                changed = True
+                fresh += 1
                 self._track_peak()
-        if changed:
+        if cows or fresh:
             self._mark_table_dirty()
+        return cows, fresh
 
     def _harvest(self) -> bool:
         """Read back and commit the decode step launched LAST step(): one
@@ -991,13 +1020,13 @@ class InferenceEngine:
             return False
         commits, packed = self._pending_decode
         self._pending_decode = None
-        t0 = time.perf_counter()
-        host = packed.cpu().numpy()
-        for i in commits:
-            # the guard covers direct _evict_victim calls (tests)
-            if self.slots[i].active:
-                self._commit(i, int(host[0, i]), float(host[1, i]))
-        self.busy_s += time.perf_counter() - t0
+        with trace.span("engine.readback", _DECODE):
+            host = packed.cpu().numpy()
+        with trace.span("engine.commit"):
+            for i in commits:
+                # the guard covers direct _evict_victim calls (tests)
+                if self.slots[i].active:
+                    self._commit(i, int(host[0, i]), float(host[1, i]))
         return True
 
     def _plan_decode(self, active_ids: List[int]) -> StepPlan:
@@ -1043,22 +1072,25 @@ class InferenceEngine:
         toks = sample(logits, self.sampler, self.gen, noise=noise)
         return torch.stack([toks.float(), token_logprob(logits, toks)])
 
-    def _dispatch_decode(self, plan: StepPlan):
+    def _dispatch_decode(self, plan: StepPlan) -> bool:
         """The "run" half: one decode step + sample + logprob on the device,
         read back at the next step's harvest; the captured graph of the
-        plan's live width is replayed when warmup() captured one."""
+        plan's live width is replayed when warmup() captured one. Returns
+        whether a graph was replayed."""
         if self.kv_backend == "paged":
             self.kv_bytes_read += self._page_kv_bytes * sum(
                 -(-self.slots[i].ctx_len // self.page_size)
                 for i in plan.active_ids)
         graph = self._graphs.get(plan.live)
-        if graph is not None:
-            packed = self._replay_decode(graph, plan)
-        else:
-            packed = self._decode_sample(self._to_device(plan.last),
-                                         self._to_device(plan.mask),
-                                         plan.live)
+        with trace.span("engine.decode"):
+            if graph is not None:
+                packed = self._replay_decode(graph, plan)
+            else:
+                packed = self._decode_sample(self._to_device(plan.last),
+                                             self._to_device(plan.mask),
+                                             plan.live)
         self._pending_decode = (plan.commits, packed)
+        return graph is not None
 
     def _replay_decode(self, graph: _DecodeGraph, plan: StepPlan
                        ) -> torch.Tensor:
@@ -1157,15 +1189,16 @@ class InferenceEngine:
                                 _tensors((self.cache, self.params))]
             self._graph_sampler = self.sampler
 
-    def _run_ingest(self) -> bool:
+    def _run_ingest(self) -> List[Tuple[int, int, List[int]]]:
         """Batched ragged chunk ingest: EVERY ingesting slot's next chunk in
         one `prefill_ragged_paged` call. Slots whose final chunk lands here
         draw their first token now, in (priority, admission) order, and join
-        the decode batch next step."""
+        the decode batch next step. Returns the rows ingested, (slot,
+        offset, chunk) in launch order."""
         ing = [i for i, s in enumerate(self.slots)
                if s.active and s.prefill_toks]
         if not ing:
-            return False
+            return []
         ing.sort(key=lambda j: (-self.slots[j].priority,
                                 self.slots[j].arrival))
         C = self.prefill_chunk
@@ -1193,14 +1226,15 @@ class InferenceEngine:
         self.kv_bytes_read += self._page_kv_bytes * sum(
             -(-(off + len(chunk)) // self.page_size)
             for _, off, chunk in rows)
-        logits, self.cache = transformer.prefill_ragged_paged(
-            self.cfg, self.params, self._to_device(toks), self.cache,
-            slots, offs, lens, live_pages=live)
+        with trace.span("engine.ingest"):
+            logits, self.cache = transformer.prefill_ragged_paged(
+                self.cfg, self.params, self._to_device(toks), self.cache,
+                slots, offs, lens, live_pages=live)
         finished = [(i, logits[r:r + 1]) for r, (i, _, _) in enumerate(rows)
                     if self.slots[i].active and not self.slots[i].prefill_toks]
         if finished:
             self._first_draws(finished)
-        return True
+        return rows
 
     def step(self) -> bool:
         """One engine step, structured plan/run: (0) harvest last step's
@@ -1214,42 +1248,67 @@ class InferenceEngine:
         when its last chunk lands (its block-table row is pushed for the
         chunk). Returns True if work was done (including a harvest-only
         step)."""
-        if self.step_hook is not None:
-            self.step_hook(self)
-        worked = self._harvest()
-        if not any(s.active for s in self.slots):
-            return worked
-        t0 = time.perf_counter()
-        paged = self.kv_backend == "paged"
-        batched = self.prefill_chunk and self.ragged_ingest
-        if self.prefill_chunk and not batched:
-            # serial scheduler: one chunk for the most urgent ingesting
-            # slot (highest priority, then oldest admission), which joins
-            # the decode batch this same step
-            pref = [i for i, s in enumerate(self.slots)
-                    if s.active and s.prefill_toks]
-            if pref:
-                self._ingest_chunk(min(
-                    pref, key=lambda j: (-self.slots[j].priority,
-                                         self.slots[j].arrival)))
+        with trace.span("engine.step") as sp:
+            if self.step_hook is not None:
+                self.step_hook(self)
+            worked = self._harvest()
+            if not any(s.active for s in self.slots):
+                if sp is not None:
+                    sp.attrs["engine"] = self.name
+                return worked
+            paged = self.kv_backend == "paged"
+            batched = self.prefill_chunk and self.ragged_ingest
+            chunks = ()         # (offset, n) of each chunk ingested
+            if self.prefill_chunk and not batched:
+                # serial scheduler: one chunk for the most urgent ingesting
+                # slot (highest priority, then oldest admission), which
+                # joins the decode batch this same step
+                with trace.span("engine.plan"):
+                    pref = [i for i, s in enumerate(self.slots)
+                            if s.active and s.prefill_toks]
+                    j = min(pref, key=lambda j: (-self.slots[j].priority,
+                                                 self.slots[j].arrival)) \
+                        if pref else None
+                if j is not None:
+                    if sp is not None:
+                        s = self.slots[j]
+                        chunks = ((s.ctx_len, min(len(s.prefill_toks),
+                                                  self.prefill_chunk)),)
+                    with trace.span("engine.ingest"):
+                        self._ingest_chunk(j)
+                    worked = True
+            with trace.span("engine.plan"):
+                active = [i for i, s in enumerate(self.slots)
+                          if s.active and not s.prefill_toks]
+                grown = (0, 0)
+                if paged and active:
+                    # may evict, incl. mid-ingest slots
+                    grown = self._grow_pages()
+                    active = [i for i, s in enumerate(self.slots)
+                              if s.active and not s.prefill_toks]
+                if sp is not None:
+                    decode = tuple(self.slots[i].ctx_len for i in active)
+                plan = self._plan_decode(active) if active else None
+                if paged:
+                    # ONE table push per step, before the first launch that
+                    # reads it
+                    self._sync_table()
+            if batched:
+                rows = self._run_ingest()
+                if sp is not None:
+                    chunks = tuple((off, len(c)) for _, off, c in rows)
+                worked = bool(rows) or worked
+            replayed = False
+            if plan is not None:
+                replayed = self._dispatch_decode(plan)
                 worked = True
-        active = [i for i, s in enumerate(self.slots)
-                  if s.active and not s.prefill_toks]
-        if paged and active:
-            self._grow_pages()          # may evict, incl. mid-ingest slots
-            active = [i for i, s in enumerate(self.slots)
-                      if s.active and not s.prefill_toks]
-        plan = self._plan_decode(active) if active else None
-        if paged:
-            # ONE table push per step, before the first launch that reads it
-            self._sync_table()
-        if batched:
-            worked = self._run_ingest() or worked
-        if plan is not None:
-            self._dispatch_decode(plan)
-            worked = True
-        self.busy_s += time.perf_counter() - t0
-        return worked
+            if sp is not None:
+                sp.attrs.update(engine=self.name, decode=decode,
+                                ingest=chunks, cow=grown[0],
+                                new_pages=grown[1], graph=replayed)
+                if paged:
+                    sp.attrs["pages"] = self.alloc.pages_in_use
+            return worked
 
     def warmup(self, *, max_context: Optional[int] = None,
                prompt_lens: Tuple[int, ...] = (),

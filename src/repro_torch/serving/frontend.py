@@ -37,15 +37,24 @@ cancelled through `engine.cancel` (pending-decode commits pruned, survivor
 streams bit-identical) and its handle finishes with reason "deadline" and
 whatever tokens it produced. TTFT/TPOT/latency are recorded per request
 FROM ARRIVAL — queue wait included.
+
+While `repro_torch.trace` records, each driver iteration is a
+`frontend.tick` span, and each request's wait from submission to
+admission (or shedding, cancellation, a refused admission) a
+`frontend.queued` span (`role`, `outcome`) whose parent is the submitting
+coroutine's span. The driver runs in a context of its own, so its spans
+belong to no answer.
 """
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import dataclasses
 import itertools
 import time
 from typing import AsyncIterator, Dict, List, Optional, Tuple
 
+from repro_torch import trace
 from repro_torch.core.dispatch import MultiListQueue
 from repro_torch.serving.engine import EngineRequest, InferenceEngine
 from repro_torch.serving.requests import TIER_PRIORITY
@@ -186,6 +195,17 @@ class _Queued:
         self.handle = handle
         self.work = work
         self.expected_length = handle.req.max_tokens
+        # the `frontend.queued` span, open until admission, shedding or
+        # cancellation (None while tracing is off)
+        self.span = trace.begin("frontend.queued")
+        if self.span is not None:
+            self.span.attrs["role"] = handle.req.role
+
+    def dequeued(self, outcome: str) -> None:
+        sp, self.span = self.span, None
+        if sp is not None:
+            sp.attrs["outcome"] = outcome
+            trace.end(sp)
 
 
 class EngineFrontend:
@@ -360,7 +380,10 @@ class EngineFrontend:
             # no running loop: the sync facade drives via asyncio.run
             return
         if self._driver is None or self._driver.done():
-            self._driver = loop.create_task(self._drive())
+            # a context of its own: the driver's spans are no answer's
+            # children, whichever answer's submission started it
+            self._driver = loop.create_task(self._drive(),
+                                            context=contextvars.Context())
 
     def _has_work(self) -> bool:
         return bool(self._slot_of or self._resumes or self._lane
@@ -373,28 +396,36 @@ class EngineFrontend:
         engine = self.engine
         try:
             while True:
-                self._sweep_deadlines(time.perf_counter())
-                try:
-                    self._admit()
-                    if any(s.active for s in engine.slots):
-                        engine.step()
-                except Exception as exc:   # EngineCrash, or any step fault
-                    self.on_crash(exc)
-                self._publish_and_settle()
-                for r in engine.drain_resumes():
-                    if r.req_id in self._live:
-                        self._live[r.req_id].state = "evicted"
-                        self._resumes.append(r)
-                    else:
-                        # not ours (cancelled in the same step): drop
-                        if r.swap is not None:
-                            engine.alloc.drop_hosted(r.req_id)
-                        self.dropped_resumes += 1
+                with trace.span("frontend.tick") as sp:
+                    if sp is not None:
+                        sp.attrs["engine"] = engine.name
+                    self._tick()
                 if not self._has_work():
                     return
                 await asyncio.sleep(0)
         finally:
             self._driver = None
+
+    def _tick(self) -> None:
+        """One driver iteration, up to its yield to the loop."""
+        engine = self.engine
+        self._sweep_deadlines(time.perf_counter())
+        try:
+            self._admit()
+            if any(s.active for s in engine.slots):
+                engine.step()
+        except Exception as exc:   # EngineCrash, or any step fault
+            self.on_crash(exc)
+        self._publish_and_settle()
+        for r in engine.drain_resumes():
+            if r.req_id in self._live:
+                self._live[r.req_id].state = "evicted"
+                self._resumes.append(r)
+            else:
+                # not ours (cancelled in the same step): drop
+                if r.swap is not None:
+                    engine.alloc.drop_hosted(r.req_id)
+                self.dropped_resumes += 1
 
     def on_crash(self, exc: BaseException) -> None:
         """An injected (or real) engine crash mid-step: scrub the engine,
@@ -471,6 +502,7 @@ class EngineFrontend:
             if slot is None:
                 return
             self._remove_queued(q)
+            q.dequeued("admitted")
             rid = q.work.req_id
             self._live[rid] = q.handle
             self._slot_of[rid] = slot
@@ -532,6 +564,9 @@ class EngineFrontend:
 
     def _finish(self, h: RequestHandle, reason: str,
                 error: Optional[BaseException] = None) -> None:
+        if h._queued is not None:
+            # still queued: shed, cancelled or refused admission
+            h._queued.dequeued(reason)
         h.state = _REASON_STATE[reason]
         h.finish_reason = reason
         h.error = error
