@@ -163,12 +163,15 @@ Run from the root of a checkout. It builds the hand-written CUDA kernels from
   10. warmed engines against cold ones (phase 6's, over the same weight
      tensors: chunked paged qwen3-8b over bf16 and int8 pools, qwen2-1.5b,
      monolithic paged zamba2-2.7b and xlstm-1.3b): `warmup()`'s seconds,
-     dispatches, captured decode graphs and reserved memory; phase 6's
-     batch must give the same greedy tokens, logprobs and launches of
-     every wrapper warmed as cold, every warmed decode step a graph replay
-     (none dispatched eagerly), and a sampled pair
+     dispatches, captured decode and ingest graphs and reserved memory;
+     phase 6's batch must give the same greedy tokens, logprobs and
+     launches of every wrapper warmed as cold, every warmed decode step and
+     batched ragged ingest a graph replay (none dispatched eagerly), and a
+     sampled pair
      from one seed the same tokens; a decode-only step's host wall time
-     cold and warmed; the warmed run profiled as in phase 6,
+     cold and warmed; one ingest call of 1 and 4 rows eager (cold) and
+     replayed (warmed), qwen3-8b and qwen2-1.5b, its host wall to its
+     return and to the device's end; the warmed run profiled as in phase 6,
      wall, device busy, busy share and launch calls a model call logged
      cold against warmed;
   11. training (float32 masters, the backward kernels): TINY_EDGE_A,
@@ -1871,6 +1874,14 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def _cloned(tree):
+    if isinstance(tree, dict):
+        return {k: _cloned(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cloned(v) for v in tree]
+    return tree.clone()
+
+
 def kernel_counters():
     """Every kernel wrapper of the port, by the name its counter reports."""
     from repro_torch import kernels
@@ -2873,6 +2884,8 @@ def warm_engine(torch, name, eng, max_context, plen):
     torch.cuda.empty_cache()
     log(f"{name}: warmup() {secs:.2f} s, {count} dispatches, "
         f"{len(eng._graphs)} graphs (live widths {sorted(eng._graphs)}), "
+        f"{len(eng._ingest_graphs)} ingest graphs (row buckets "
+        f"{sorted(eng._ingest_graphs)}), "
         f"{torch.cuda.memory_reserved() - reserved} B of device memory left "
         f"reserved (the graphs' pool, buffers and workspaces)")
     assert eng._graphs, f"{name}: warmup captured no graph"
@@ -2883,19 +2896,25 @@ def warm_against_cold(torch, name, cold, warm, prompts, new):
     """`prompts` through a cold engine, then through a warmed one over the
     same weights: the same greedy tokens, logprobs within phase 4's
     tolerance (the largest difference logged), the same launches of every
-    wrapper, and every decode step of the warmed engine a graph replay (none
-    dispatched eagerly). -> {"cold_s", "warm_s": each run's host wall
+    wrapper, every decode step of the warmed engine a graph replay (none
+    dispatched eagerly) and, on a chunked engine with the batched ragged
+    ingest, every ingest too. -> {"cold_s", "warm_s": each run's host wall
     (synchronized), "launches": the cold run's launches}."""
+    from repro_torch.models import transformer
     decode = ("paged_decode_attention_quant" if cold.cfg.kv_quantized
               else "paged_decode_attention")
     t0 = time.perf_counter()
     want, n_cold = counted(torch, lambda: cold.generate(prompts, max_new=new))
     cold_s = time.perf_counter() - t0
     replays = warm.graph_replays
-    eager = []
+    ingest_replays = warm.ingest_replays
+    eager, eager_ingest = [], []
     decode_sample = warm._decode_sample
     warm._decode_sample = lambda *a, **kw: (eager.append(1),
                                             decode_sample(*a, **kw))[1]
+    ragged = transformer.prefill_ragged_paged
+    transformer.prefill_ragged_paged = lambda *a, **kw: (
+        eager_ingest.append(1), ragged(*a, **kw))[1]
     try:
         t0 = time.perf_counter()
         got, n_warm = counted(
@@ -2906,8 +2925,13 @@ def warm_against_cold(torch, name, cold, warm, prompts, new):
         # graphs the cyclic collector could then free during a later
         # capture, which a capture does not allow
         del warm._decode_sample
+        transformer.prefill_ragged_paged = ragged
     replays = warm.graph_replays - replays
+    ingest_replays = warm.ingest_replays - ingest_replays
     assert not eager, f"{name}: {len(eager)} decode steps ran eagerly"
+    if warm.prefill_chunk and warm.ragged_ingest:
+        assert not eager_ingest and ingest_replays > 0, \
+            f"{name}: {len(eager_ingest)} ragged ingests ran eagerly"
     worst = 0.0
     for i, ((tg, lg), (tc, lc)) in enumerate(zip(got, want)):
         assert tg == tc, f"{name}: request {i}'s greedy tokens differ " \
@@ -2922,8 +2946,82 @@ def warm_against_cold(torch, name, cold, warm, prompts, new):
     log(f"  greedy, {new} new tokens: tokens equal, largest logprob "
         f"difference {worst:.3g}, launches equal "
         f"({ {k: n for k, n in n_warm.items() if n} }), {replays} graph "
-        f"replays")
+        f"replays, {ingest_replays} ingest replays")
     return {"cold_s": cold_s, "warm_s": warm_s, "launches": n_cold}
+
+
+def replay_equals_eager(torch, eng):
+    """Wrap `eng._replay_ingest` so that its next call is held to the eager
+    call at the rows' live width over a copy of the cache: logits of the
+    live rows, every pool leaf but the scratch page, and the lengths, bit
+    for bit. -> a function that undoes the wrap and returns the number of
+    calls checked."""
+    from repro_torch.models import transformer
+    replay, checked = eng._replay_ingest, []
+
+    def leaves(cache):
+        return [cache["lengths"]] + [
+            seg[k][:, :-1] for seg in transformer.attention_segments(
+                eng.cfg, cache) for k in seg]
+
+    def check(graph, toks, slots, offs, lens):
+        if checked:
+            return replay(graph, toks, slots, offs, lens)
+        n = int((slots < eng.max_batch).sum())
+        ref = _cloned(eng.cache)
+        want, ref = transformer.prefill_ragged_paged(
+            eng.cfg, eng.params, torch.from_numpy(toks).to(eng.device), ref,
+            slots, offs, lens,
+            live_pages=eng._chunk_live(int((offs + lens).max())))
+        got = replay(graph, toks, slots, offs, lens)
+        assert torch.equal(got[:n], want[:n]), "replayed logits differ"
+        for a, b in zip(leaves(eng.cache), leaves(ref)):
+            assert torch.equal(a, b), "replayed pages or lengths differ"
+        checked.append(1)
+        return got
+    eng._replay_ingest = check
+
+    def undo():
+        del eng._replay_ingest
+        return len(checked)
+    return undo
+
+
+def ingest_call_ms(torch, eng, rows, reps=5):
+    """One batched ragged ingest call of `rows` rows on `eng` (eager on a
+    cold engine, a replay on a warmed one): `rows` 1,024-token prompts
+    admitted, then `reps` calls of one chunk a row, each from an idle
+    device, timed on the host clock to the call's return (the launches or
+    the replay) and to the device's end; no row finishes, and the requests
+    are cancelled after. On a warmed engine one more call first, held bit
+    for bit to the eager call (`replay_equals_eager`). -> (host ms,
+    synchronized ms), medians."""
+    for i in range(rows):
+        eng.add_request(30_000 + i,
+                        [(5 * i + j) % 251 + 1 for j in range(1024)],
+                        max_new=1)
+    eng._sync_table()
+    if eng._ingest_graphs:
+        undo = replay_equals_eager(torch, eng)
+        try:
+            eng._run_ingest()
+        finally:
+            checked = undo()
+        assert checked == 1, "no ingest was replayed"
+    host, full = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._run_ingest()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append((t1 - t0) * 1e3)
+        full.append((time.perf_counter() - t0) * 1e3)
+    eng.abort_all()
+    return statistics.median(host), statistics.median(full)
+
+
+INGEST_TIMED = ("qwen3-8b", "qwen2-1.5b")
 
 
 def phase_graphs(torch, engines, cold_rows):
@@ -2935,16 +3033,19 @@ def phase_graphs(torch, engines, cold_rows):
     reserved; phase 6's batch on the cold engine (phase 6's) and on the
     warmed one, which must give the same greedy tokens, logprobs within
     phase 4's tolerance (the largest difference logged) and the same
-    launches of every wrapper, with every decode step a replay; a
+    launches of every wrapper, with every decode step and every batched
+    ragged ingest a replay; for qwen3-8b and qwen2-1.5b one ingest call of
+    1 and 4 rows, eager and replayed (`ingest_call_ms`); a
     decode-only step's host wall time, cold and warmed; a sampled
     pair (temperature 0.8, top_k 16, one seed), cold and warmed, which must
     draw the same tokens; then the warmed engine's run profiled as phase 6
-    profiles the cold one, both rows logged side by side. No decode step of
-    a warmed engine may dispatch eagerly."""
+    profiles the cold one, both rows logged side by side. No decode step or
+    ragged ingest of a warmed engine may dispatch eagerly."""
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.sampler import SamplerConfig
     log("== phase 10: warmed engines (the paged decode step captured as one "
-        "CUDA graph per live width) against cold ones")
+        "CUDA graph per live width, the batched ragged ingest one per row "
+        "bucket) against cold ones")
     for name in WARMED:
         cold = engines[name]
         new = PROFILE_DEPTH.get(name, 32)
@@ -2961,6 +3062,15 @@ def phase_graphs(torch, engines, cold_rows):
             return warm_engine(torch, name, make(**kw), plen + new, plen)
         warm = warmed()
         warm_against_cold(torch, name, cold, warm, prompts, new)
+        if name in INGEST_TIMED:
+            for rows in (1, 4):
+                c = ingest_call_ms(torch, cold, rows)
+                w = ingest_call_ms(torch, warm, rows)
+                log(f"  one ingest call of {rows} x {cold.prefill_chunk} "
+                    f"tokens: host {c[0]:.2f} ms eager, {w[0]:.2f} ms "
+                    f"replayed (bit for bit the eager call's logits, pages "
+                    f"and lengths); to the device's end {c[1]:.2f} / "
+                    f"{w[1]:.2f} ms, on the host clock")
         log(f"  a decode-only step (4 live slots): "
             f"{decode_step_ms(torch, cold, plen):.2f} ms cold, "
             f"{decode_step_ms(torch, warm, plen):.2f} ms warmed, on the "

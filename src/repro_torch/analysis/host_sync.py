@@ -40,7 +40,8 @@ _DEVICE_MODULES = ("torch.", "transformer.", "attn_lib.", "moe_lib.",
 # method-name prefixes on `self.` / locals that return device tensors
 _DEVICE_METHOD_PREFIXES = ("_decode_run", "_decode_sample", "_prefill",
                            "_score", "_fork", "_insert", "_feed_chunk",
-                           "_ingest_chunk", "_to_device", "_replay_decode")
+                           "_ingest_chunk", "_to_device", "_replay_decode",
+                           "_replay_ingest")
 _DEVICE_FN_NAMES = {"sample", "token_logprob", "gumbel_noise", "to", "cuda"}
 _READS = {"cpu", "numpy", "tolist", "item"}     # results are host values
 _METADATA = {"shape", "dtype", "device", "ndim", "is_cuda"}

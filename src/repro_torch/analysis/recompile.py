@@ -3,9 +3,10 @@ budget, recast for CUDA graphs).
 
 The JAX engine bounds its jit shape variants; the port compiles nothing
 per shape, but a warmed paged engine captures its decode-and-sample step
-as one CUDA graph per live width (`engine._capture_decode`), and each
-graph holds its own memory and costs a capture. The contract is that the
-set of graphs is bounded and captured in `warmup()`:
+as one CUDA graph per live width (`engine._capture_decode`), a chunked one
+also its batched ragged ingest per row bucket (`engine._capture_ingest`),
+and each graph holds its own memory and costs a capture. The contract is
+that the set of graphs is bounded and captured in `warmup()`:
 
   RA201  a call to a power-of-two bucket helper that does not clamp (the
          helper itself returns `min(...)`, or the call site wraps it in

@@ -104,8 +104,9 @@ ASYNC_SCOPE = ("serving/frontend.py", "serving/loadgen.py")
 # contract). Admission-time first-token draws, offline scoring and
 # train-loop logging carry an inline waiver with a reason.
 HOST_SYNC_ALLOWLIST = {("serving/engine.py", "_harvest")}
-# The only function allowed to capture a CUDA graph.
-GRAPH_CAPTURE_SITES = {("serving/engine.py", "_capture_decode")}
+# The only functions allowed to capture a CUDA graph.
+GRAPH_CAPTURE_SITES = {("serving/engine.py", "_capture_decode"),
+                       ("serving/engine.py", "_capture_ingest")}
 
 # Helpers whose results count as bucketed (a bounded set of graph keys).
 BUCKET_HELPERS = ("_bucket", "_chunk_live", "_live_pages", "_pow2_bucket")
@@ -115,7 +116,7 @@ BOUNDED_ATTR_NAMES = {
     "page_size", "n_pages", "seq_len", "max_sketch_tokens",
 }
 # Attributes of an engine that its captured graphs read by pointer.
-CAPTURED_BUFFERS = ("cache", "params", "_graph_io")
+CAPTURED_BUFFERS = ("cache", "params", "_graph_io", "_ingest_io")
 
 # ---------------------------------------------------------------------------
 # Inline waiver pragma, after the language's comment marker:

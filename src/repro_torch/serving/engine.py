@@ -42,7 +42,8 @@ While `repro_torch.trace` records, the engine's host work is spans: each
 `step()` is an `engine.step` (attributes: the engine's `name`, `decode`
 the decode rows' cached lengths before the step, `ingest` the ragged rows'
 (offset, n), `pages` in use after it, `cow` and `new_pages` made by page
-growth, and `graph` whether a decode graph was replayed) over its halves
+growth, `graph` whether a decode graph was replayed and `ingest_graph`
+whether the ragged ingest was) over its halves
 `engine.readback` (`what`: "decode" or "first_draw"), `engine.commit`,
 `engine.plan`, `engine.ingest` and `engine.decode`; `prefill_prefix` is an
 `engine.prefix` (`chunks`: the (offset, n) of each prefill call) and an
@@ -73,11 +74,17 @@ width, all in one memory pool; from then on every decode step whose live
 width was warmed copies its inputs into the graphs' static buffers, draws
 the Gumbel noise eagerly from the engine's generator (so a warmed engine
 samples draw for draw as a cold one), and replays the graph: one
-`cudaGraphLaunch` where a cold step launches every kernel from Python. The
-graphs read the cache leaves and parameters by address, so a warmed engine
-raises if one of them moved to other storage; nothing is captured again
-silently, and a failed capture raises. Ingest, monolithic prefill, the
-dense backend's decode and every engine on the CPU stay eager.
+`cudaGraphLaunch` where a cold step launches every kernel from Python. A
+chunked engine with the batched ragged ingest also captures that call
+(`transformer.prefill_ragged_paged`) as one graph per row bucket, at the
+full block-table width, into the same pool; each ingest then writes its
+planned rows into one pinned staging block, moves them to the static
+inputs by one copy and replays the bucket's graph. The graphs read the
+cache leaves and parameters by address, so a warmed engine raises if one
+of them moved to other storage (checked once a step); nothing is captured
+again silently, and a failed capture raises. The serial scheduler's chunk,
+shared-prefix and monolithic prefill, the dense backend's decode and every
+engine on the CPU stay eager.
 
 An encoder-decoder (whisper) raises NotImplementedError: a request
 carries tokens only, and the JAX engine passes no frames either. A VLM
@@ -189,7 +196,8 @@ def _bucket(n: int, lo: int = 32) -> int:
 
 def _pow2_bucket(n: int, hi: int) -> int:
     """Power-of-two bucket from 1, clamped to `hi` (the JAX package's swap
-    promote upload widths, which `warmup()` enumerates)."""
+    promote upload widths, and the ragged ingest's row buckets, which
+    `warmup()` enumerates)."""
     b = 1
     while b < n:
         b *= 2
@@ -209,12 +217,34 @@ def _tensors(tree):
 
 
 @dataclasses.dataclass
-class _DecodeGraph:
-    """One captured paged decode-and-sample step at one live width."""
+class _Graph:
+    """One captured step: the paged decode-and-sample step at one live
+    width, or the batched ragged ingest at one row bucket."""
     graph: "torch.cuda.CUDAGraph"
     # (wrapper, launches) of one replay: a replay runs no Python, so the
     # engine adds these to the wrappers' counters itself
     launches: List[Tuple[object, int]]
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for wrapper, n in self.launches:
+            wrapper.launches += n
+
+
+def _launch_counts() -> List[Tuple[object, int]]:
+    return [(w, w.launches) for w in kernels.wrappers().values()]
+
+
+def _taken_back(before: List[Tuple[object, int]]) -> List[Tuple[object, int]]:
+    """The launches a capture added to the wrappers' counters since
+    `before`, taken back (a capture launches nothing) and returned for its
+    replays to add."""
+    out = []
+    for w, n0 in before:
+        if w.launches > n0:
+            out.append((w, w.launches - n0))
+        w.launches = n0
+    return out
 
 
 @dataclasses.dataclass
@@ -227,6 +257,37 @@ class _GraphIO:
     active: torch.Tensor            # (B,) bool
     noise: Optional[torch.Tensor]   # (B, V) float32
     out: torch.Tensor               # (2, B) float32
+
+
+class _IngestIO:
+    """The captured ingest's static buffers, shared by every row bucket:
+    one device block holding the rows' slots, offsets and lens (int32, B
+    each) and then their tokens (int64, (B, C)), a pinned host block of the
+    same layout that `_replay_ingest` fills, and the (B, V) logits output.
+    A bucket of R rows reads the first R entries of each, so one copy of
+    the header and R token rows moves a step's inputs. On the card
+    `copied` marks the last copy out of the host block, which must have
+    run before the block is written again (on the CPU, where the tests
+    replay the graphs' body, the copy is synchronous and there is none)."""
+
+    def __init__(self, B: int, C: int, device: torch.device):
+        cuda = device.type == "cuda"
+        self.header = -(-3 * B * 4 // 16) * 16
+        n = self.header + B * C * 8
+        self.host = torch.empty(n, dtype=torch.uint8, pin_memory=cuda)
+        self.dev = torch.empty(n, dtype=torch.uint8, device=device)
+        self.host_ints = self.host[:3 * B * 4].view(torch.int32).view(3, B)
+        self.host_tokens = self.host[self.header:].view(torch.int64).view(B, C)
+        ints = self.dev[:3 * B * 4].view(torch.int32).view(3, B)
+        self.slots, self.offsets, self.lens = ints[0], ints[1], ints[2]
+        self.tokens = self.dev[self.header:].view(torch.int64).view(B, C)
+        # every row a sentinel (slot B, no tokens): a dispatch over these
+        # writes only the scratch page
+        self.host.zero_()
+        self.host_ints[0] = B
+        self.dev.copy_(self.host)
+        self.copied = torch.cuda.Event() if cuda else None
+        self.logits: Optional[torch.Tensor] = None      # (B, V)
 
 
 class InferenceEngine:
@@ -313,7 +374,7 @@ class InferenceEngine:
         # captured by warmup() on the card (`_capture_decode`) and replayed
         # by step(); none on the CPU, on the dense backend, or before
         # warmup(), where every step dispatches eagerly
-        self._graphs: Dict[int, _DecodeGraph] = {}
+        self._graphs: Dict[int, _Graph] = {}
         self._graph_io: Optional[_GraphIO] = None
         self._graph_stream = None
         self._graph_pool = None
@@ -322,6 +383,15 @@ class InferenceEngine:
         self._graph_ptrs: Optional[List[int]] = None
         self._graph_sampler: Optional[SamplerConfig] = None
         self.graph_replays = 0
+        # CUDA graphs of the batched ragged ingest by row bucket, captured
+        # by warmup() on a chunked engine on the card (`_capture_ingest`)
+        # and replayed by `_run_ingest`; where none exists the call runs
+        # eagerly
+        self._ingest_graphs: Dict[int, _Graph] = {}
+        self._ingest_io: Optional[_IngestIO] = None
+        self.ingest_replays = 0
+        # the graphs' pointers were checked this step (`_check_once`)
+        self._ptrs_checked = False
         # chunked ingest is the paged backend's and needs an attention-only
         # stack; a dense engine, or a recurrent stack, prefills
         # monolithically whatever cfg.prefill_chunk says
@@ -1092,15 +1162,14 @@ class InferenceEngine:
         self._pending_decode = (plan.commits, packed)
         return graph is not None
 
-    def _replay_decode(self, graph: _DecodeGraph, plan: StepPlan
-                       ) -> torch.Tensor:
+    def _replay_decode(self, graph: _Graph, plan: StepPlan) -> torch.Tensor:
         """Replay a captured decode-and-sample step: the plan's inputs are
         copied into the static buffers through pinned memory, the Gumbel
         noise is drawn eagerly from the engine's generator (the draw a cold
         engine makes inside `sample`, whatever a capture would do with the
         generator), and the wrappers' counters take the replay's launches.
         Returns a clone of the packed output."""
-        self._check_captured()
+        self._check_once()
         io = self._graph_io
         io.tokens.copy_(torch.from_numpy(plan.last).pin_memory(),
                         non_blocking=True)
@@ -1108,10 +1177,8 @@ class InferenceEngine:
                         non_blocking=True)
         if io.noise is not None:
             gumbel_noise(io.noise.shape, self.gen, self.device, out=io.noise)
-        graph.graph.replay()
+        graph.replay()
         self.graph_replays += 1
-        for wrapper, n in graph.launches:
-            wrapper.launches += n
         # cloned: the next replay rewrites io.out, and this step's result is
         # read only at the next step's harvest; the clone keeps it whatever
         # runs in between
@@ -1130,8 +1197,39 @@ class InferenceEngine:
         if ptrs != self._graph_ptrs:
             raise RuntimeError(
                 "a cache leaf or parameter moved to other storage after the "
-                "decode graphs were captured over it: update tensors in "
-                "place on a warmed engine")
+                "graphs were captured over it: update tensors in place on a "
+                "warmed engine")
+
+    def _check_once(self) -> None:
+        """`_check_captured` before a step's first replay, ingest or decode:
+        nothing the engine does inside a step moves a leaf."""
+        if not self._ptrs_checked:
+            self._check_captured()
+            self._ptrs_checked = True
+
+    def _capture_stream(self):
+        """The stream every capture runs on, made with the graph pool that
+        every graph shares at the first capture, when the pointers and the
+        sampler the graphs are held to are taken; a later capture checks
+        them instead."""
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_ptrs = [t.data_ptr() for t in
+                                _tensors((self.cache, self.params))]
+            self._graph_sampler = self.sampler
+        else:
+            self._check_captured()
+        return self._graph_stream
+
+    def _on_stream(self, stream, body) -> None:
+        """Run `body` eagerly on `stream`, ordered after and before the
+        current stream's work."""
+        current = torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            body()
+        current.wait_stream(stream)
 
     def _capture_decode(self, live: int) -> None:
         """Warm the paged decode-and-sample step at read width `live` on the
@@ -1144,6 +1242,7 @@ class InferenceEngine:
         the counts it added to the wrappers' counters are taken back and
         kept for its replays. A failed capture raises."""
         B = self.max_batch
+        stream = self._capture_stream()
         if self._graph_io is None:
             noise = None
             if self.sampler.temperature > 0:
@@ -1156,49 +1255,104 @@ class InferenceEngine:
                 noise=noise,
                 out=torch.zeros((2, B), dtype=torch.float32,
                                 device=self.device))
-            self._graph_stream = torch.cuda.Stream(self.device)
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        else:
-            self._check_captured()
-        io, stream = self._graph_io, self._graph_stream
+        io = self._graph_io
         io.tokens.zero_()
         io.active.zero_()
 
         def body():
             io.out.copy_(self._decode_sample(io.tokens, io.active, live,
                                              io.noise))
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            body()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self._on_stream(stream, body)
         if live in self._graphs:
             return
-        wrappers = list(kernels.wrappers().values())
-        before = [w.launches for w in wrappers]
+        before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
             body()
-        launches = []
-        for w, n0 in zip(wrappers, before):
-            if w.launches > n0:
-                launches.append((w, w.launches - n0))
-            w.launches = n0
-        self._graphs[live] = _DecodeGraph(graph, launches)
-        if self._graph_ptrs is None:
-            self._graph_ptrs = [t.data_ptr() for t in
-                                _tensors((self.cache, self.params))]
-            self._graph_sampler = self.sampler
+        self._graphs[live] = _Graph(graph, _taken_back(before))
 
-    def _run_ingest(self) -> List[Tuple[int, int, List[int]]]:
+    def _ingest(self, rows: int) -> None:
+        """The batched ragged ingest over the first `rows` rows of the
+        static buffers at the full block-table width, its logits into the
+        static output: the body of an ingest graph."""
+        io = self._ingest_io
+        logits, self.cache = transformer.prefill_ragged_paged(
+            self.cfg, self.params, io.tokens[:rows], self.cache,
+            io.slots[:rows], io.offsets[:rows], io.lens[:rows],
+            live_pages=self.pages_per_seq)
+        io.logits[:rows].copy_(logits)
+
+    def _capture_ingest(self, rows: int) -> None:
+        """Capture the batched ragged ingest at row bucket `rows` as a CUDA
+        graph into the engine's graph pool, at the full block-table width:
+        the attention kernel's key loop ends at each row's offset + length
+        and the write plans drop every position past it, so the width
+        changes no work and no number against the eager call at its live
+        width. The first capture allocates the static buffers (`_IngestIO`)
+        and makes one eager dispatch of one sentinel row on the capture
+        stream, which writes only the scratch page and gives the logits
+        output its dtype. A failed capture raises."""
+        stream = self._capture_stream()
+        if self._ingest_io is None:
+            io = _IngestIO(self.max_batch, self.prefill_chunk, self.device)
+            self._ingest_io = io
+
+            def probe():
+                logits, self.cache = transformer.prefill_ragged_paged(
+                    self.cfg, self.params, io.tokens[:1], self.cache,
+                    io.slots[:1], io.offsets[:1], io.lens[:1],
+                    live_pages=self.pages_per_seq)
+                io.logits = torch.empty((self.max_batch, logits.shape[1]),
+                                        dtype=logits.dtype,
+                                        device=self.device)
+            self._on_stream(stream, probe)
+        if rows in self._ingest_graphs:
+            return
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+            self._ingest(rows)
+        self._ingest_graphs[rows] = _Graph(graph, _taken_back(before))
+
+    def _replay_ingest(self, graph: _Graph, toks: np.ndarray,
+                       slots: np.ndarray, offs: np.ndarray, lens: np.ndarray
+                       ) -> torch.Tensor:
+        """Replay the captured ingest of the rows' bucket: the planned rows
+        go into the pinned staging block, once the last copy out of it has
+        run (it has, unless the device is a whole ingest call behind, which
+        only steps that ingest alone allow), and to the static inputs by one
+        copy; the wrappers' counters take the replay's launches. Returns the
+        rows' logits: a view of the static output, which the next replay
+        rewrites after the current stream has read it."""
+        self._check_once()
+        io = self._ingest_io
+        R = len(slots)
+        if io.copied is not None:
+            # repro-analysis: disable=RA104 reason=waits for the last copy out of the persistent staging block before rewriting it; that copy has run unless the device lags a whole ingest call
+            io.copied.synchronize()
+        io.host_ints[:, :R].copy_(torch.from_numpy(np.stack([slots, offs,
+                                                              lens])))
+        io.host_tokens[:R].copy_(torch.from_numpy(toks))
+        n = io.header + toks.nbytes
+        io.dev[:n].copy_(io.host[:n], non_blocking=True)
+        if io.copied is not None:
+            io.copied.record()
+        graph.replay()
+        self.ingest_replays += 1
+        return io.logits[:R]
+
+    def _run_ingest(self) -> Tuple[List[Tuple[int, int, List[int]]], bool]:
         """Batched ragged chunk ingest: EVERY ingesting slot's next chunk in
-        one `prefill_ragged_paged` call. Slots whose final chunk lands here
-        draw their first token now, in (priority, admission) order, and join
-        the decode batch next step. Returns the rows ingested, (slot,
-        offset, chunk) in launch order."""
+        one `prefill_ragged_paged` call, bucketed to R = min(the next power
+        of two, max_batch) rows; the bucket's captured graph is replayed
+        when warmup() captured one. Slots whose final chunk lands here draw
+        their first token now, in (priority, admission) order, and join the
+        decode batch next step. Returns the rows ingested, (slot, offset,
+        chunk) in launch order, and whether a graph was replayed."""
         ing = [i for i, s in enumerate(self.slots)
                if s.active and s.prefill_toks]
         if not ing:
-            return []
+            return [], False
         ing.sort(key=lambda j: (-self.slots[j].priority,
                                 self.slots[j].arrival))
         C = self.prefill_chunk
@@ -1209,9 +1363,7 @@ class InferenceEngine:
             s.prefill_toks = s.prefill_toks[C:]
             rows.append((i, s.ctx_len, chunk))
             s.ctx_len += len(chunk)
-        R = 1
-        while R < len(rows):
-            R *= 2                      # bucket rows (lo=1)
+        R = _pow2_bucket(len(rows), self.max_batch)
         toks = np.zeros((R, C), np.int64)
         # padding rows carry the out-of-range slot `max_batch`: their cache
         # writes drop and their reads are discarded
@@ -1226,15 +1378,19 @@ class InferenceEngine:
         self.kv_bytes_read += self._page_kv_bytes * sum(
             -(-(off + len(chunk)) // self.page_size)
             for _, off, chunk in rows)
+        graph = self._ingest_graphs.get(R)
         with trace.span("engine.ingest"):
-            logits, self.cache = transformer.prefill_ragged_paged(
-                self.cfg, self.params, self._to_device(toks), self.cache,
-                slots, offs, lens, live_pages=live)
+            if graph is not None:
+                logits = self._replay_ingest(graph, toks, slots, offs, lens)
+            else:
+                logits, self.cache = transformer.prefill_ragged_paged(
+                    self.cfg, self.params, self._to_device(toks), self.cache,
+                    slots, offs, lens, live_pages=live)
         finished = [(i, logits[r:r + 1]) for r, (i, _, _) in enumerate(rows)
                     if self.slots[i].active and not self.slots[i].prefill_toks]
         if finished:
             self._first_draws(finished)
-        return rows
+        return rows, graph is not None
 
     def step(self) -> bool:
         """One engine step, structured plan/run: (0) harvest last step's
@@ -1249,6 +1405,7 @@ class InferenceEngine:
         chunk). Returns True if work was done (including a harvest-only
         step)."""
         with trace.span("engine.step") as sp:
+            self._ptrs_checked = False
             if self.step_hook is not None:
                 self.step_hook(self)
             worked = self._harvest()
@@ -1293,8 +1450,9 @@ class InferenceEngine:
                     # ONE table push per step, before the first launch that
                     # reads it
                     self._sync_table()
+            ingest_replayed = False
             if batched:
-                rows = self._run_ingest()
+                rows, ingest_replayed = self._run_ingest()
                 if sp is not None:
                     chunks = tuple((off, len(c)) for _, off, c in rows)
                 worked = bool(rows) or worked
@@ -1305,7 +1463,8 @@ class InferenceEngine:
             if sp is not None:
                 sp.attrs.update(engine=self.name, decode=decode,
                                 ingest=chunks, cow=grown[0],
-                                new_pages=grown[1], graph=replayed)
+                                new_pages=grown[1], graph=replayed,
+                                ingest_graph=ingest_replayed)
                 if paged:
                     sp.attrs["pages"] = self.alloc.pages_in_use
             return worked
@@ -1332,7 +1491,11 @@ class InferenceEngine:
         width and the decode kernel's cached occupancy and shared-memory
         limit. A paged engine on the card also captures its decode-and-
         sample step as one CUDA graph per live width (`_capture_decode`),
-        which step() then replays.
+        which step() then replays, and a chunked one with the batched
+        ragged ingest that call at every row bucket min(2^k, max_batch)
+        (`_capture_ingest`), whatever `ingest_rows` says: no step ingests
+        more rows than there are slots. The captures add nothing to the
+        count.
 
         State-neutral: the generator is not drawn from, and nothing is
         written but the scratch page. Decode runs with every row inactive,
@@ -1364,13 +1527,7 @@ class InferenceEngine:
                 count += 1
             C = self.prefill_chunk
             if C and self.ragged_ingest:
-                rbs = set()
-                for n in ingest_rows:
-                    r = 1
-                    while r < min(n, B):
-                        r *= 2
-                    rbs.add(r)
-                for rb in sorted(rbs):
+                for rb in sorted({_pow2_bucket(n, B) for n in ingest_rows}):
                     toks = torch.zeros((rb, C), dtype=torch.int64, device=dev)
                     sent = np.full((rb,), B, np.int32)
                     zero = np.zeros((rb,), np.int32)
@@ -1379,6 +1536,13 @@ class InferenceEngine:
                             self.cfg, self.params, toks, self.cache, sent,
                             zero, zero, live_pages=live)
                         count += 1
+                if dev.type == "cuda":
+                    # the largest bucket first: the smaller captures then
+                    # reuse the pool memory it freed
+                    for rb in sorted({_pow2_bucket(n, B)
+                                      for n in range(1, B + 1)},
+                                     reverse=True):
+                        self._capture_ingest(rb)
             elif C:
                 toks = torch.zeros((1, C), dtype=torch.int64, device=dev)
                 for live in lives:

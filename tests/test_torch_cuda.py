@@ -749,6 +749,55 @@ def test_warmed_engine_equals_cold_on_card(gen, which, sampled):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("which", ["float32", "bfloat16", "int8"])
+def test_replayed_ingest_equals_eager_at_every_bucket(gen, which):
+    """A warmed 6-slot chunked engine captures the batched ragged ingest at
+    row buckets 1, 2, 4 and 6 and replays one for every ingest: each replay
+    gives the eager call's logits rows, K/V pages (and scales) and cached
+    lengths bit for bit at the rows' bucketed live width, over sentinel
+    padding rows, partial chunks, later chunks and fork suffixes (float32,
+    bf16, and an int8 pool under bf16), credits each wrapper the eager
+    call's launches (the ragged prefill kernel once a layer), and the
+    engine's `ingest_replays` counts every ingest."""
+    from _ingest_graphs import IngestSpy, drive
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = {"float32": _tiny(), "bfloat16": _tiny().with_(dtype="bfloat16"),
+           "int8": _tiny("int8").with_(dtype="bfloat16")}[which]
+    params = _to(transformer.init_params(cfg, seed=0, device="cpu"), "cuda")
+    kw = dict(max_batch=6, max_len=128, page_size=16, device="cuda")
+    warm = InferenceEngine(cfg, params, **kw)
+    assert warm.warmup(prompt_lens=(64,)) > 0
+    assert sorted(warm._ingest_graphs) == [1, 2, 4, 6]
+    replayed = []
+    run_ingest = warm._run_ingest
+
+    def counted():
+        rows, graph = run_ingest()
+        if rows:
+            replayed.append(graph)
+        return rows, graph
+    warm._run_ingest = counted
+    try:
+        with IngestSpy(warm, exact=True) as spy:
+            got = drive(warm)
+    finally:
+        del warm._run_ingest
+    spy.covered([1, 2, 4, 6], chunk=16, page=16)
+    assert all(replayed), "an ingest ran eagerly on the warmed engine"
+    assert warm.ingest_replays == len(spy.calls) == len(replayed)
+    ragged = ("paged_prefill_attention_ragged_quant" if which == "int8"
+              else "paged_prefill_attention_ragged")
+    assert all(c["launches"].get(ragged) == cfg.n_layers
+               for c in spy.calls)
+    want = drive(InferenceEngine(cfg, params, **kw))
+    for (tg, lg), (tc, lc) in zip(got, want):
+        assert tg == tc
+        torch.testing.assert_close(torch.tensor(lg), torch.tensor(lc),
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_moved_leaf_after_capture_raises(gen):
     """A cache leaf put in other storage after the capture makes the next
     decode step raise instead of replaying over the old pointers."""

@@ -62,6 +62,27 @@ def test_three_way_greedy(params, chunk, page):
     assert serial_eng.alloc.pages_in_use == 0
 
 
+@pytest.mark.parametrize("B", [5, 6])
+def test_three_way_at_capped_row_buckets(params, B):
+    """The three-way invariant where the ragged call's row bucket is capped
+    at max_batch (5 or 6 rows, not 8), with six prompts and a fan-out of
+    B - 1 suffixes at once."""
+    _, tp = params
+    prompts = [[(13 * i + j) % 97 + 1 for j in range(n)]
+               for i, n in enumerate((37, 16, 40, 70, 23, 100))]
+    prefix = [(i % 90) + 3 for i in range(29)]
+    suffixes = [[4 + i] * (3 + 7 * i) for i in range(B - 1)]
+    out = {}
+    for name, chunk, kw in (("mono", 0, {}), ("serial", 16,
+                                              dict(ragged_ingest=False)),
+                            ("batched", 16, {})):
+        eng = _engine(tp, chunk, max_batch=B, **kw)
+        out[name] = (eng.generate(prompts, max_new=10)
+                     + eng.generate_fanout(prefix, suffixes, max_new=8))
+    assert_same_replay(out["serial"], out["mono"])
+    assert_same_replay(out["batched"], out["mono"])
+
+
 def test_three_way_fork_suffixes(params):
     jp, tp = params
     prefix = [(i % 100) + 1 for i in range(70)]

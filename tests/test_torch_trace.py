@@ -125,6 +125,7 @@ def test_parents_follow_tasks_under_a_running_profiler(params):
     assert any(s.attrs["decode"] for s in steps)
     assert any(s.attrs["ingest"] for s in steps)
     assert all(s.attrs["graph"] is False for s in steps)
+    assert all(s.attrs["ingest_graph"] is False for s in steps)
     # the profiler stopped: nothing more is recorded
     n = len(trace.spans())
     with trace.span("engine.step"):

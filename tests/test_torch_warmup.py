@@ -229,3 +229,96 @@ def test_moved_storage_is_refused(cloud_params):
     eng.sampler = SamplerConfig(temperature=0.5)
     with pytest.raises(RuntimeError, match="sampler"):
         eng._check_captured()
+
+
+# ---------------------------------------------------------------------------
+# The batched ragged ingest's graphs: one a row bucket min(2^k, max_batch),
+# captured on the card only; on the CPU their body runs over the staged rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,buckets", [
+    (3, [1, 2, 3]), (6, [1, 2, 4, 6]), (8, [1, 2, 4, 8]),
+    (48, [1, 2, 4, 8, 16, 32, 48]), (96, [1, 2, 4, 8, 16, 32, 64, 96])])
+def test_ingest_row_bucket_is_capped_power_of_two(B, buckets):
+    got = {engine_mod._pow2_bucket(n, B) for n in range(1, B + 1)}
+    assert sorted(got) == buckets
+
+
+@pytest.mark.parametrize("B", [3, 6])
+def test_ragged_ingest_call_carries_the_capped_bucket(params, monkeypatch,
+                                                      B):
+    """Every ingesting slot in one call of min(2^k, max_batch) rows: a
+    full engine of 3 or 6 slots ingests 3 or 6 rows, not 4 or 8."""
+    eng = _engine(params, "chunked-ragged", max_batch=B, max_len=128)
+    seen = []
+    ragged = transformer.prefill_ragged_paged
+
+    def spy(cfg, p, toks, cache, slots, offs, lens, **kw):
+        seen.append((toks.shape[0], int((slots < B).sum())))
+        return ragged(cfg, p, toks, cache, slots, offs, lens, **kw)
+    monkeypatch.setattr(transformer, "prefill_ragged_paged", spy)
+    eng.generate([[9 + i] * 40 for i in range(B)], max_new=2)
+    assert (B, B) in seen
+    assert all(r == engine_mod._pow2_bucket(n, B) for r, n in seen)
+
+
+def test_cpu_engine_replays_no_ingest_graph(params):
+    """On the CPU nothing is captured: every ingest runs eagerly, the
+    counter stays 0 and no `engine.step` span says its ingest replayed."""
+    from repro_torch import trace
+    eng = _engine(params, "chunked-ragged", max_len=128)
+    assert eng.warmup(**ARGS) > 0
+    assert not eng._ingest_graphs and eng._ingest_io is None
+    trace.clear()
+    trace.enable()
+    try:
+        eng.generate(PROMPTS, max_new=4)
+        spans = [s for s in trace.spans() if s.name == "engine.step"]
+    finally:
+        trace.disable()
+        trace.clear()
+    assert eng.ingest_replays == 0
+    ingests = [s for s in spans if s.attrs.get("ingest")]
+    assert ingests
+    assert all(s.attrs["ingest_graph"] is False for s in spans
+               if "ingest_graph" in s.attrs)
+    assert all("ingest_graph" in s.attrs for s in ingests)
+
+
+class _Body:
+    """A stand-in for a captured ingest graph on the CPU: its replay runs
+    the graph's body (`InferenceEngine._ingest`) over the static buffers."""
+
+    def __init__(self, eng, rows):
+        self.eng, self.rows = eng, rows
+
+    def replay(self):
+        self.eng._ingest(self.rows)
+
+
+@pytest.mark.parametrize("kv_dtype", ["", "int8"])
+def test_ingest_graph_body_over_staged_rows_equals_eager(params, kv_dtype):
+    """The replay path with the graphs' body in place of the graphs: the
+    rows staged through the host block into the static buffers, the call at
+    the full block-table width and the logits read from the static output
+    give the eager call's logits, pages and lengths at every row bucket,
+    over sentinel padding, partial chunks, later chunks and fork suffixes,
+    and a cold engine's tokens and logprobs."""
+    from _ingest_graphs import IngestSpy, drive
+    cfg = TINY.with_(prefill_chunk=16, kv_dtype=kv_dtype)
+    kw = dict(max_batch=6, max_len=128, page_size=16, device="cpu")
+    cold = InferenceEngine(cfg, params["tiny"][1], **kw)
+    warm = InferenceEngine(cfg, params["tiny"][1], **kw)
+    io = engine_mod._IngestIO(6, 16, warm.device)
+    io.logits = torch.empty((6, cfg.vocab_size))
+    warm._ingest_io = io
+    warm._graph_ptrs, warm._graph_sampler = _ptrs(warm), warm.sampler
+    warm._ingest_graphs = {R: engine_mod._Graph(_Body(warm, R), [])
+                           for R in (1, 2, 4, 6)}
+    with IngestSpy(warm, exact=True) as spy:
+        got = drive(warm)
+    spy.covered([1, 2, 4, 6], chunk=16, page=16)
+    assert warm.ingest_replays == len(spy.calls)
+    want = drive(cold)
+    assert cold.ingest_replays == 0
+    assert got == want
